@@ -1,0 +1,3 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig, get_config, list_configs, register, smoke_config,
+)

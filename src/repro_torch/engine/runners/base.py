@@ -1,0 +1,54 @@
+"""Runner-family registry of the port (own copy of the JAX package's
+``engine/runners/base.py``, DESIGN.md §12). It is a separate registry
+object, so registering a family here can never replace an entry of the
+JAX package's registry. Only the paged family is registered so far; the
+slot family joins with its slice."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, List
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclass
+class SequenceState:
+    seq_id: str
+    tokens: List[int]                   # full token ids (prompt + generated)
+    n_prompt: int
+    n_cached: int = 0                   # tokens with KV materialized
+    pages: List[int] = field(default_factory=list)
+    reused_pages: int = 0               # prefix-cache pages (shared, pinned)
+
+
+@dataclass(frozen=True)
+class RunnerFamily:
+    """One registry entry: a predicate over ``ModelConfig`` and the runner
+    class (the facade over a prefill/decode pair) that executes it."""
+    name: str
+    runner_cls: type
+    matches: Callable[[ModelConfig], bool]
+
+
+_FAMILIES: List[RunnerFamily] = []
+
+
+def register_family(family: RunnerFamily) -> RunnerFamily:
+    """Append a family (order = match priority); a same-named entry is
+    replaced in place."""
+    for i, f in enumerate(_FAMILIES):
+        if f.name == family.name:
+            _FAMILIES[i] = family
+            return family
+    _FAMILIES.append(family)
+    return family
+
+
+def resolve_family(cfg: ModelConfig) -> RunnerFamily:
+    """First registered family whose predicate accepts ``cfg``."""
+    for fam in _FAMILIES:
+        if fam.matches(cfg):
+            return fam
+    raise LookupError(
+        f"no runner family of the port matches model "
+        f"{getattr(cfg, 'name', cfg)!r}")

@@ -1,0 +1,256 @@
+"""Paged-KV runner family of the port (torch counterpart of
+``repro/engine/runners/paged.py``): the colocated paged path's prefill and
+decode phases, with attention through the port's kernels.
+
+  * ``PagedPrefillRunner.prefill_ragged`` — the step's whole ragged prefill
+    plan in one pass: flat token stream, one KV write per layer across all
+    sequences, attention by the paged varlen prefill kernel over each
+    entry's block-table row (where JAX gathers a page run per token), and
+    the first token sampled from the chunk-final rows.
+  * ``PagedDecodeRunner`` — the decode hot loop: the legacy per-step
+    ``decode`` and the fused K-step ``decode_fused`` horizon, attention by
+    the paged decode kernel (where the JAX engine calls its jnp oracle).
+
+PyTorch runs eagerly, so a "dispatch" is the sequence of launches one call
+enqueues; ``decode_fused`` enqueues its K steps with no host sync inside
+the horizon. Capturing a horizon as one CUDA graph is later work.
+
+The KV pool is updated in place (``index_put_``) where the JAX package
+donates the pool to its jit and gets a new one back. Padding tokens and
+padding rows all write slot 0 of the pool's scratch page; those duplicate
+writes race, which is harmless because nothing reads that page.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.engine.runners.base import SequenceState
+from repro_torch.engine.sampling import greedy_core, sample_core
+from repro_torch.kernels import flash_prefill as FP
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
+
+
+class PagedRunner:
+    """Family facade: shared state (params, pool, per-layer windows) and
+    delegation to the two phase runners."""
+
+    def __init__(self, cfg, params, pool, attn_impl: str = "auto"):
+        self.cfg = cfg
+        self.pool = pool
+        self.params = params
+        self.attn_impl = attn_impl          # "auto" (kernels) | "ref"
+        self.layers = [T.layer(params, li) for li in range(cfg.n_layers)]
+        # None on global layers: the kernels then skip the window test
+        self.windows = [w if w < T.GLOBAL_WINDOW else None
+                        for w in T.window_schedule(cfg)]
+        self.prefill = PagedPrefillRunner(self)
+        self.decoder = PagedDecodeRunner(self)
+
+    def layer_attn_inputs(self, li: int, q, k_new, v_new, pages, slots):
+        """Write a layer's fresh K/V into the pool in place; return the
+        query in the pool's dtype and the layer's pool views."""
+        kp, vp = self.pool.k[li], self.pool.v[li]
+        kp.index_put_((pages, slots), k_new.to(kp.dtype))
+        vp.index_put_((pages, slots), v_new.to(vp.dtype))
+        return q.to(kp.dtype), kp, vp
+
+    def decode(self, seqs: List[SequenceState]) -> torch.Tensor:
+        return self.decoder.decode(seqs)
+
+    def decode_fused(self, state, k_steps: int) -> torch.Tensor:
+        return self.decoder.decode_fused(state, k_steps)
+
+    def prefill_ragged(self, *args, **kw):
+        return self.prefill.prefill_ragged(*args, **kw)
+
+    def warmup_fused(self, batch_buckets, page_buckets, horizons, gen) -> int:
+        return self.decoder.warmup_fused(batch_buckets, page_buckets,
+                                         horizons, gen)
+
+    def warmup_ragged(self, token_buckets, page_buckets, n_rows: int) -> int:
+        return self.prefill.warmup_ragged(token_buckets, page_buckets, n_rows)
+
+
+# ===========================================================================
+# Prefill phase
+# ===========================================================================
+
+
+class PagedPrefillRunner:
+    def __init__(self, rt: PagedRunner):
+        self.rt = rt
+
+    @torch.no_grad()
+    def prefill_ragged(self, tokens, positions, pages, slots, cu_tokens,
+                       entry_bt, entry_start, tiles, final_idx, temps,
+                       top_ps, all_greedy: bool, gen: torch.Generator):
+        """The whole step's prefill plan (DESIGN.md §12). Operands, all on
+        the pool's device:
+          tokens/positions/pages/slots  (Tb,)   flat ragged token stream;
+                                                padding tokens point at the
+                                                scratch page, slot 0, pos 0
+          cu_tokens (Sb+1,), entry_bt (Sb, Pb), entry_start (Sb,)
+                                                entry-level block tables
+          tiles (n_tiles, 3)                    the kernel's query tiles
+                                                (``flash_prefill.build_tiles``)
+          final_idx (Sb,)                       each entry's chunk-final row
+          temps/top_ps (Sb,)                    per-entry sampling params
+        ``all_greedy`` is decided on the host from ``temps``. Returns
+        (logits (Sb, Vp), sampled tokens (Sb,) int32)."""
+        rt = self.rt
+        cfg = rt.cfg
+        x = T.embed(cfg, rt.params, tokens[:, None])          # (Tb,1,D)
+        pos2 = positions[:, None]
+        pages, slots = pages.long(), slots.long()
+        for li, p in enumerate(rt.layers):
+            q, k_new, v_new = T.block_qkv(cfg, p, x, pos2)
+            q, kp, vp = rt.layer_attn_inputs(li, q[:, 0], k_new[:, 0],
+                                             v_new[:, 0], pages, slots)
+            o = ops.paged_prefill(q, kp, vp, cu_tokens, entry_bt,
+                                  entry_start, tiles,
+                                  softcap=cfg.attn_logit_softcap,
+                                  window=rt.windows[li], impl=rt.attn_impl)
+            x = T.block_out(cfg, p, x, o[:, None].to(x.dtype))
+        # unembed ONLY the chunk-final rows — (Sb, Vp), not (Tb, Vp)
+        logits = T.unembed(cfg, rt.params, x[final_idx.long()])[:, 0]
+        if all_greedy:
+            toks = greedy_core(logits, cfg.vocab_size)
+        else:
+            toks = sample_core(logits, temps, top_ps, gen, cfg.vocab_size)
+        return logits, toks
+
+    def warmup_ragged(self, token_buckets, page_buckets, n_rows: int) -> int:
+        """Run every token bucket x page bucket once with every token parked
+        on the scratch page (all-padding plan, so no live page is touched):
+        builds the kernels and warms the allocator ahead of serving.
+        Returns the number of bucket shapes run."""
+        rt = self.rt
+        dev = rt.pool.device
+        scratch = rt.pool.scratch_page()
+        cu = [0] * (n_rows + 1)
+        n = 0
+        for tb in sorted(set(token_buckets)):
+            for pb in sorted(set(page_buckets)):
+                def i32(a):
+                    return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+                self.prefill_ragged(
+                    i32(np.zeros(tb)), i32(np.zeros(tb)),
+                    i32(np.full(tb, scratch)), i32(np.zeros(tb)), i32(cu),
+                    i32(np.full((n_rows, pb), scratch)), i32(np.zeros(n_rows)),
+                    i32(FP.build_tiles(cu, tb)), i32(np.zeros(n_rows)),
+                    None, None, True, None)
+                n += 1
+        return n
+
+
+# ===========================================================================
+# Decode phase (the hot loop of DESIGN.md §8)
+# ===========================================================================
+
+
+class PagedDecodeRunner:
+    def __init__(self, rt: PagedRunner):
+        self.rt = rt
+
+    @torch.no_grad()
+    def decode(self, seqs: List[SequenceState]) -> torch.Tensor:
+        """One decode step for a batch of sequences (the legacy path). The
+        new token of each seq is seqs[i].tokens[-1]; its KV is written at
+        position len(tokens)-1. Returns (B, Vp) logits."""
+        dev = self.rt.pool.device
+        b = len(seqs)
+        maxp = max(len(s.pages) for s in seqs)
+        bt = np.zeros((b, maxp), np.int32)
+        for i, s in enumerate(seqs):
+            bt[i, :len(s.pages)] = s.pages
+        tokens = torch.tensor([s.tokens[-1] for s in seqs], dtype=torch.int32)
+        lengths = torch.tensor([len(s.tokens) for s in seqs],
+                               dtype=torch.int32)
+        logits = self.body(tokens.to(dev), torch.from_numpy(bt).to(dev),
+                           lengths.to(dev))
+        for s in seqs:
+            s.n_cached = len(s.tokens)
+        return logits
+
+    def body(self, tokens, bt, lengths) -> torch.Tensor:
+        """One decode step on device tensors: (B,) token ids, (B, Pb) block
+        table, (B,) lengths -> (B, Vp) logits; KV written in place."""
+        rt = self.rt
+        cfg = rt.cfg
+        ps = rt.pool.page_size
+        x = T.embed(cfg, rt.params, tokens[:, None])          # (B,1,D)
+        pos = (lengths - 1)[:, None]
+        page = bt.gather(1, ((lengths - 1) // ps).long()[:, None])[:, 0]
+        page = page.long()
+        slot = ((lengths - 1) % ps).long()
+        for li, p in enumerate(rt.layers):
+            q, k_new, v_new = T.block_qkv(cfg, p, x, pos)
+            q, kp, vp = rt.layer_attn_inputs(li, q[:, 0], k_new[:, 0],
+                                             v_new[:, 0], page, slot)
+            o = ops.paged_attention(q, kp, vp, bt, lengths,
+                                    softcap=cfg.attn_logit_softcap,
+                                    window=rt.windows[li], impl=rt.attn_impl)
+            x = T.block_out(cfg, p, x, o[:, None].to(x.dtype))
+        return T.unembed(cfg, rt.params, x)[:, 0]
+
+    @torch.no_grad()
+    def decode_fused(self, state, k_steps: int) -> torch.Tensor:
+        """The NPU-centric horizon (DESIGN.md §8): ``k_steps`` decode+sample
+        iterations over the device-resident batch state, enqueued with no
+        host sync inside the horizon. Lengths and last tokens advance on
+        the device; padding rows keep their token and length so their KV
+        write stays parked on the scratch page. Returns the (k_steps, Bb)
+        int32 token block WITHOUT copying it to the host."""
+        cfg = self.rt.cfg
+        out = torch.empty((k_steps, state.bb), dtype=torch.int32,
+                          device=state.bt.device)
+        act = state.active.to(torch.int32)
+        last, lengths = state.last_tok, state.lengths
+        greedy = state.all_greedy
+        for j in range(k_steps):
+            logits = self.body(last, state.bt, lengths)
+            if greedy:
+                toks = greedy_core(logits, cfg.vocab_size)
+            else:
+                toks = sample_core(logits, state.temps, state.top_ps,
+                                   state.gen, cfg.vocab_size)
+            last = torch.where(state.active, toks, last)
+            out[j] = last
+            lengths = lengths + act
+        state.last_tok, state.lengths = last, lengths
+        return out
+
+    @torch.no_grad()
+    def warmup_fused(self, batch_buckets, page_buckets, horizons,
+                     gen: torch.Generator) -> int:
+        """Run every horizon x batch bucket x page bucket once with all rows
+        inactive on the scratch page (no live page is touched). Returns the
+        number of bucket shapes run."""
+        dev = self.rt.pool.device
+        scratch = self.rt.pool.scratch_page()
+        n = 0
+        for k_steps in sorted(set(horizons)):
+            for bb in sorted(set(batch_buckets)):
+                for pb in sorted(set(page_buckets)):
+                    state = _WarmState(bb, pb, scratch, dev, gen)
+                    self.decode_fused(state, k_steps)
+                    n += 1
+        return n
+
+
+class _WarmState:
+    """An all-padding decode batch for ``warmup_fused``."""
+
+    def __init__(self, bb, pb, scratch, dev, gen):
+        self.bb, self.pb, self.gen = bb, pb, gen
+        self.bt = torch.full((bb, pb), scratch, dtype=torch.int32, device=dev)
+        self.lengths = torch.ones((bb,), dtype=torch.int32, device=dev)
+        self.last_tok = torch.zeros((bb,), dtype=torch.int32, device=dev)
+        self.active = torch.zeros((bb,), dtype=torch.bool, device=dev)
+        self.temps = torch.zeros((bb,), dtype=torch.float32, device=dev)
+        self.top_ps = torch.ones((bb,), dtype=torch.float32, device=dev)
+        self.all_greedy = True

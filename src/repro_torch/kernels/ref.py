@@ -1,0 +1,124 @@
+"""Plain PyTorch versions of the port's attention kernels.
+
+Each is the semantic ground truth of a kernel in ``csrc/``: the CPU path
+runs them directly, the tests hold them against the JAX package's oracles,
+and ``chip_smoke.py`` holds each CUDA kernel against them on the card. All
+math is fp32 with masked scores at -1e30 (not -inf), as in the Pallas
+bodies they mirror.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG = -1e30
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+                        lengths: torch.Tensor, softcap: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over a paged KV cache.
+
+    q: (B, H, hd) — one query per sequence (position = lengths-1).
+    k_pages / v_pages: (NP, P, Hkv, hd) page pools.
+    block_tables: (B, MAXP) int32 page ids (padding masked by length).
+    lengths: (B,) int32 valid tokens per sequence (incl. current token).
+    Returns (B, H, hd) in q's dtype."""
+    b, h, hd = q.shape
+    _, p, hkv, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+    g = h // hkv
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, maxp * p, hkv, hd)
+    v = v_pages[bt].reshape(b, maxp * p, hkv, hd)
+    pos = torch.arange(maxp * p, device=q.device)[None, :]
+    ln = lengths.long()[:, None]
+    valid = pos < ln
+    if window is not None:
+        valid &= pos > (ln - 1 - window)
+    qh = q.reshape(b, hkv, g, hd).float()
+    kh = k.permute(0, 2, 1, 3).float()                         # (B,Hkv,L,hd)
+    vh = v.permute(0, 2, 1, 3).float()
+    s = torch.einsum("bhgd,bhld->bhgl", qh, kh) / math.sqrt(hd)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG))
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgl,bhld->bhgd", pr, vh)
+    return o.reshape(b, h, hd).to(q.dtype)
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      softcap: Optional[float] = None,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Causal (optionally sliding-window, softcapped) self-attention.
+    q: (B, S, H, hd); k, v: (B, S, Hkv, hd). Returns (B, S, H, hd)."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qp = torch.arange(s, device=q.device)
+    mask = qp[:, None] >= qp[None, :]
+    if window is not None:
+        mask &= qp[None, :] > (qp[:, None] - window)
+    qh = q.reshape(b, s, hkv, g, hd).float()
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float()) / math.sqrt(hd)
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG))
+    pr = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v.float())
+    return o.reshape(b, s, h, hd).to(q.dtype)
+
+
+def paged_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, cu_tokens: torch.Tensor,
+                      entry_bt: torch.Tensor, entry_start: torch.Tensor,
+                      softcap: Optional[float] = None,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Ragged paged prefill attention — the function the JAX engine's
+    ``_ragged_fn`` computes by per-token gather + dense masked attention
+    (``repro/engine/runners/paged.py:281-313``), stated per packed entry.
+
+    q: (Tb, H, hd) flat packed query tokens.
+    k_pages / v_pages: (NP, P, Hkv, hd) — one layer's pool, the step's fresh
+        K/V already written.
+    cu_tokens: (Sb+1,) flat offsets; entry e owns tokens [cu[e], cu[e+1]).
+    entry_bt: (Sb, Pb) each entry's block-table row.
+    entry_start: (Sb,) position of each entry's first token; token t of
+        entry e sits at position entry_start[e] + t - cu[e] and attends the
+        keys of its own page run at positions kp <= pos (and kp > pos -
+        window).
+    Tokens at or past cu[Sb] are padding and come out as zeros.
+    Returns (Tb, H, hd) in q's dtype."""
+    tb, h, hd = q.shape
+    _, p, hkv, _ = k_pages.shape
+    g = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    cu = cu_tokens.tolist()
+    starts = entry_start.tolist()
+    out = torch.zeros((tb, h, hd), dtype=torch.float32, device=q.device)
+    for e in range(len(cu) - 1):
+        t0, t1 = cu[e], cu[e + 1]
+        if t1 <= t0:
+            continue
+        qpos = starts[e] + torch.arange(t1 - t0, device=q.device)
+        n_keys = starts[e] + (t1 - t0)
+        run = entry_bt[e, :(n_keys + p - 1) // p].long()
+        k = k_pages[run].reshape(-1, hkv, hd)[:n_keys].float()
+        v = v_pages[run].reshape(-1, hkv, hd)[:n_keys].float()
+        kpos = torch.arange(n_keys, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > (qpos[:, None] - window)
+        qg = q[t0:t1].reshape(t1 - t0, hkv, g, hd).float()
+        s = torch.einsum("qhgd,khd->hgqk", qg, k) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("hgqk,khd->qhgd", pr, v)
+        out[t0:t1] = o.reshape(t1 - t0, h, hd)
+    return out.to(q.dtype)

@@ -1,0 +1,51 @@
+"""Weight bridge: the JAX package's ``init_params`` pytree, handed over as
+nested dicts of numpy arrays, becomes the port's parameter dict — the way
+both sides run identical weights with nothing downloaded. The layouts
+already agree (stacked ``blocks``, ``x @ w`` weights), so the bridge only
+converts leaves."""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+# leaves that stay fp32 whatever the weight dtype (the reference keeps its
+# norm scales in fp32 too)
+_FP32_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "q_norm",
+              "k_norm")
+
+
+def _leaf(a, device, dtype: Optional[torch.dtype], keep_fp32: bool):
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":           # ml_dtypes: no torch bridge
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))    # a writable copy
+    if dtype is not None and t.is_floating_point():
+        t = t.to(torch.float32 if keep_fp32 else dtype)
+    return t.to(device)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Any, device="cuda",
+                      dtype: Optional[torch.dtype] = None):
+    """Convert a nested dict of numpy arrays (the JAX pytree after
+    ``np.asarray`` on every leaf) to torch tensors on ``device``. With
+    ``dtype`` set, weight matrices are cast to it and norm scales kept
+    fp32; without it every leaf keeps its dtype."""
+    dev = resolve_device(device)
+    if cfg.attn_kind not in ("global", "swa", "local_global") \
+            or "blocks" not in tree:
+        raise NotImplementedError(
+            f"bridge covers the paged dense tower only, not {cfg.name!r}")
+
+    def conv(t, keep_fp32=False):
+        if isinstance(t, dict):
+            return {k: conv(v, keep_fp32 or k in _FP32_KEYS)
+                    for k, v in t.items()}
+        return _leaf(t, dev, dtype, keep_fp32)
+
+    return conv(tree)

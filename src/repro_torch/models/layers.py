@@ -1,0 +1,113 @@
+"""Neural-net building blocks of the port's paged family, plain PyTorch
+(the counterpart of ``repro/models/layers.py``). Layouts follow the JAX
+package at every public function: activations (B, S, H, hd), weights
+(d_in, d_out) applied as ``x @ w``. Norm and softmax math is fp32."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG = -1e30
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in the gemma-style ``(1 + w)`` form (zero-init identity)."""
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xf * (1.0 + weight.float())).to(dt)
+
+
+def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return rms_norm(x, p["scale"])
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs             # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:2 * half].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    if hd % 2:
+        out = torch.cat([out, x[..., 2 * half:].float()], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    return x if cap is None else cap * torch.tanh(x / cap)
+
+
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Boolean (..., Sq, Sk): True = attend; a window keeps k_pos in
+    (q_pos - window, q_pos]."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return m
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor], cap: Optional[float] = None
+              ) -> torch.Tensor:
+    """Naive grouped-query attention with materialised scores (the plain
+    path the teacher-forced forward uses). q: (B,Sq,H,hd); k,v:
+    (B,Sk,Hkv,hd); mask (B,Sq,Sk) or None."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(hd)
+    s = softcap(s, cap)
+    if mask is not None:
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG))
+    pr = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v)
+    return o.reshape(b, sq, h, hd)
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    gate = x @ p["w_gate"]
+    up = x @ p["w_up"]
+    if act == "swiglu":
+        hmid = F.silu(gate) * up
+    elif act == "geglu":
+        hmid = F.gelu(gate, approximate="tanh") * up
+    else:
+        raise NotImplementedError(f"mlp {act!r} is not ported yet")
+    return hmid @ p["w_down"]
+
+
+def attn_qkv(p: dict, x: torch.Tensor, n_heads: int, n_kv: int, hd: int,
+             positions: torch.Tensor, theta: float, qk_norm: bool = False):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Hkv,hd), rope applied."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, n_kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, n_kv, hd)
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+
+
+def attn_out(p: dict, o: torch.Tensor) -> torch.Tensor:
+    b, s, h, hd = o.shape
+    return o.reshape(b, s, h * hd) @ p["wo"]

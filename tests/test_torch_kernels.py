@@ -1,0 +1,232 @@
+"""The port's attention kernels against the JAX package, on the CPU.
+
+The CUDA kernels have no CPU mode, so here their plain PyTorch versions
+(``repro_torch.kernels.ref``) are held against the JAX oracles on the
+``tests/test_kernels.py`` sweep shapes and tolerances (f32 atol 2e-4,
+bf16 2e-2), one case each against the Pallas kernels in interpret mode,
+and the ragged paged prefill form against the gather + dense masked
+attention math of ``repro/engine/runners/paged.py:281-313``. The same
+inputs, made with numpy from a fixed seed, go to both sides. The CUDA
+kernels themselves are held against these plain versions on the card by
+``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as JOPS
+from repro.models import layers as JL
+from repro_torch.kernels import flash_prefill as FP
+from repro_torch.kernels import ops
+
+PAGED_SHAPES = [(1, 4, 4, 16, 8, 3),      # MHA
+                (2, 8, 4, 32, 16, 5),     # GQA
+                (3, 8, 1, 64, 16, 4)]     # MQA
+FLASH_SHAPES = [(1, 128, 4, 4, 16), (2, 256, 8, 2, 32), (1, 64, 2, 1, 64)]
+DTYPES = [("float32", jnp.float32, torch.float32),
+          ("bfloat16", jnp.bfloat16, torch.bfloat16)]
+
+
+def _tol(name):
+    return 2e-2 if name == "bfloat16" else 2e-4
+
+
+def _pair(x, jdt, tdt):
+    """One numpy array as the same-valued JAX and torch arrays."""
+    return jnp.asarray(x, jdt), torch.from_numpy(np.array(x)).to(tdt)
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32), np.float32)
+
+
+def _paged_inputs(b, h, hkv, hd, page, npages, seed=0):
+    rs = np.random.RandomState(seed)
+    pool = npages * b + 2
+    q = rs.standard_normal((b, h, hd)).astype(np.float32)
+    kp = rs.standard_normal((pool, page, hkv, hd)).astype(np.float32)
+    vp = rs.standard_normal((pool, page, hkv, hd)).astype(np.float32)
+    bt = rs.permutation(pool)[:b * npages].reshape(b, npages).astype(np.int32)
+    lengths = rs.randint(1, npages * page, b).astype(np.int32)
+    return q, kp, vp, bt, lengths
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,page,npages", PAGED_SHAPES)
+@pytest.mark.parametrize("dname,jdt,tdt", DTYPES)
+@pytest.mark.parametrize("softcap,window",
+                         [(None, None), (30.0, None), (None, 20)])
+def test_paged_attention_ref(b, h, hkv, hd, page, npages, dname, jdt, tdt,
+                             softcap, window):
+    q, kp, vp, bt, ln = _paged_inputs(b, h, hkv, hd, page, npages)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, jdt, tdt) for a in (q, kp, vp))
+    want = JOPS.paged_attention(jq, jk, jv, jnp.asarray(bt), jnp.asarray(ln),
+                                softcap=softcap, window=window, impl="ref")
+    got = ops.paged_attention(tq, tk, tv, torch.from_numpy(bt),
+                              torch.from_numpy(ln), softcap=softcap,
+                              window=window)
+    assert got.dtype == tdt and got.shape == (b, h, hd)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=_tol(dname))
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("dname,jdt,tdt", DTYPES)
+@pytest.mark.parametrize("softcap,window", [(None, None), (50.0, 48)])
+def test_flash_prefill_ref(b, s, h, hkv, hd, dname, jdt, tdt, softcap,
+                           window):
+    rs = np.random.RandomState(1)
+    q = rs.standard_normal((b, s, h, hd)).astype(np.float32)
+    k = rs.standard_normal((b, s, hkv, hd)).astype(np.float32)
+    v = rs.standard_normal((b, s, hkv, hd)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, jdt, tdt) for a in (q, k, v))
+    want = JOPS.flash_prefill(jq, jk, jv, softcap=softcap, window=window,
+                              impl="ref")
+    got = ops.flash_prefill(tq, tk, tv, softcap=softcap, window=window)
+    assert got.dtype == tdt and got.shape == (b, s, h, hd)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=_tol(dname))
+
+
+def test_paged_attention_ref_vs_pallas():
+    """One GQA case against the Pallas kernel itself (interpret mode)."""
+    q, kp, vp, bt, ln = _paged_inputs(2, 8, 4, 32, 16, 5, seed=3)
+    want = JOPS.paged_attention(jnp.asarray(q), jnp.asarray(kp),
+                                jnp.asarray(vp), jnp.asarray(bt),
+                                jnp.asarray(ln), softcap=30.0, window=20,
+                                impl="pallas")
+    got = ops.paged_attention(*(torch.from_numpy(a) for a in
+                                (q, kp, vp, bt, ln)), softcap=30.0, window=20)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4)
+
+
+def test_flash_prefill_ref_vs_pallas():
+    rs = np.random.RandomState(4)
+    q = rs.standard_normal((2, 128, 8, 32)).astype(np.float32)
+    k = rs.standard_normal((2, 128, 2, 32)).astype(np.float32)
+    v = rs.standard_normal((2, 128, 2, 32)).astype(np.float32)
+    want = JOPS.flash_prefill(*(jnp.asarray(a) for a in (q, k, v)),
+                              softcap=50.0, window=48, block_q=64,
+                              block_k=32, impl="pallas")
+    got = ops.flash_prefill(*(torch.from_numpy(a) for a in (q, k, v)),
+                            softcap=50.0, window=48)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# ragged paged prefill: the engine's packed form
+# ---------------------------------------------------------------------------
+
+# (start, chunk length, pages) per sequence: a fresh prompt, a 1-token
+# extension-only chunk deep in a cached prefix, a chunk crossing pages
+ENTRIES = [(0, 9, [3, 11]), (21, 1, [7, 2, 9]), (6, 13, [14, 1, 5])]
+
+
+def _ragged_pack(ps=8, max_prefill_seqs=4):
+    """Pack ENTRIES as ``FlowServe._prefill_batched`` does
+    (``repro/engine/flowserve.py:511-540``): flat tokens with per-token
+    page/slot/position, per-token block-table rows padded with the scratch
+    page, pow2 buckets, padding tokens on scratch slot 0 at position 0 —
+    plus the port's entry-level metadata for the same pack."""
+    from repro.engine.hotloop import pow2_bucket
+    scratch = 15
+    sb = pow2_bucket(max(max_prefill_seqs, len(ENTRIES)))
+    pb = pow2_bucket(max(len(pg) for _, _, pg in ENTRIES))
+    flat_p, flat_pg, flat_sl, rows, cu = [], [], [], [], [0]
+    entry_bt = np.full((sb, pb), scratch, np.int32)
+    entry_start = np.zeros((sb,), np.int32)
+    for i, (start, n, pages) in enumerate(ENTRIES):
+        row = pages + [scratch] * (pb - len(pages))
+        entry_bt[i, :len(pages)] = pages
+        entry_start[i] = start
+        for j in range(n):
+            pos = start + j
+            flat_p.append(pos)
+            flat_pg.append(pages[pos // ps])
+            flat_sl.append(pos % ps)
+            rows.append(row)
+        cu.append(len(flat_p))
+    cu += [cu[-1]] * (sb - len(ENTRIES))
+    tb = pow2_bucket(len(flat_p))
+    while len(flat_p) < tb:
+        flat_p.append(0)
+        flat_pg.append(scratch)
+        flat_sl.append(0)
+        rows.append([scratch] * pb)
+    return dict(positions=np.asarray(flat_p, np.int32),
+                pages=np.asarray(flat_pg, np.int32),
+                slots=np.asarray(flat_sl, np.int32),
+                bt_tok=np.asarray(rows, np.int32), cu=np.asarray(cu, np.int32),
+                entry_bt=entry_bt, entry_start=entry_start, tb=tb,
+                n_real=cu[-1])
+
+
+@pytest.mark.parametrize("softcap,window", [(None, None), (30.0, None),
+                                            (None, 6)])
+def test_paged_prefill_ref_vs_engine_gather(softcap, window):
+    """The JAX engine's ragged attention (per-token page-run gather + dense
+    masked ``L.attention``, paged.py:305-313) on a pool whose fresh KV is
+    already scattered, vs the port's entry-level ``paged_prefill_ref``.
+    Real rows agree within 2e-4 (f32); padding rows differ by design (JAX
+    attends a scratch slot, the port writes zeros) and are not compared."""
+    ps, h, hkv, hd = 8, 4, 2, 16
+    pk = _ragged_pack(ps)
+    rs = np.random.RandomState(5)
+    n_pool = 16
+    kp = rs.standard_normal((n_pool, ps, hkv, hd)).astype(np.float32)
+    vp = rs.standard_normal((n_pool, ps, hkv, hd)).astype(np.float32)
+    q = rs.standard_normal((pk["tb"], h, hd)).astype(np.float32)
+    tb, pb = pk["bt_tok"].shape
+    total = pb * ps
+    win = 2 ** 30 if window is None else window
+    pos2 = jnp.asarray(pk["positions"])[:, None]
+    kpos_base = jnp.arange(total, dtype=jnp.int32)[None]
+    kpos = jnp.where(kpos_base <= pos2, kpos_base, 2 ** 30 + 1)
+    bt_tok = jnp.asarray(pk["bt_tok"])
+    k_seq = jnp.asarray(kp)[bt_tok].reshape(tb, total, hkv, hd)
+    v_seq = jnp.asarray(vp)[bt_tok].reshape(tb, total, hkv, hd)
+    mask = JL.causal_mask(pos2, kpos)
+    mask &= kpos[:, None, :] > (pos2[:, :, None] - win)
+    want = JL.attention(jnp.asarray(q)[:, None], k_seq, v_seq, mask,
+                        softcap)[:, 0]
+    tiles = torch.from_numpy(FP.build_tiles(pk["cu"].tolist(), tb))
+    got = ops.paged_prefill(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(pk["cu"]), torch.from_numpy(pk["entry_bt"]),
+        torch.from_numpy(pk["entry_start"]), tiles, softcap=softcap,
+        window=window)
+    n = pk["n_real"]
+    np.testing.assert_allclose(_f32(got)[:n], np.asarray(want)[:n], atol=2e-4)
+    assert not _f32(got)[n:].any()          # padding rows are zeros
+
+
+def test_build_tiles_cover_each_token_once():
+    cu = [0, 9, 10, 23, 23]
+    tiles = FP.build_tiles(cu, 32)
+    assert tiles.shape == (FP.max_tiles(32, 4), 3)
+    seen = []
+    for e, a, b in tiles.tolist():
+        if b <= a:
+            continue
+        assert b - a <= FP.BLOCK_Q
+        if e < 0:
+            assert a >= cu[-1]              # padding tail
+        else:
+            assert cu[e] <= a and b <= cu[e + 1]
+        seen += range(a, b)
+    assert sorted(seen) == list(range(32))
+
+
+def test_launchers_refuse_cpu_tensors_and_unknown_impl():
+    """No silent fallback: a kernel launcher given CPU tensors raises (the
+    plain version is reached only through ``ops`` by where tensors lie),
+    and ``ops`` knows no route but the kernel and the plain version."""
+    from repro_torch.kernels import paged_attention as PA
+    args = (torch.zeros(1, 1, 4), torch.zeros(1, 1, 1, 4),
+            torch.zeros(1, 1, 1, 4), torch.zeros(1, 1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        PA.paged_attention(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        FP.flash_prefill(torch.zeros(1, 16, 1, 4), torch.zeros(1, 16, 1, 4),
+                         torch.zeros(1, 16, 1, 4))
+    with pytest.raises(ValueError, match="impl"):
+        ops.paged_attention(*args, impl="pallas")

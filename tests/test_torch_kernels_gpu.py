@@ -1,0 +1,127 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card: the ``tests/test_kernels.py`` sweep shapes and tolerances (f32 atol
+2e-4, bf16 2e-2) plus the engine's ragged paged prefill form. Every test
+is marked ``gpu`` and skips without a CUDA card (the kernels have no CPU
+mode). This file imports no JAX, so it runs on a machine that has only
+PyTorch:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_prefill as FP
+from repro_torch.kernels import ops
+
+PAGED_SHAPES = [(1, 4, 4, 16, 8, 3), (2, 8, 4, 32, 16, 5),
+                (3, 8, 1, 64, 16, 4)]
+FLASH_SHAPES = [(1, 128, 4, 4, 16), (2, 256, 8, 2, 32), (1, 64, 2, 1, 64)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 2e-4
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=_tol(dtype))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU "
+                    "mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,hd,page,npages", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_kernel(cuda, b, h, hkv, hd, page, npages, dtype):
+    g = torch.Generator().manual_seed(0)
+    pool = npages * b + 2
+    q = torch.randn((b, h, hd), generator=g).to(cuda, dtype)
+    kp = torch.randn((pool, page, hkv, hd), generator=g).to(cuda, dtype)
+    vp = torch.randn((pool, page, hkv, hd), generator=g).to(cuda, dtype)
+    bt = torch.randperm(pool, generator=g)[:b * npages].view(b, npages)
+    ln = torch.randint(1, npages * page, (b,), generator=g)
+    bt, ln = bt.int().to(cuda), ln.int().to(cuda)
+    for softcap, window in [(None, None), (30.0, None), (None, 20)]:
+        _close(ops.paged_attention(q, kp, vp, bt, ln, softcap, window),
+               ops.paged_attention(q, kp, vp, bt, ln, softcap, window,
+                                   impl="ref"), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,hkv,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_prefill_kernel(cuda, b, s, h, hkv, hd, dtype):
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype) for shape in
+               ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+    for softcap, window in [(None, None), (50.0, 48)]:
+        _close(ops.flash_prefill(q, k, v, softcap, window),
+               ops.flash_prefill(q, k, v, softcap, window, impl="ref"), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_prefill_kernel_ragged(cuda, dtype):
+    """A ragged pack with cached prefixes and bucket padding: the kernel
+    and the plain version agree on every row, padding rows included."""
+    g = torch.Generator().manual_seed(2)
+    lens, starts, tb, p, hkv, hd, h = [9, 1, 33, 16], [0, 40, 7, 16], 64, 8, \
+        2, 32, 8
+    pb = max(-(-(s + n) // p) for s, n in zip(starts, lens))
+    cu = np.cumsum([0] + lens).tolist()
+    ebt = torch.randperm(40, generator=g)[:len(lens) * pb].view(-1, pb)
+    kp = torch.randn((40, p, hkv, hd), generator=g).to(cuda, dtype)
+    vp = torch.randn((40, p, hkv, hd), generator=g).to(cuda, dtype)
+    q = torch.randn((tb, h, hd), generator=g).to(cuda, dtype)
+    meta = [torch.as_tensor(np.asarray(a, np.int32)).to(cuda) for a in
+            (cu, ebt.numpy(), starts, FP.build_tiles(cu, tb))]
+    for softcap, window in [(None, None), (30.0, None), (None, 20)]:
+        _close(ops.paged_prefill(q, kp, vp, *meta, softcap, window),
+               ops.paged_prefill(q, kp, vp, *meta, softcap, window,
+                                 impl="ref"), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_decode_horizon_never_syncs(cuda, temperature):
+    """A K-step decode horizon enqueues all its work without one device to
+    host synchronisation (greedy and sampled), on the kernel path."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.engine import (EngineConfig, FlowServe, Request,
+                                    SamplingParams)
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(get_config("qwen3-8b"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    te = FlowServe(cfg, T.init_params(cfg, gen, torch.float32, cuda),
+                   EngineConfig(n_pages=64, page_size=8), device=cuda)
+    for i in range(3):
+        te.add_request(Request(prompt_tokens=list(range(3, 14 + i)),
+                               req_id=f"r{i}", sampling=SamplingParams(
+                                   temperature=temperature,
+                                   max_new_tokens=64, stop_on_eos=False)))
+    while not te.scheduler.running or te.scheduler.prefilling:
+        te.step()
+    live = list(te.scheduler.running)
+    hot = te._hot_state()
+    for s in live:
+        te._ensure_pages_no_preempt(s, len(s.tokens) + 4)
+    hot.sync([(s.seq_id, s.pages, len(s.tokens), s.tokens[-1],
+               temperature, 1.0) for s in live])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = te.runner.decode_fused(hot, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert toks.shape == (4, hot.bb)
+    assert int(toks.max()) < cfg.vocab_size
