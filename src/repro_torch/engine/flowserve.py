@@ -72,8 +72,6 @@ class EngineConfig:
     max_decode_batch: int = 8
     chunk_size: int = 16
     max_prefill_seqs: int = 8           # concurrent mid-prefill sequences
-    enable_prefix_cache: bool = True
-    async_sched: bool = True
     fused_decode: bool = True           # K-step decode horizons (DESIGN §8)
     decode_horizon: int = 8             # max fused multi-step K (1 = off)
     dtype: torch.dtype = torch.float32  # KV pool dtype
@@ -111,8 +109,7 @@ class FlowServe:
         self.pool = PagedKVPool(cfg, ecfg.n_pages, ecfg.page_size,
                                 ecfg.dtype, self.device)
         cm = RTCCostModel(flops_per_token=2.0 * cfg.active_param_count())
-        self.rtc = RelationalTensorCache(self.pool, cm) \
-            if ecfg.enable_prefix_cache else None
+        self.rtc = RelationalTensorCache(self.pool, cm)
         self.runner = self.family.runner_cls(cfg, params, self.pool,
                                              attn_impl=ecfg.attn_impl)
 
@@ -127,6 +124,7 @@ class FlowServe:
         self._next_plan = None
         self.steps = 0
         self.decode_steps = 0            # decode iterations executed (B-wide)
+        self.decode_tokens = 0           # tokens sampled by decode (B x K)
         self.sampler_dispatches = 0      # standalone sampling passes
         self.host_dispatches = 0         # device passes on the decode path
         self.host_syncs = 0              # blocking device->host fetches
@@ -165,8 +163,8 @@ class FlowServe:
         commit -> prepare the next plan."""
         self.scheduler.resolve_prefix()
         self.scheduler.pump_prefetch()
-        plan = self._next_plan if (self.ecfg.async_sched and self._next_plan) \
-            else self.scheduler.prepare_next()
+        # the next plan is prepared while the device runs this step (§4.2)
+        plan = self._next_plan or self.scheduler.prepare_next()
         self._next_plan = None
         if self._inflight and (plan.prefill or not plan.decode):
             # prefill page allocation may preempt an in-flight sequence, and
@@ -194,14 +192,14 @@ class FlowServe:
             if not fused and live:
                 logits = self.runner.decode(live)
                 self.decode_steps += 1
+                self.decode_tokens += len(live)
                 self.host_dispatches += 1
-                if self.ecfg.async_sched:
-                    self._next_plan = self.scheduler.prepare_next()
+                self._next_plan = self.scheduler.prepare_next()
                 self._commit_tokens(live, logits)
                 if self._hot is not None:
                     self._hot.reset()   # device rows are stale vs host now
 
-        if self.ecfg.async_sched and self._next_plan is None:
+        if self._next_plan is None:
             self._next_plan = self.scheduler.prepare_next()
         self.steps += 1
         return self._flush_completed()
@@ -413,13 +411,13 @@ class FlowServe:
                 event.record()
             self.host_dispatches += 1
             self.decode_steps += k
+            self.decode_tokens += k * len(live)
             for s in live:
                 self._pending[s.seq_id] = self._pending.get(s.seq_id, 0) + k
             self._inflight.append(
                 (toks, [(hot.slot_of[s.seq_id], s.seq_id) for s in live], k,
                  event))
-            if self.ecfg.async_sched:
-                self._next_plan = self.scheduler.prepare_next()
+            self._next_plan = self.scheduler.prepare_next()
             # fetch the PREVIOUS horizon's block, computed behind the
             # horizon just enqueued
             while len(self._inflight) > 1:
@@ -487,16 +485,14 @@ class FlowServe:
         preemption is not (it would invalidate in-flight horizons)."""
         need = pages_needed(n_tokens, self.pool.page_size) - len(seq.pages)
         for _ in range(max(0, need)):
-            seq.pages.append(self.rtc.append_block() if self.rtc
-                             else self.pool.alloc(1)[0])
+            seq.pages.append(self.rtc.append_block())
 
     def _ensure_pages(self, seq: SequenceState, n_tokens: int) -> None:
         need = pages_needed(n_tokens, self.pool.page_size) - len(seq.pages)
         for _ in range(max(0, need)):
             while True:
                 try:
-                    page = (self.rtc.append_block() if self.rtc
-                            else self.pool.alloc(1)[0])
+                    page = self.rtc.append_block()
                     break
                 except OutOfPagesError:
                     victim = self._pick_victim(exclude=seq)
@@ -544,7 +540,7 @@ class FlowServe:
         if seq.pages:
             own = seq.pages[seq.reused_pages:]
             shared = seq.pages[:seq.reused_pages]
-            preserve = self.rtc is not None and keep_prefix and seq.n_cached > 0
+            preserve = keep_prefix and seq.n_cached > 0
             if preserve:
                 self.rtc.preserve_prefix(tuple(seq.tokens[:seq.n_cached]),
                                          seq.pages,

@@ -10,15 +10,14 @@ mechanisms:
     (pumped off the critical path), then join the ready queue;
   * async (zero-overhead) execution — scheduling the next step needs only
     token *counts*, never token values, so ``prepare_next`` can run while
-    the model executes the current step; the engine measures the critical
-    path both ways (Figure 3's v1→v2 gap).
+    the model executes the current step, and the engine always plans so.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.rtc import RelationalTensorCache
@@ -43,8 +42,7 @@ class SchedulerConfig:
 class Scheduler:
     """Owns the queues; the engine owns execution and page allocation."""
 
-    def __init__(self, cfg: SchedulerConfig,
-                 rtc: Optional[RelationalTensorCache]):
+    def __init__(self, cfg: SchedulerConfig, rtc: RelationalTensorCache):
         self.cfg = cfg
         self.rtc = rtc
         self.waiting: deque = deque()           # SequenceState
@@ -63,9 +61,6 @@ class Scheduler:
         (the sched-enqueue thread of §4.2)."""
         while self.waiting:
             seq = self.waiting.popleft()
-            if self.rtc is None:
-                self.ready.append(seq)
-                continue
             m = self.rtc.match_by_prefix_token(seq.tokens[:seq.n_prompt])
             if m.entry is None or m.matched_tokens == 0:
                 self.ready.append(seq)
@@ -87,7 +82,7 @@ class Scheduler:
                 self.ready.append(seq)
 
     def pump_prefetch(self) -> None:
-        if self.rtc is None or not self.prefetching:
+        if not self.prefetching:
             return
         self.rtc.pump_populates()
         still = []

@@ -1,0 +1,131 @@
+"""Where the card's time goes in a serving window of the port.
+
+    # full-width qwen3-8b (36 layers, random bf16 weights), one H100
+    PYTHONPATH=src python -m repro_torch.launch.profile
+
+One colocated TE serves a warm-up batch (untimed: it builds the kernels
+and warms the allocator), then traffic of the same shape under
+``torch.profiler`` with CUDA activity only, so every recorded event is a
+kernel or a copy on the card. Prints one JSON line: the window's wall
+time, the device's busy time by kernel group, the idle share (an upper
+bound: the profiler's own host cost sits inside the window) and the top
+kernels, then the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
+from repro_torch.models import transformer as T
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    if "paged_attention_kernel" in low:
+        return "paged_attention kernel"
+    if "flash_prefill_kernel" in low:
+        return "flash_prefill kernel"
+    if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
+                              "splitk", "nvjet")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "other kernels"
+
+
+def _submit(te, cfg, rng, tag, n, prompt_len, max_new):
+    sp = SamplingParams(temperature=0.0, max_new_tokens=max_new,
+                        stop_on_eos=False)
+    for i in range(n):
+        te.add_request(Request(
+            prompt_tokens=[int(t) for t in rng.randint(3, cfg.vocab_size,
+                                                       prompt_len)],
+            sampling=sp, req_id=f"{tag}{i}"))
+
+
+def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
+                   seed=1) -> dict:
+    """Serve ``requests`` greedy requests under the profiler on a warm TE
+    and return the device split of that window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(seed)
+    _submit(te, cfg, rng, "t", requests, prompt_len, max_new)
+    torch.cuda.synchronize()
+    steps0 = te.steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        te.run_to_completion()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    groups, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        g = _group(e.key)
+        groups[g] = groups.get(g, 0.0) + us
+        top.append((us, e.count, e.key[:70]))
+    busy = sum(groups.values())
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no CUDA kernel time")
+    return dict(
+        window_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+        device_idle_share=max(0.0, 1.0 - busy / wall_us),
+        steps=te.steps - steps0, groups_ms={k: v / 1e3 for k, v in sorted(
+            groups.items(), key=lambda kv: -kv[1])},
+        top_kernels=[dict(ms=us / 1e3, count=n, name=nm)
+                     for us, n, nm in sorted(top, reverse=True)[:8]])
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = full)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=256)
+    ap.add_argument("--max-new", type=int, default=24)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    dev = resolve_device("cuda")
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = T.init_params(cfg, gen, torch.bfloat16, dev)
+    te = FlowServe(cfg, params, EngineConfig(
+        n_pages=2048, page_size=16, max_batch_tokens=512, chunk_size=256,
+        max_decode_batch=8, decode_horizon=8, dtype=torch.bfloat16,
+        seed=args.seed), device=dev)
+    _submit(te, cfg, np.random.RandomState(args.seed + 1000), "w",
+            args.requests, args.prompt_len, args.max_new)
+    te.run_to_completion()                          # warm-up, untimed
+    out = profile_window(te, cfg, args.requests, args.prompt_len,
+                         args.max_new, seed=args.seed + 1)
+    out.update(arch=cfg.name, layers=cfg.n_layers, requests=args.requests,
+               prompt_len=args.prompt_len, max_new=args.max_new)
+    print(json.dumps(out), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+        .stdout.strip().splitlines()[0], flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -57,26 +57,20 @@ def models():
 
 
 @pytest.fixture(scope="module")
-def pairs(models):
-    """(JAX TE, torch TE) per engine config, reused across tests so each
-    JAX TE compiles its shapes once. Both TEs of a pair always see the same
+def pair(models):
+    """One (JAX TE, torch TE) pair on the SHARED config, reused across the
+    parity tests so the JAX TE compiles its shapes once (both engines read
+    ``decode_horizon`` afresh at every step). Both TEs always see the same
     traffic in the same order, so their prefix caches stay in step."""
     bundle, jp, cfg, tp = models
-    cache = {}
-
-    def get(**kw):
-        key = tuple(sorted(kw.items()))
-        if key not in cache:
-            ekw = {**SHARED, **kw}
-            cache[key] = (JFlowServe(bundle, jp, JEngineConfig(**ekw)),
-                          FlowServe(cfg, tp, EngineConfig(**ekw),
-                                    device="cpu"))
-        return cache[key]
-    return get
+    return (JFlowServe(bundle, jp, JEngineConfig(**SHARED)),
+            FlowServe(cfg, tp, EngineConfig(**SHARED), device="cpu"))
 
 
-def _serve_both(pairs, tag, prompts, max_new=8, stop_on_eos=False, **kw):
-    jte, tte = pairs(**kw)
+def _serve_both(pair, tag, prompts, decode_horizon, max_new=8,
+                stop_on_eos=False):
+    jte, tte = pair
+    jte.ecfg.decode_horizon = tte.ecfg.decode_horizon = decode_horizon
     ids = [f"{tag}{i}" for i in range(len(prompts))]
     for rid, p in zip(ids, prompts):
         jte.add_request(JRequest(prompt_tokens=p, req_id=rid,
@@ -94,16 +88,18 @@ def _serve_both(pairs, tag, prompts, max_new=8, stop_on_eos=False, **kw):
 
 
 @pytest.mark.parametrize("k", [1, 4, 8])
-def test_greedy_parity_horizons(pairs, k):
-    got, want, te = _serve_both(pairs, f"h{k}-", _prompts(4),
+def test_greedy_parity_horizons(pair, k):
+    # prompts of their own per K, so no case is served from another's
+    # prefix cache
+    got, want, te = _serve_both(pair, f"h{k}-", _prompts(4, seed0=100 * k),
                                 decode_horizon=k)
     assert got == want
     assert te.sampler_dispatches == 0          # sampling fused into the step
     assert not te._inflight and not te._pending
 
 
-def test_greedy_parity_ragged_mix(pairs):
-    got, want, _ = _serve_both(pairs, "rag-", RAGGED, decode_horizon=8)
+def test_greedy_parity_ragged_mix(pair):
+    got, want, _ = _serve_both(pair, "rag-", RAGGED, decode_horizon=8)
     assert got == want
 
 
@@ -175,6 +171,9 @@ def test_one_prefill_pass_per_step(models):
         per_step.append(te.prefill_dispatches - before)
     assert max(per_step) == 1 and sum(per_step) >= 2
     assert 1 <= te.prefill_syncs <= sum(per_step)   # first-token fetches
+    # prefill samples the first token of every prompt but the 1-token one,
+    # whose prefill is vacuous: decode samples the other 4 * 5 - 4
+    assert te.decode_tokens == 4 * len(RAGGED) - (len(RAGGED) - 1)
 
 
 def test_warmups_leave_live_state_alone(models):
