@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port builds, is right and serves.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~2-3 minutes
+    python3 chip_smoke.py            # needs one CUDA card; a few minutes
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
                 process per source, in parallel) for sm_90a.
   2. kernels  — each kernel against its plain PyTorch version on the card:
                 the tests/test_kernels.py sweep shapes, the engine's paged
-                varlen prefill form, and the main-path shapes at full
-                qwen3-8b width in bf16, with kernel / plain / library
-                (scaled_dot_product_attention on a gathered dense copy)
-                times and the card's least time for the same work.
-  3. serving  — a full-width qwen3-8b TE (36 layers, random bf16 weights
-                from a seed) serves 8 greedy + 2 sampled requests through
-                the entry points a user calls; every request must complete
-                with valid ids and both kernels must have been launched by
-                that run (launch counts reset just before it).
-  4. parity   — at full width cut to 2 layers in fp32, the TE on the
-                kernels and the TE on the plain versions give identical
-                greedy tokens.
+                varlen prefill form, WKV6 and RG-LRU with a state carried
+                in and out, and the main-path shapes at full width
+                (qwen3-8b attention in bf16, rwkv6-1.6b WKV6 in bf16,
+                recurrentgemma-2b RG-LRU in fp32, prefill and decode), with
+                kernel / plain / library times (scaled_dot_product_attention
+                on a gathered dense copy for attention; no single PyTorch
+                call computes either recurrence) and the card's least time
+                for the same work.
+  3. serving  — full-width TEs (random bf16 weights from a seed) serve
+                through the entry points a user calls: qwen3-8b (36
+                layers) 8 greedy + 2 sampled requests, then rwkv6-1.6b (24
+                layers) and recurrentgemma-2b (26 layers) 6 + 2 each. Every
+                request must complete with valid ids, and each path must
+                have launched its kernels (counts reset just before it):
+                36 attention launches per decode iteration / prefill pass,
+                24 WKV6 and 18 RG-LRU launches per decode step / prefill
+                dispatch.
+  4. parity   — at full width cut to a few layers in fp32 (qwen3 2,
+                rwkv6 2, recurrentgemma 3 = 2 RG-LRU + 1 attention), the TE
+                on the kernels and the TE on the plain versions give
+                identical greedy tokens.
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -65,6 +74,34 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters=20, reps=5) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed ``reps`` times, so the host's cost per call (the
+    launcher's checks and ctypes call, tens of µs) is not on the clock.
+    Launches made during capture are not counted as main-path launches:
+    every path's counts are zeroed just before it runs."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * iters)
 
 
 def err(x, y) -> float:
@@ -314,55 +351,255 @@ def main_path_prefill(cfg, dev):
 
 
 # --------------------------------------------------------------------------
-# phases 3 and 4: the main path
+# phase 2, the slot family: WKV6 and RG-LRU against their plain versions
 # --------------------------------------------------------------------------
 
-def serve(cfg, dev):
-    """Full-width qwen3-8b TE: 8 greedy requests (prompts 64-1024 ids) +
-    2 sampled (T=0.8, top_p=0.9), max_new 32."""
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+
+
+def close(name, got, want, atol, rtol=0.0) -> float:
+    """Elementwise |got - want| <= atol + rtol |want|; returns the max abs
+    error."""
+    g, w = got.float(), want.float()
+    bad = ((g - w).abs() > atol + rtol * w.abs()).sum().item()
+    e = err(g, w)
+    log(f"  {name}: max_abs_err {e:.3e} (tol {atol:g} + {rtol:g}|ref|) "
+        f"{'ok' if not bad else f'FAIL at {bad} elements'}")
+    if bad:
+        raise AssertionError(f"{name}: {bad} elements out of tolerance")
+    return e
+
+
+def _wkv6_inputs(gen, dev, b, t, h, hd, dtype, random_state):
+    """tests/test_kernels.py::test_wkv6's distributions."""
+    import torch
+    r, k, v = (torch.randn((b, t, h, hd), generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, t, h, hd), generator=gen,
+                                         device=dev) * 0.5 - 1.0))
+    u = torch.randn((h, hd), generator=gen, device=dev) * 0.3
+    s0 = torch.randn((b, h, hd, hd), generator=gen, device=dev) * 0.5 \
+        if random_state else torch.zeros((b, h, hd, hd), device=dev)
+    return [x.to(dtype) for x in (r, k, v, w)] + [u, s0]
+
+
+# y: fp32 sums in another order (2e-4, as the other sweeps); in bf16 both
+# sides round an fp32 value, and one next to a rounding boundary may round
+# one ulp (2^-7 |y|) apart, hence the relative term. The state is fp32.
+def _wkv6_tols(dtype):
+    import torch
+    return (2e-2, 1e-2) if dtype == torch.bfloat16 else (2e-4, 0.0)
+
+
+WKV6_STATE_TOL = 1e-4
+
+
+def sweep_wkv6(gen, dev):
+    import torch
+    from repro_torch.kernels import ops
+    for (b, t, h, hd) in [(1, 64, 2, 16), (2, 128, 3, 32), (1, 96, 1, 64)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for random_state in (False, True):
+                r, k, v, w, u, s0 = _wkv6_inputs(gen, dev, b, t, h, hd,
+                                                 dtype, random_state)
+                s_k, s_r = s0.clone(), s0.clone()
+                y_k, _ = ops.wkv6(r, k, v, w, u, s_k)
+                y_r, _ = ops.wkv6(r, k, v, w, u, s_r, impl="ref")
+                torch.cuda.synchronize()
+                tag = (f"wkv6 b{b} t{t} h{h} hd{hd} {str(dtype)[6:]} "
+                       f"state={'random' if random_state else 'zero'}")
+                close(tag + " y", y_k, y_r, *_wkv6_tols(dtype))
+                close(tag + " state", s_k, s_r, WKV6_STATE_TOL)
+
+
+def sweep_rglru(gen, dev):
+    import torch
+    from repro_torch.kernels import ops
+    for (b, t, w) in [(1, 128, 128), (2, 256, 256), (1, 64, 384)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.sigmoid(torch.randn((b, t, w), generator=gen,
+                                          device=dev)).to(dtype)
+            bb = (torch.randn((b, t, w), generator=gen, device=dev)
+                  * 0.2).to(dtype)
+            h0 = torch.randn((b, w), generator=gen, device=dev) * 0.5
+            h_k, l_k = ops.rglru(a, bb, h0)
+            h_r, l_r = ops.rglru(a, bb, h0, impl="ref")
+            torch.cuda.synchronize()
+            # the kernel rounds its multiply and its add as the plain
+            # version does: the fp32 carry agrees exactly
+            tag = f"rglru b{b} t{t} w{w} {str(dtype)[6:]}"
+            close(tag + " h", h_k, h_r, _tol(dtype))
+            close(tag + " h_last", l_k, l_r, 0.0)
+
+
+def _bound(nbytes, flops, peak):
+    b, f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(b, f) * 1e3, ("bytes" if b >= f else "operations")
+
+
+def main_path_wkv6(cfg, dev):
+    """WKV6 at full rwkv6-1.6b width in bf16: a 256-token prefill chunk of
+    one sequence (1, 256, 32, 64) and a decode step of 8 slots
+    (8, 1, 32, 64), each from a random fp32 state."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    h, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    res = {}
+    for phase, (b, t) in (("prefill", (1, 256)), ("decode", (8, 1))):
+        r, k, v, w, u, s0 = _wkv6_inputs(gen, dev, b, t, h, hd,
+                                         torch.bfloat16, True)
+        s_k, s_r = s0.clone(), s0.clone()
+        y_k, _ = ops.wkv6(r, k, v, w, u, s_k)
+        y_r, _ = ops.wkv6(r, k, v, w, u, s_r, impl="ref")
+        torch.cuda.synchronize()
+        tag = f"wkv6 main path {phase} ({b},{t},{h},{hd}) bf16"
+        e = close(tag + " y", y_k, y_r, *_wkv6_tols(torch.bfloat16))
+        e = max(e, close(tag + " state", s_k, s_r, WKV6_STATE_TOL))
+        log(f"  {tag}: y max_abs_err / max|plain| {rel(y_k, y_r):.3e}")
+        # timing advances the (scratch) state in place call after call
+        kernel_ms = time_ms(lambda: ops.wkv6(r, k, v, w, u, s_k))
+        device_ms = graph_ms(lambda: ops.wkv6(r, k, v, w, u, s_k))
+        plain_ms = time_ms(lambda: ops.wkv6(r, k, v, w, u, s_r, impl="ref"),
+                           iters=5)
+        n = b * t * h * hd
+        nbytes = 5 * 2 * n + 4 * h * hd + 2 * 4 * b * h * hd * hd
+        flops = b * t * h * (5 * hd * hd + 3 * hd)
+        bound, by = _bound(nbytes, flops, FP32_FLOPS)
+        log(f"  {tag}: kernel_ms {kernel_ms:.4f} (graph-replayed "
+            f"{device_ms:.4f}) plain_ms {plain_ms:.4f} library_ms none (no "
+            f"single PyTorch call computes WKV6) bound_ms {bound:.4f} ({by}: "
+            f"{nbytes} B, {flops} fp32 flop)")
+        res[phase] = dict(max_abs_err=e, ms=kernel_ms, graph_ms=device_ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    p, d = res["prefill"], res["decode"]
+    return dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+                replaces="src/repro/kernels/rwkv6_wkv.py:63",
+                max_abs_err=max(p["max_abs_err"], d["max_abs_err"]),
+                ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+                bound_by=p["bound_by"], library_ms=None,
+                graph_ms=p["graph_ms"], decode_graph_ms=d["graph_ms"],
+                decode_ms=d["ms"], decode_plain_ms=d["plain_ms"],
+                decode_bound_ms=d["bound_ms"], decode_bound_by=d["bound_by"],
+                shape=f"prefill (1,256,{h},{hd}), decode (8,1,{h},{hd}); "
+                      f"bf16, fp32 state")
+
+
+def main_path_rglru(cfg, dev):
+    """RG-LRU at full recurrentgemma-2b width in fp32 (the coefficients are
+    fp32): a 256-token prefill chunk (1, 256, 2560) and a decode step of 8
+    slots (8, 1, 2560)."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    wd = cfg.rglru.lru_width
+    res = {}
+    for phase, (b, t) in (("prefill", (1, 256)), ("decode", (8, 1))):
+        a = torch.sigmoid(torch.randn((b, t, wd), generator=gen, device=dev))
+        bb = torch.randn((b, t, wd), generator=gen, device=dev) * 0.2
+        h0 = torch.randn((b, wd), generator=gen, device=dev) * 0.5
+        h_k, l_k = ops.rglru(a, bb, h0)
+        h_r, l_r = ops.rglru(a, bb, h0, impl="ref")
+        torch.cuda.synchronize()
+        tag = f"rglru main path {phase} ({b},{t},{wd}) fp32"
+        e = max(close(tag + " h", h_k, h_r, 0.0),
+                close(tag + " h_last", l_k, l_r, 0.0))
+        kernel_ms = time_ms(lambda: ops.rglru(a, bb, h0))
+        device_ms = graph_ms(lambda: ops.rglru(a, bb, h0))
+        plain_ms = time_ms(lambda: ops.rglru(a, bb, h0, impl="ref"), iters=5)
+        nbytes = 3 * 4 * b * t * wd + 2 * 4 * b * wd
+        flops = 2 * b * t * wd
+        bound, by = _bound(nbytes, flops, FP32_FLOPS)
+        log(f"  {tag}: kernel_ms {kernel_ms:.4f} (graph-replayed "
+            f"{device_ms:.4f}) plain_ms {plain_ms:.4f} library_ms none (no "
+            f"single PyTorch call computes the recurrence) bound_ms "
+            f"{bound:.4f} ({by}: {nbytes} B, {flops} fp32 flop)")
+        res[phase] = dict(max_abs_err=e, ms=kernel_ms, graph_ms=device_ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    p, d = res["prefill"], res["decode"]
+    return dict(name="rglru", route="cuda",
+                source="src/repro_torch/csrc/rglru_scan.cu",
+                replaces="src/repro/kernels/rglru_scan.py:40",
+                max_abs_err=max(p["max_abs_err"], d["max_abs_err"]),
+                ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+                bound_by=p["bound_by"], library_ms=None,
+                graph_ms=p["graph_ms"], decode_graph_ms=d["graph_ms"],
+                decode_ms=d["ms"], decode_plain_ms=d["plain_ms"],
+                decode_bound_ms=d["bound_ms"], decode_bound_by=d["bound_by"],
+                shape=f"prefill (1,256,{wd}), decode (8,1,{wd}); fp32")
+
+
+# --------------------------------------------------------------------------
+# phases 3 and 4: the main paths
+# --------------------------------------------------------------------------
+
+# The kernels each serving path must launch, and how many launches one
+# decode step / one prefill dispatch of that path makes (one per layer of
+# the kernel's kind; the paged family's prefill pass and decode iteration).
+PATH_KERNELS = {"qwen3-8b": ("paged_attention", "flash_prefill"),
+                "rwkv6-1.6b": ("wkv6",), "recurrentgemma-2b": ("rglru",)}
+
+
+def _engine_config(cfg, dtype, kernel_impl="auto"):
+    """One EngineConfig for either family: the paged family reads the page
+    fields, the slot family the slot fields."""
+    from repro_torch.engine import EngineConfig
+    return EngineConfig(n_pages=2048, page_size=16, n_slots=8, max_len=2048,
+                        max_batch_tokens=512, chunk_size=256,
+                        max_decode_batch=8, decode_horizon=8, dtype=dtype,
+                        seed=0, kernel_impl=kernel_impl)
+
+
+def serve(cfg, dev, n_greedy, n_sampled):
+    """A full-width TE of ``cfg`` (random bf16 weights from a seed) serves
+    ``n_greedy`` greedy + ``n_sampled`` sampled (T=0.8, top_p=0.9)
+    requests, prompts of 64-1024 random ids, 32 new tokens each. Launch
+    counts are zeroed just before the requests arrive and read just after
+    the last completes."""
     import numpy as np
     import torch
-    from repro_torch.engine import (EngineConfig, FlowServe, Request,
-                                    SamplingParams)
+    from repro_torch.engine import FlowServe, Request, SamplingParams
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
     params = T.init_params(cfg, gen, torch.bfloat16, dev)
-    ecfg = EngineConfig(n_pages=2048, page_size=16, max_batch_tokens=512,
-                        chunk_size=256, max_decode_batch=8, decode_horizon=8,
-                        dtype=torch.bfloat16, seed=0)
-    te = FlowServe(cfg, params, ecfg, device=dev)
+    te = FlowServe(cfg, params, _engine_config(cfg, torch.bfloat16),
+                   device=dev)
     torch.cuda.synchronize()
-    log(f"  TE up: {cfg.n_layers} layers, d_model {cfg.d_model}, bf16, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
-        f"({time.monotonic() - t0:.2f} s)")
+    log(f"  TE up: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, bf16, {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated ({time.monotonic() - t0:.2f} s)")
     rng = np.random.RandomState(0)
     greedy = SamplingParams(temperature=0.0, max_new_tokens=32,
                             stop_on_eos=False)
     sampled = SamplingParams(temperature=0.8, top_p=0.9, max_new_tokens=32,
                              stop_on_eos=False)
     reqs = []
-    for i in range(10):
+    for i in range(n_greedy + n_sampled):
         n = int(rng.randint(64, 1025))
         reqs.append(Request(
             prompt_tokens=[int(t) for t in rng.randint(3, cfg.vocab_size, n)],
-            sampling=greedy if i < 8 else sampled, req_id=f"r{i}"))
-    ops.reset_launches()                    # the main path's run starts here
+            sampling=greedy if i < n_greedy else sampled, req_id=f"r{i}"))
+    ops.reset_launches()                    # this path's run starts here
     t0 = time.monotonic()
     for r in reqs:
         te.add_request(r)
-    step_walls, comps = [], []
+    steps, comps = [], []
     while te.has_work():
         assert te.steps < 2000, "serving did not converge"
-        pf0, dec0, dt0 = te.prefill_dispatches, te.decode_steps, \
-            te.decode_tokens
+        before = (te.prefill_dispatches, te.decode_steps, te.decode_tokens,
+                  sum(ops.launch_counts().values()))
         ts = time.monotonic()
         comps += te.step()
-        step_walls.append((time.monotonic() - ts,
-                           te.prefill_dispatches - pf0, te.decode_steps - dec0,
-                           te.decode_tokens - dt0))
+        after = (te.prefill_dispatches, te.decode_steps, te.decode_tokens,
+                 sum(ops.launch_counts().values()))
+        steps.append((time.monotonic() - ts,
+                      *(a - b for a, b in zip(after, before))))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = ops.launch_counts()
@@ -370,18 +607,20 @@ def serve(cfg, dev):
     for c in comps:
         assert len(c.tokens) == 32, (c.req_id, len(c.tokens))
         assert all(0 <= t < cfg.vocab_size for t in c.tokens), c.req_id
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    for name in PATH_KERNELS[cfg.name]:
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched on the {cfg.name} path"
     ttft = sorted(c.ttft * 1e3 for c in comps)
     tpot = [c.tpot * 1e3 for c in comps]
     gen_tok = sum(len(c.tokens) for c in comps)
     # decode rate over the steps that ran no prefill pass: the tokens their
     # decode iterations sampled over their wall time (mixed steps are left
     # out of both); the output rate is every token over the whole window
-    decode_only = [w for w, pf, _, _ in step_walls if pf == 0]
-    dec_tok = sum(t for _, pf, _, t in step_walls if pf == 0)
+    decode_only = [w for w, pf, _, _, _ in steps if pf == 0]
+    dec_tok = sum(t for _, pf, _, t, _ in steps if pf == 0)
     out = dict(
-        requests=len(comps), prompt_tokens=sum(c.n_prompt for c in comps),
+        model=cfg.name, requests=len(comps),
+        prompt_tokens=sum(c.n_prompt for c in comps),
         generated_tokens=gen_tok, wall_s=wall, steps=te.steps,
         prefill_passes=te.prefill_dispatches, decode_iterations=te.decode_steps,
         ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
@@ -390,36 +629,62 @@ def serve(cfg, dev):
         decode_tok_per_s=dec_tok / max(sum(decode_only), 1e-9),
         decode_only_steps=len(decode_only),
         decode_tokens_in_decode_only_steps=dec_tok,
-        prefill_step_ms_mean=1e3 * _mean([w for w, pf, _, _ in step_walls
+        prefill_step_ms_mean=1e3 * _mean([w for w, pf, _, _, _ in steps
                                           if pf]),
         decode_step_ms_mean=1e3 * _mean(decode_only),
         decode_iterations_per_decode_step=_mean(
-            [dec for _, pf, dec, _ in step_walls if pf == 0]),
+            [dec for _, pf, dec, _, _ in steps if pf == 0]),
         launches=launches,
         launches_per_step=sum(launches.values()) / te.steps,
-        paged_attention_per_decode_iteration=(
-            launches["paged_attention"] / max(te.decode_steps, 1)),
-        flash_prefill_per_prefill_pass=(
-            launches["flash_prefill"] / max(te.prefill_dispatches, 1)),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if cfg.name == "qwen3-8b":
+        out["paged_attention_per_decode_iteration"] = (
+            launches["paged_attention"] / max(te.decode_steps, 1))
+        out["flash_prefill_per_prefill_pass"] = (
+            launches["flash_prefill"] / max(te.prefill_dispatches, 1))
+    else:
+        # one launch per recurrent layer for every prefill dispatch and
+        # every decode step: read both from the steps that ran only one
+        # of the two, and hold the total to it
+        (name,) = PATH_KERNELS[cfg.name]
+        per = sum(k == ("rwkv" if name == "wkv6" else "rglru")
+                  for k in cfg.layer_kinds())
+        out[f"{name}_per_decode_step"] = _mean(
+            [n / dec for _, pf, dec, _, n in steps if pf == 0 and dec])
+        out[f"{name}_per_prefill_dispatch"] = _mean(
+            [n / pf for _, pf, dec, _, n in steps if dec == 0 and pf])
+        assert launches[name] == per * (te.prefill_dispatches
+                                        + te.decode_steps), \
+            (launches[name], per, te.prefill_dispatches, te.decode_steps)
+        assert out[f"{name}_per_decode_step"] == per \
+            == out[f"{name}_per_prefill_dispatch"], out
     log("  serving: " + json.dumps(out))
     del te, params
-    torch.cuda.empty_cache()
+    _release()
     return out
+
+
+def _release():
+    """Return a dropped TE's memory before the next phase: the runners hold
+    reference cycles, so collect them first."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _mean(xs):
     return sum(xs) / len(xs) if xs else 0.0
 
 
-def parity(cfg, dev):
-    """2-layer full-width fp32: kernels vs plain versions, same tokens."""
+def parity(cfg, dev, n_layers):
+    """Full width cut to ``n_layers`` layers, fp32: the TE on the kernels
+    and the TE on their plain versions give identical greedy tokens."""
     import numpy as np
     import torch
-    from repro_torch.engine import (EngineConfig, FlowServe, Request,
-                                    SamplingParams)
+    from repro_torch.engine import FlowServe, Request, SamplingParams
     from repro_torch.models import transformer as T
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     params = T.init_params(cfg2, gen, torch.float32, dev)
@@ -431,20 +696,21 @@ def parity(cfg, dev):
                         stop_on_eos=False)
     toks = {}
     for impl in ("auto", "ref"):
-        ecfg = EngineConfig(n_pages=512, page_size=16, max_batch_tokens=512,
-                            chunk_size=256, max_decode_batch=8,
-                            decode_horizon=8, dtype=torch.float32,
-                            attn_impl=impl)
-        te = FlowServe(cfg2, params, ecfg, device=dev)
+        te = FlowServe(cfg2, params, _engine_config(cfg2, torch.float32,
+                                                    impl), device=dev)
         for i, pr in enumerate(prompts):
             te.add_request(Request(prompt_tokens=pr, sampling=sp,
                                    req_id=f"p{i}"))
         toks[impl] = {c.req_id: c.tokens for c in te.run_to_completion()}
         del te
+        _release()
     same = toks["auto"] == toks["ref"]
-    log(f"  parity: kernel path {toks['auto']['p0'][:8]}... "
-        f"plain path {toks['ref']['p0'][:8]}... identical={same}")
+    log(f"  parity {cfg.name} x{n_layers} layers: kernel path "
+        f"{toks['auto']['p0'][:8]}... plain path {toks['ref']['p0'][:8]}... "
+        f"identical={same}")
     assert len(toks["auto"]) == 4 and same, "kernel and plain paths differ"
+    del params
+    _release()
 
 
 def main() -> int:
@@ -480,22 +746,34 @@ def main() -> int:
     sweep_paged_attention(gen, dev)
     sweep_flash_prefill(gen, dev)
     sweep_paged_prefill(dev)
-    cfg = get_config("qwen3-8b")
-    rows = [main_path_decode(cfg, dev), main_path_prefill(cfg, dev)]
+    sweep_wkv6(gen, dev)
+    sweep_rglru(gen, dev)
+    qwen, rwkv, rgemma = (get_config(n) for n in
+                          ("qwen3-8b", "rwkv6-1.6b", "recurrentgemma-2b"))
+    rows = [main_path_decode(qwen, dev), main_path_prefill(qwen, dev),
+            main_path_wkv6(rwkv, dev), main_path_rglru(rgemma, dev)]
     if args.only == "kernels":
         log(json.dumps({"kernels": rows}))
         log(card)
         return 0
 
-    log(f"phase 3: full-width serving (qwen3-8b, 36 layers, bf16) "
-        f"[{time.monotonic() - T0:.1f} s]")
-    served = serve(cfg, dev)
+    # phase 3: each path's launch counts are zeroed just before it runs and
+    # read just after; a kernel's row takes the count of its own path
+    launches = {}
+    for cfg, n_greedy, n_sampled in ((qwen, 8, 2), (rwkv, 6, 2),
+                                     (rgemma, 6, 2)):
+        log(f"phase 3: full-width serving ({cfg.name}, {cfg.n_layers} "
+            f"layers, bf16) [{time.monotonic() - T0:.1f} s]")
+        served = serve(cfg, dev, n_greedy, n_sampled)
+        for name in PATH_KERNELS[cfg.name]:
+            launches[name] = served["launches"][name]
     for r in rows:
-        r["launches"] = served["launches"][r["name"]]
+        r["launches"] = launches[r["name"]]
 
-    log(f"phase 4: kernel path vs plain path (2 layers, fp32) "
-        f"[{time.monotonic() - T0:.1f} s]")
-    parity(cfg, dev)
+    for cfg, n_layers in ((qwen, 2), (rwkv, 2), (rgemma, 3)):
+        log(f"phase 4: kernel path vs plain path ({cfg.name}, {n_layers} "
+            f"layers, fp32) [{time.monotonic() - T0:.1f} s]")
+        parity(cfg, dev, n_layers)
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
     log(json.dumps({"kernels": rows}))

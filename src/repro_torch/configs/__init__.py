@@ -1,3 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, list_configs, register, smoke_config,
+    ModelConfig, RGLRUConfig, RWKVConfig, get_config, list_configs, register,
+    smoke_config,
 )

@@ -1,6 +1,6 @@
-"""Model configuration for the port: the paged-family subset of the JAX
-package's ``configs/base.py`` (own copy — the port imports nothing of
-``repro``). Field names and derived quantities match the reference so a
+"""Model configuration for the port: the paged- and slot-family subset of
+the JAX package's ``configs/base.py`` (own copy — the port imports nothing
+of ``repro``). Field names and derived quantities match the reference so a
 config means the same model on both sides."""
 from __future__ import annotations
 
@@ -10,9 +10,26 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    # interval (tokens) at which the engine checkpoints recurrent state so
+    # prefix-cache hits can resume from the nearest boundary (DESIGN.md §4)
+    state_ckpt_interval: int = 256
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int
+    # block pattern: this many recurrent blocks per attention block
+    recurrent_per_attn: int = 2
+    conv1d_width: int = 4
+    state_ckpt_interval: int = 256
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the only family ported so far)
+    family: str                     # dense | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -22,18 +39,21 @@ class ModelConfig:
     vocab_size: int
 
     # --- attention flavour ---
-    attn_kind: str = "global"       # global | swa | local_global
+    attn_kind: str = "global"       # global | swa | local_global | hybrid_rglru | rwkv
     window: Optional[int] = None    # sliding-window size when applicable
     attn_logit_softcap: Optional[float] = None
     final_logit_softcap: Optional[float] = None
     qk_norm: bool = False
     rope_theta: float = 10000.0
 
-    mlp_act: str = "swiglu"         # swiglu | geglu
-    norm: str = "rmsnorm"
+    mlp_act: str = "swiglu"         # swiglu | geglu | sqrelu
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
     post_norms: bool = False        # gemma2-style post-attn/post-ffw norms
     embed_scale: bool = False       # gemma-style sqrt(d_model) embedding scale
     tie_embeddings: bool = False
+
+    rwkv: Optional[RWKVConfig] = None
+    rglru: Optional[RGLRUConfig] = None
 
     source: str = ""
 
@@ -46,7 +66,14 @@ class ModelConfig:
         """Per-layer block kind, length n_layers."""
         kinds = []
         for i in range(self.n_layers):
-            if self.attn_kind == "local_global":
+            if self.attn_kind == "rwkv":
+                kinds.append("rwkv")
+            elif self.attn_kind == "hybrid_rglru":
+                period = self.rglru.recurrent_per_attn + 1
+                kinds.append("attn_local"
+                             if i % period == self.rglru.recurrent_per_attn
+                             else "rglru")
+            elif self.attn_kind == "local_global":
                 kinds.append("attn_local" if i % 2 == 0 else "attn_global")
             elif self.attn_kind == "swa":
                 kinds.append("attn_local")
@@ -55,13 +82,24 @@ class ModelConfig:
         return tuple(kinds)
 
     def param_count(self) -> int:
-        """Approximate parameter count N (dense attention towers)."""
+        """Approximate parameter count N, counted as the reference counts
+        it per layer kind."""
         d, f, v = self.d_model, self.d_ff, self.padded_vocab
         qkv = d * self.n_heads * self.head_dim \
             + 2 * d * self.n_kv_heads * self.head_dim
         o = self.n_heads * self.head_dim * d
         mlp = (3 if self.mlp_act in ("swiglu", "geglu") else 2) * d * f
-        n = self.n_layers * (qkv + o + mlp) + v * d
+        n = 0
+        for kind in self.layer_kinds():
+            if kind == "rwkv":
+                # time-mix (r,k,v,g,o + decay/aaa) + channel mix (k,v,r)
+                n += 6 * d * d + 2 * d * f + d * f
+            elif kind == "rglru":
+                w = self.rglru.lru_width
+                n += 2 * d * w + w * d + 2 * w * self.rglru.conv1d_width + mlp
+            else:
+                n += qkv + o + mlp
+        n += v * d
         if not self.tie_embeddings:
             n += v * d
         return n
@@ -93,14 +131,26 @@ def list_configs() -> list:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from repro_torch.configs import qwen3_8b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        qwen3_8b, recurrentgemma_2b, rwkv6_1_6b,
+    )
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """The reference's CPU-runnable variant of the same family (same
     shrink rule as the JAX package, so smoke weights line up 1:1)."""
-    return dataclasses.replace(
-        cfg, name=cfg.name + "-smoke", n_layers=min(cfg.n_layers, 4),
+    changes: dict = dict(
+        name=cfg.name + "-smoke", n_layers=min(cfg.n_layers, 4),
         d_model=64, n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2),
         head_dim=16, d_ff=128, vocab_size=512,
         window=16 if cfg.window else None)
+    if cfg.rwkv is not None:
+        changes["rwkv"] = RWKVConfig(head_dim=16, state_ckpt_interval=8)
+        changes["n_kv_heads"] = 4
+    if cfg.rglru is not None:
+        changes["rglru"] = RGLRUConfig(
+            lru_width=64, recurrent_per_attn=cfg.rglru.recurrent_per_attn,
+            conv1d_width=4, state_ckpt_interval=8)
+        changes["n_layers"] = min(cfg.n_layers, 6)
+        changes["n_kv_heads"] = 1
+    return dataclasses.replace(cfg, **changes)

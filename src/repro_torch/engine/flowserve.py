@@ -1,14 +1,21 @@
-"""FLOWSERVE — the serving engine (§4), torch port of the colocated paged
-path of ``repro/engine/flowserve.py``. One engine == one task engine (TE)
-on one device: the master (this class) runs the scheduler and the RTC
-prefix cache; the executor is the paged runner and its page pool.
+"""FLOWSERVE — the serving engine (§4), torch port of the colocated path
+of ``repro/engine/flowserve.py``. One engine == one task engine (TE) on one
+device: the master (this class) runs the scheduler; the executor is the
+runner of the model's family (``engine/runners``), which decides the data
+plane.
 
-A step packs every planned prefill chunk into ONE ragged prefill pass
-(first tokens sampled in it) and runs decode as K-step fused horizons over
-the device-resident batch state, fetching each horizon's tokens one
-horizon late. PD disaggregation, migration, fork, the warm pool, fault
-injection, tensor parallelism and the slot family arrive with later
-slices.
+  * paged family (attention-only towers): a page pool with the RTC prefix
+    cache. A step packs every planned prefill chunk into ONE ragged
+    prefill pass (first tokens sampled in it) and runs decode as K-step
+    fused horizons over the device-resident batch state, fetching each
+    horizon's tokens one horizon late.
+  * slot family (rwkv6, recurrentgemma): dense per-slot caches, no pool
+    and no RTC. Prefill is chunked per sequence on its slot; decode is one
+    all-slot step with sampling in the same pass; prefix reuse restores a
+    state checkpoint taken when an earlier request released its slot.
+
+PD disaggregation, migration, fork, the warm pool, fault injection and
+tensor parallelism arrive with later slices.
 """
 from __future__ import annotations
 
@@ -66,17 +73,20 @@ class Completion:
 
 @dataclass
 class EngineConfig:
-    n_pages: int = 256
+    n_pages: int = 256                  # paged family: pool pages
     page_size: int = 16
+    n_slots: int = 8                    # slot family: slots
+    max_len: int = 256                  # slot family: per-slot capacity
     max_batch_tokens: int = 64
     max_decode_batch: int = 8
     chunk_size: int = 16
     max_prefill_seqs: int = 8           # concurrent mid-prefill sequences
     fused_decode: bool = True           # K-step decode horizons (DESIGN §8)
     decode_horizon: int = 8             # max fused multi-step K (1 = off)
-    dtype: torch.dtype = torch.float32  # KV pool dtype
+    dtype: torch.dtype = torch.float32  # KV pool / slot cache dtype
     seed: int = 0
-    attn_impl: str = "auto"             # "auto" = kernels on CUDA | "ref"
+    kernel_impl: str = "auto"           # "auto" = the kernels on CUDA |
+                                        # "ref" = their plain versions
 
 
 def _upload_i32(device, *arrays) -> List[torch.Tensor]:
@@ -106,12 +116,21 @@ class FlowServe:
         self._gen.manual_seed(ecfg.seed)
 
         params = _to_device(params, self.device)
-        self.pool = PagedKVPool(cfg, ecfg.n_pages, ecfg.page_size,
-                                ecfg.dtype, self.device)
-        cm = RTCCostModel(flops_per_token=2.0 * cfg.active_param_count())
-        self.rtc = RelationalTensorCache(self.pool, cm)
-        self.runner = self.family.runner_cls(cfg, params, self.pool,
-                                             attn_impl=ecfg.attn_impl)
+        if self.family.uses_pages:
+            self.pool = PagedKVPool(cfg, ecfg.n_pages, ecfg.page_size,
+                                    ecfg.dtype, self.device)
+            cm = RTCCostModel(flops_per_token=2.0 * cfg.active_param_count())
+            self.rtc = RelationalTensorCache(self.pool, cm)
+            self.runner = self.family.runner_cls(cfg, params, self.pool,
+                                                 impl=ecfg.kernel_impl)
+        else:
+            self.pool = None
+            self.rtc = None
+            self.runner = self.family.runner_cls(
+                cfg, params, ecfg.n_slots, ecfg.max_len, ecfg.dtype,
+                self.device, impl=ecfg.kernel_impl)
+            # token prefix -> slot snapshot (the recurrent prefix cache)
+            self._state_cache: Dict[tuple, dict] = {}
 
         scfg = SchedulerConfig(max_batch_tokens=ecfg.max_batch_tokens,
                                max_decode_batch=ecfg.max_decode_batch,
@@ -144,6 +163,14 @@ class FlowServe:
     def add_request(self, req: Request) -> str:
         seq = SequenceState(seq_id=req.req_id, tokens=list(req.prompt_tokens),
                             n_prompt=len(req.prompt_tokens))
+        if not self.family.uses_pages:
+            need = seq.n_prompt + req.sampling.max_new_tokens
+            if need > self.ecfg.max_len:
+                raise ValueError(
+                    f"{req.req_id}: {seq.n_prompt} prompt + "
+                    f"{req.sampling.max_new_tokens} new tokens exceed the "
+                    f"slot capacity max_len={self.ecfg.max_len}")
+            self._try_state_reuse(seq)
         self._seqs[req.req_id] = seq
         self._requests[req.req_id] = req
         self.sample_params[req.req_id] = req.sampling
@@ -173,9 +200,16 @@ class FlowServe:
             self._drain_inflight()
 
         if plan.prefill:
-            self._prefill_batched(plan.prefill)
+            if self.family.uses_pages:
+                self._prefill_batched(plan.prefill)
+            else:
+                self._prefill_slot(plan.prefill)
 
-        if plan.decode:
+        if plan.decode and not self.family.uses_pages:
+            live = self._refilter(plan.decode)
+            if live:
+                self._decode_slot(live)
+        elif plan.decode:
             live = self._refilter(plan.decode)
             fused = False
             if live and self.ecfg.fused_decode:
@@ -306,14 +340,81 @@ class FlowServe:
             self.scheduler.on_prefill_progress(seq, True)
             self._commit_sampled([seq], [int(toks[i])])
 
+    def _prefill_slot(self, entries) -> None:
+        """Slot-family prefill: per sequence, one chunk on its slot
+        (``flowserve.py:429-459``). A sequence gets its slot at its first
+        chunk, and a planned state checkpoint is restored into it then."""
+        for seq, start, chunk in entries:
+            if seq.n_cached != start or seq.seq_id not in self._seqs:
+                continue  # stale plan entry (seq finished)
+            if seq.slot is None:
+                if not self.runner.alloc_slot(seq):
+                    self.scheduler.ready.appendleft(seq)  # no slot; retry
+                    if seq in self.scheduler.prefilling:
+                        self.scheduler.prefilling.remove(seq)
+                    continue
+                if seq.state is not None:
+                    self.runner.restore_state(
+                        seq, self._state_cache[seq.state])
+                    seq.state = None
+            if chunk:
+                self.runner.prefill_chunk(seq, chunk)
+                self.prefill_dispatches += 1
+            self.scheduler.on_prefill_progress(
+                seq, seq.n_cached >= len(seq.tokens) - 1)
+
+    def _try_state_reuse(self, seq: SequenceState) -> None:
+        """Slot-family prefix cache: the longest state checkpoint whose
+        token prefix is a proper prefix of the prompt (exact-boundary
+        reuse, DESIGN.md §4). ``n_cached`` is committed now (the scheduler
+        plans chunks from it); the snapshot is restored once a slot is
+        assigned."""
+        best_key, best_len = None, 0
+        prompt = tuple(seq.tokens[:seq.n_prompt])
+        for key in self._state_cache:
+            n = len(key)
+            if best_len < n < len(prompt) and prompt[:n] == key:
+                best_key, best_len = key, n
+        if best_key is not None:
+            seq.state = best_key
+            seq.n_cached = best_len
+
+    def _decode_slot(self, live: List[SequenceState]) -> None:
+        """Slot-family decode (``_decode_slot_fused``,
+        ``flowserve.py:724-753``): one all-slot decode step with sampling
+        in the same pass; only the (n_slots,) token vector reaches the
+        host. temps/top_ps are slot-indexed and cached on the batch's
+        composition."""
+        batch_key = tuple((s.seq_id, s.slot) for s in live)
+        if self._sp_cache[0] != batch_key:
+            temps = np.zeros((self.ecfg.n_slots,), np.float32)
+            top_ps = np.ones((self.ecfg.n_slots,), np.float32)
+            for s in live:
+                sp = self.sample_params[s.seq_id]
+                temps[s.slot] = sp.temperature
+                top_ps[s.slot] = sp.top_p
+            self._sp_cache = (batch_key, temps, top_ps)
+        _, temps, top_ps = self._sp_cache
+        toks_dev = self.runner.decode_sample(live, temps, top_ps, self._gen)
+        self.decode_steps += 1
+        self.decode_tokens += len(live)
+        self.host_dispatches += 1
+        # the next plan needs only counts: prepare it before the blocking
+        # token fetch (§4.2)
+        self._next_plan = self.scheduler.prepare_next()
+        toks = toks_dev.cpu().numpy()
+        self.host_syncs += 1
+        self._commit_sampled(live, [int(toks[s.slot]) for s in live])
+
     # ------------------------------------------------------- decode hot loop
     def warmup_decode(self, max_pages: Optional[int] = None,
                       horizons: Optional[List[int]] = None) -> int:
         """Run every pow2 batch bucket up to ``max_decode_batch`` x every
         pow2 page bucket up to ``max_pages`` x every pow2 horizon up to
         ``decode_horizon`` once on the scratch page (builds the kernels,
-        warms the allocator). Returns the number of shapes run."""
-        if not self.ecfg.fused_decode:
+        warms the allocator). Returns the number of shapes run (0 for the
+        slot family, which has no horizon buckets)."""
+        if not self.family.uses_pages or not self.ecfg.fused_decode:
             return 0
         if max_pages is None:
             max_pages = max(1, self.ecfg.n_pages
@@ -328,7 +429,9 @@ class FlowServe:
         """Run every pow2 token bucket up to the step budget (plus one
         extension token per prompt row) x every pow2 page bucket up to
         ``max_pages`` once as an all-padding plan. Returns the number of
-        shapes run."""
+        shapes run (0 for the slot family)."""
+        if not self.family.uses_pages:
+            return 0
         if max_pages is None:
             max_pages = max(1, self.ecfg.n_pages
                             // max(1, self.ecfg.max_decode_batch))
@@ -537,7 +640,15 @@ class FlowServe:
             self._hot.evict(req_id)   # a reused id must join fresh
         if seq is None:
             return
-        if seq.pages:
+        if not self.family.uses_pages:
+            # checkpoint the slot's state under the tokens it covers, then
+            # free the slot (flowserve.py:1009-1014)
+            if seq.slot is not None:
+                key = tuple(seq.tokens[:seq.n_cached])
+                if key and len(self._state_cache) < 32:
+                    self._state_cache[key] = self.runner.snapshot_state(seq)
+            self.runner.free_slot(seq)
+        elif seq.pages:
             own = seq.pages[seq.reused_pages:]
             shared = seq.pages[:seq.reused_pages]
             preserve = keep_prefix and seq.n_cached > 0
@@ -588,4 +699,6 @@ class FlowServe:
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
     return tree.to(device)

@@ -1,10 +1,19 @@
-"""Runner families of the port. Importing this package registers the
-paged family (the only one ported so far)."""
+"""Runner families of the port. Importing this package registers them in
+match order: ``paged`` (attention-only towers: paged KV, ragged prefill,
+fused decode horizons), then ``slot`` (recurrent and hybrid towers: dense
+per-slot caches), registered last with an always-true predicate as the
+JAX package registers it."""
 from repro_torch.engine.runners.base import (  # noqa: F401
     RunnerFamily, SequenceState, register_family, resolve_family,
 )
 from repro_torch.engine.runners.paged import PagedRunner
+from repro_torch.engine.runners.slot import SlotRunner
 
 register_family(RunnerFamily(
     name="paged", runner_cls=PagedRunner,
-    matches=lambda cfg: cfg.attn_kind in ("global", "swa", "local_global")))
+    matches=lambda cfg: cfg.attn_kind in ("global", "swa", "local_global"),
+    uses_pages=True))
+
+register_family(RunnerFamily(
+    name="slot", runner_cls=SlotRunner, matches=lambda cfg: True,
+    uses_pages=False))

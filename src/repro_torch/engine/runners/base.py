@@ -1,12 +1,12 @@
 """Runner-family registry of the port (own copy of the JAX package's
 ``engine/runners/base.py``, DESIGN.md §12). It is a separate registry
 object, so registering a family here can never replace an entry of the
-JAX package's registry. Only the paged family is registered so far; the
-slot family joins with its slice."""
+JAX package's registry. The paged family registers first, the slot
+family last with an always-true predicate (the fallback)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List
+from typing import Any, Callable, List, Optional
 
 from repro_torch.configs.base import ModelConfig
 
@@ -16,18 +16,24 @@ class SequenceState:
     seq_id: str
     tokens: List[int]                   # full token ids (prompt + generated)
     n_prompt: int
-    n_cached: int = 0                   # tokens with KV materialized
+    n_cached: int = 0                   # tokens with KV/state materialized
     pages: List[int] = field(default_factory=list)
     reused_pages: int = 0               # prefix-cache pages (shared, pinned)
+    slot: Optional[int] = None          # SlotRunner slot id
+    state: Any = None                   # state-checkpoint key to restore
+                                        # when the slot is assigned
 
 
 @dataclass(frozen=True)
 class RunnerFamily:
-    """One registry entry: a predicate over ``ModelConfig`` and the runner
-    class (the facade over a prefill/decode pair) that executes it."""
+    """One registry entry: a predicate over ``ModelConfig``, the runner
+    class (the facade over a prefill/decode pair) that executes it, and
+    the family's KV data plane: a page pool with the RTC prefix cache
+    (``uses_pages``) or dense slot caches with state checkpoints."""
     name: str
     runner_cls: type
     matches: Callable[[ModelConfig], bool]
+    uses_pages: bool
 
 
 _FAMILIES: List[RunnerFamily] = []

@@ -38,11 +38,11 @@ class PagedRunner:
     """Family facade: shared state (params, pool, per-layer windows) and
     delegation to the two phase runners."""
 
-    def __init__(self, cfg, params, pool, attn_impl: str = "auto"):
+    def __init__(self, cfg, params, pool, impl: str = "auto"):
         self.cfg = cfg
         self.pool = pool
         self.params = params
-        self.attn_impl = attn_impl          # "auto" (kernels) | "ref"
+        self.impl = impl                    # "auto" (kernels) | "ref"
         self.layers = [T.layer(params, li) for li in range(cfg.n_layers)]
         # None on global layers: the kernels then skip the window test
         self.windows = [w if w < T.GLOBAL_WINDOW else None
@@ -113,7 +113,7 @@ class PagedPrefillRunner:
             o = ops.paged_prefill(q, kp, vp, cu_tokens, entry_bt,
                                   entry_start, tiles,
                                   softcap=cfg.attn_logit_softcap,
-                                  window=rt.windows[li], impl=rt.attn_impl)
+                                  window=rt.windows[li], impl=rt.impl)
             x = T.block_out(cfg, p, x, o[:, None].to(x.dtype))
         # unembed ONLY the chunk-final rows — (Sb, Vp), not (Tb, Vp)
         logits = T.unembed(cfg, rt.params, x[final_idx.long()])[:, 0]
@@ -193,7 +193,7 @@ class PagedDecodeRunner:
                                              v_new[:, 0], page, slot)
             o = ops.paged_attention(q, kp, vp, bt, lengths,
                                     softcap=cfg.attn_logit_softcap,
-                                    window=rt.windows[li], impl=rt.attn_impl)
+                                    window=rt.windows[li], impl=rt.impl)
             x = T.block_out(cfg, p, x, o[:, None].to(x.dtype))
         return T.unembed(cfg, rt.params, x)[:, 0]
 

@@ -1,5 +1,7 @@
 """FLOWSERVE's centralized master scheduler (§4.2) — the port's own copy
-of ``repro/engine/scheduler.py``, trimmed to the colocated path.
+of ``repro/engine/scheduler.py``, trimmed to the colocated path. The slot
+family runs it without an RTC (``rtc=None``): requests go straight to the
+ready queue, and prefix reuse is the engine's state checkpoints.
 
 Continuous batching with chunked prefill (Sarathi-style token budget per
 step), preemption under page pressure, and the paper's two asynchrony
@@ -17,7 +19,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.rtc import RelationalTensorCache
@@ -42,7 +44,8 @@ class SchedulerConfig:
 class Scheduler:
     """Owns the queues; the engine owns execution and page allocation."""
 
-    def __init__(self, cfg: SchedulerConfig, rtc: RelationalTensorCache):
+    def __init__(self, cfg: SchedulerConfig,
+                 rtc: Optional[RelationalTensorCache]):
         self.cfg = cfg
         self.rtc = rtc
         self.waiting: deque = deque()           # SequenceState
@@ -61,6 +64,9 @@ class Scheduler:
         (the sched-enqueue thread of §4.2)."""
         while self.waiting:
             seq = self.waiting.popleft()
+            if self.rtc is None:
+                self.ready.append(seq)
+                continue
             m = self.rtc.match_by_prefix_token(seq.tokens[:seq.n_prompt])
             if m.entry is None or m.matched_tokens == 0:
                 self.ready.append(seq)
@@ -82,7 +88,7 @@ class Scheduler:
                 self.ready.append(seq)
 
     def pump_prefetch(self) -> None:
-        if not self.prefetching:
+        if self.rtc is None or not self.prefetching:
             return
         self.rtc.pump_populates()
         still = []

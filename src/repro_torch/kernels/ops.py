@@ -1,5 +1,6 @@
-"""Public attention ops of the port (the counterpart of
-``repro/kernels/ops.py``).
+"""Public kernel ops of the port (the counterpart of
+``repro/kernels/ops.py``): the two attention kernels of the paged family
+and the two recurrences of the slot family.
 
 ``impl`` selects the route:
   * "auto" — the CUDA kernel for CUDA tensors, the plain PyTorch version
@@ -18,6 +19,8 @@ import torch
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import rglru as RG
+from repro_torch.kernels import wkv6 as WKV
 
 
 def _route(x: torch.Tensor, impl: str) -> str:
@@ -61,12 +64,34 @@ def flash_prefill(q, k, v, softcap: Optional[float] = None,
     return FP.flash_prefill(q, k, v, softcap=softcap, window=window)
 
 
+def wkv6(r, k, v, w, u, state, impl: str = "auto"):
+    """WKV6 with a carried state: r, k, v, w (B, T, H, hd), u (H, hd)
+    fp32, state (B, H, hd, hd) fp32. The new state is written over
+    ``state`` in place on both routes. Returns (y, state)."""
+    if _route(r, impl) == "ref":
+        y, s = R.wkv6_ref(r, k, v, w, u, state)
+        state.copy_(s)
+        return y, state
+    return WKV.wkv6(r, k, v, w, u, state)
+
+
+def rglru(a, b, h0, impl: str = "auto"):
+    """RG-LRU recurrence: a, b (B, T, W), h0 (B, W) fp32. Returns
+    (h (B, T, W), h_last (B, W) fp32)."""
+    if _route(a, impl) == "ref":
+        return R.rglru_ref(a, b, h0)
+    return RG.rglru(a, b, h0)
+
+
 def reset_launches() -> None:
     """Zero every kernel's launch count (chip_smoke does this just before
-    it drives the main path)."""
+    it drives a main path)."""
     PA.launches = 0
     FP.launches = 0
+    WKV.launches = 0
+    RG.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"paged_attention": PA.launches, "flash_prefill": FP.launches}
+    return {"paged_attention": PA.launches, "flash_prefill": FP.launches,
+            "wkv6": WKV.launches, "rglru": RG.launches}

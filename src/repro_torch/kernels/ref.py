@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the port's attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each is the semantic ground truth of a kernel in ``csrc/``: the CPU path
 runs them directly, the tests hold them against the JAX package's oracles,
 and ``chip_smoke.py`` holds each CUDA kernel against them on the card. All
-math is fp32 with masked scores at -1e30 (not -inf), as in the Pallas
-bodies they mirror.
+math is fp32; attention masks scores at -1e30 (not -inf), as in the Pallas
+bodies they mirror, and the two recurrences step token by token.
 """
 from __future__ import annotations
 
@@ -122,3 +122,40 @@ def paged_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
         o = torch.einsum("hgqk,khd->qhgd", pr, v)
         out[t0:t1] = o.reshape(t1 - t0, h, hd)
     return out.to(q.dtype)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             state: Optional[torch.Tensor] = None):
+    """The sequential WKV6 recurrence (``repro/models/rwkv6.py::
+    wkv_sequential``). r, k, v, w: (B, T, H, hd); u: (H, hd); state:
+    (B, H, hd, hd) fp32 mapping the k-dim to the v-dim (zeros if None).
+    Per token: y = r . (S + (u * k) v^T), then S <- diag(w) S + k v^T.
+    Returns (y (B, T, H, hd) in r's dtype, final state); ``state`` itself
+    is not modified."""
+    b, t, h, hd = r.shape
+    s = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device) \
+        if state is None else state.float()
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]       # (B,H,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, i], s + uf * kv))
+        s = wf[:, i, :, :, None] * s + kv
+    return torch.stack(ys, 1).to(r.dtype), s
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """The sequential linear recurrence h_t = a_t h_{t-1} + b_t in fp32
+    (``repro/kernels/ref.py::rglru_ref``). a, b: (B, T, W); h0: (B, W).
+    Returns (h (B, T, W) in a's dtype, h_last (B, W) fp32)."""
+    af, bf = a.float(), b.float()
+    hc = h0.float()
+    hs = []
+    for i in range(a.shape[1]):
+        hc = af[:, i] * hc + bf[:, i]
+        hs.append(hc)
+    if not hs:
+        return torch.empty_like(a), hc.clone()
+    return torch.stack(hs, 1).to(a.dtype), hc

@@ -1,0 +1,65 @@
+"""WKV6: the CUDA kernel ``csrc/wkv6.cu`` and its launcher. It replaces
+the Pallas kernel ``repro/kernels/rwkv6_wkv.py::wkv6`` and, unlike it,
+carries a state in and out; its plain version is ``ref.wkv6_ref``. Go
+through ``ops.wkv6``, which routes CPU tensors to the plain version."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+launches = 0        # kernel launches since the last reset (main-path proof)
+
+
+def _fn():
+    lib = _build.load("wkv6")
+    fn = lib.wkv6_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor):
+    """Launch the WKV6 kernel. r, k, v, w: (B, T, H, hd), one dtype (fp32
+    or bf16), T >= 1; u: (H, hd) fp32; state: (B, H, hd, hd) fp32 (k-dim
+    by v-dim). The state after the last token is written over ``state``
+    IN PLACE. Returns (y (B, T, H, hd) in r's dtype, state)."""
+    global launches
+    b, t, h, hd = r.shape
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError("wkv6 kernel needs CUDA tensors")
+    if r.dtype not in DTYPES or any(x.dtype != r.dtype for x in (k, v, w)):
+        raise TypeError(f"r/k/v/w must share one of {list(DTYPES)}: "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}, {w.dtype}")
+    if u.dtype != torch.float32 or state.dtype != torch.float32:
+        raise TypeError("u and state must be float32")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if any(x.shape != r.shape for x in (k, v, w)) or u.shape != (h, hd) \
+            or state.shape != (b, h, hd, hd):
+        raise ValueError(f"shape mismatch: r {tuple(r.shape)}, u "
+                         f"{tuple(u.shape)}, state {tuple(state.shape)}")
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("state", state)):
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {dev}")
+    y = torch.empty_like(r)
+    if b * t == 0 or h == 0:
+        return y, state
+    fn = _fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), state.data_ptr(), y.data_ptr(), b, t, h, hd,
+                DTYPES[r.dtype], stream)
+    _build.check(rc, "wkv6")
+    launches += 1
+    return y, state

@@ -2,6 +2,8 @@
 
     # full-width qwen3-8b (36 layers, random bf16 weights), one H100
     PYTHONPATH=src python -m repro_torch.launch.profile
+    # the slot family: --arch rwkv6-1.6b or --arch recurrentgemma-2b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch rwkv6-1.6b
 
 One colocated TE serves a warm-up batch (untimed: it builds the kernels
 and warms the allocator), then traffic of the same shape under
@@ -34,6 +36,10 @@ def _group(name: str) -> str:
         return "paged_attention kernel"
     if "flash_prefill_kernel" in low:
         return "flash_prefill kernel"
+    if "wkv6_kernel" in low:
+        return "wkv6 kernel"
+    if "rglru_kernel" in low:
+        return "rglru kernel"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                               "splitk", "nvjet")):
         return "matmul (cuBLAS)"
@@ -110,7 +116,8 @@ def main() -> None:
     gen.manual_seed(args.seed)
     params = T.init_params(cfg, gen, torch.bfloat16, dev)
     te = FlowServe(cfg, params, EngineConfig(
-        n_pages=2048, page_size=16, max_batch_tokens=512, chunk_size=256,
+        n_pages=2048, page_size=16, n_slots=8, max_len=2048,
+        max_batch_tokens=512, chunk_size=256,
         max_decode_batch=8, decode_horizon=8, dtype=torch.bfloat16,
         seed=args.seed), device=dev)
     _submit(te, cfg, np.random.RandomState(args.seed + 1000), "w",

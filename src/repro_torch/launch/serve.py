@@ -4,7 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --requests 8 --max-new 32
 
-    # the smoke config on the CPU (plain attention, no kernels)
+    # the slot family: rwkv6-1.6b or recurrentgemma-2b at full width
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+
+    # a smoke config on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --device cpu --requests 4 --max-new 8
 """
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import get_config, list_configs, smoke_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
@@ -25,7 +28,7 @@ from repro_torch.models import transformer as T
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b", choices=list_configs())
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--smoke", action="store_true",
@@ -44,7 +47,8 @@ def main() -> None:
     t0 = time.monotonic()
     params = T.init_params(cfg, gen, dtype, dev)
     ecfg = EngineConfig(n_pages=2048 if not args.smoke else 256,
-                        page_size=16, max_batch_tokens=512, chunk_size=256,
+                        page_size=16, n_slots=8, max_len=2048,
+                        max_batch_tokens=512, chunk_size=256,
                         max_decode_batch=8, decode_horizon=8, dtype=dtype,
                         seed=args.seed)
     te = FlowServe(cfg, params, ecfg, device=dev)

@@ -1,8 +1,8 @@
 """Weight bridge: the JAX package's ``init_params`` pytree, handed over as
 nested dicts of numpy arrays, becomes the port's parameter dict — the way
 both sides run identical weights with nothing downloaded. The layouts
-already agree (stacked ``blocks``, ``x @ w`` weights), so the bridge only
-converts leaves."""
+already agree (stacked ``blocks``, per-kind lists of the hybrid tower,
+``x @ w`` weights), so the bridge only converts leaves."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -14,9 +14,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 # leaves that stay fp32 whatever the weight dtype (the reference keeps its
-# norm scales in fp32 too)
+# norm scales and the recurrences' lerp/decay/bonus/gate constants in fp32)
 _FP32_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "q_norm",
-              "k_norm")
+              "k_norm", "mix_base", "decay_base", "bonus_u", "ln_x",
+              "cm_mix", "lambda_p")
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype], keep_fp32: bool):
@@ -37,15 +38,21 @@ def params_from_numpy(cfg: ModelConfig, tree: Any, device="cuda",
     ``dtype`` set, weight matrices are cast to it and norm scales kept
     fp32; without it every leaf keeps its dtype."""
     dev = resolve_device(device)
-    if cfg.attn_kind not in ("global", "swa", "local_global") \
-            or "blocks" not in tree:
+    towers = {"rwkv": ("blocks",),
+              "hybrid_rglru": ("rglru_blocks", "attn_blocks")}
+    need = towers.get(cfg.attn_kind, ("blocks",))
+    if cfg.attn_kind not in ("global", "swa", "local_global", *towers) \
+            or any(k not in tree for k in need):
         raise NotImplementedError(
-            f"bridge covers the paged dense tower only, not {cfg.name!r}")
+            f"bridge covers the dense, rwkv and hybrid_rglru towers, not "
+            f"{cfg.name!r}")
 
     def conv(t, keep_fp32=False):
         if isinstance(t, dict):
             return {k: conv(v, keep_fp32 or k in _FP32_KEYS)
                     for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v, keep_fp32) for v in t]
         return _leaf(t, dev, dtype, keep_fp32)
 
     return conv(tree)

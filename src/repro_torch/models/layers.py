@@ -1,5 +1,5 @@
-"""Neural-net building blocks of the port's paged family, plain PyTorch
-(the counterpart of ``repro/models/layers.py``). Layouts follow the JAX
+"""Neural-net building blocks of the port, plain PyTorch (the counterpart
+of ``repro/models/layers.py``). Layouts follow the JAX
 package at every public function: activations (B, S, H, hd), weights
 (d_in, d_out) applied as ``x @ w``. Norm and softmax math is fp32."""
 from __future__ import annotations
@@ -22,9 +22,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * (1.0 + weight.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    if kind == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])
 
 
@@ -84,14 +94,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"]
-    if act == "swiglu":
-        hmid = F.silu(gate) * up
-    elif act == "geglu":
-        hmid = F.gelu(gate, approximate="tanh") * up
+    if act in ("swiglu", "geglu"):
+        gate = x @ p["w_gate"]
+        up = x @ p["w_up"]
+        g = F.silu(gate) if act == "swiglu" \
+            else F.gelu(gate, approximate="tanh")
+        hmid = g * up
+    elif act == "sqrelu":
+        hmid = torch.relu(x @ p["w_up"]).square()
     else:
-        raise NotImplementedError(f"mlp {act!r} is not ported yet")
+        raise ValueError(act)
     return hmid @ p["w_down"]
 
 

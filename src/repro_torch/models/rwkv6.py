@@ -1,0 +1,197 @@
+"""RWKV-6 "Finch" of the port: attention-free time mix with data-dependent
+decay (the counterpart of ``repro/models/rwkv6.py``).
+
+Recurrence (per head, state S in R^{hd x hd}):
+    y_t = r_t . (S_{t-1} + (u * k_t) v_t^T)
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+with per-channel decay w_t = exp(-exp(w_hat_t)) computed from the input.
+
+``rwkv_time_mix`` runs the recurrence through ``ops.wkv6`` with the carried
+state, in prefill and in decode: the WKV6 kernel on a CUDA tensor, the
+sequential plain version on a CPU tensor. ``wkv_sequential`` and
+``wkv_chunked`` are the reference's two plain formulations, kept as twins
+for the CPU tests."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import wkv6_ref
+
+# Clamp on the per-token log-decay inside the chunked form's within-chunk
+# products, so its exp(-cumsum) factors stay in fp32 range (lossless at
+# chunk sizes <= 64; the reference's value).
+LOG_DECAY_CLAMP = -30.0
+LORA_RANK = 32
+
+
+def wkv_sequential(r, k, v, w, u, state=None):
+    """r, k, v, w: (B, T, H, hd); u: (H, hd); state (B, H, hd, hd) or None.
+    Returns (y, final_state); the per-token recurrence."""
+    return wkv6_ref(r, k, v, w, u, state)
+
+
+def wkv_chunked(r, k, v, w, u, state=None, chunk: int = 64):
+    """Chunk-parallel WKV6 (the reference's prefill formulation): within a
+    chunk the pairwise term is a masked product in log-decay space, across
+    chunks the state carries. Same signature and result as
+    ``wkv_sequential``."""
+    b, t, h, hd = r.shape
+    if state is None:
+        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                            device=r.device)
+    pad = (-t) % chunk
+    if pad:
+        def z(x, value=0.0):
+            return F.pad(x, (0, 0, 0, 0, 0, pad), value=value)
+        r, k, v, w = z(r), z(k), z(v), z(w, 1.0)
+    n = (t + pad) // chunk
+
+    def chunks(x):                                 # (n, B, H, C, hd)
+        return x.reshape(b, n, chunk, h, hd).permute(1, 0, 3, 2, 4).float()
+
+    rc, kc, vc, wc = (chunks(x) for x in (r, k, v, w))
+    u32 = u.float()
+    s = state.float()
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    ys = []
+    for c in range(n):
+        rb, kb, vb, wb = rc[c], kc[c], vc[c], wc[c]
+        lw = torch.log(wb.clamp_min(1e-38)).clamp(LOG_DECAY_CLAMP, 0.0)
+        cum = lw.cumsum(2)
+        dec_in = torch.exp(cum - lw)
+        y_state = torch.einsum("bhck,bhkv->bhcv", rb * dec_in, s)
+        q_side = rb * torch.exp(cum - lw)
+        k_side = kb * torch.exp(-cum)
+        scores = torch.einsum("bhck,bhdk->bhcd", q_side, k_side)
+        scores = torch.where(mask, scores, torch.zeros_like(scores))
+        bonus = torch.einsum("bhck,bhck->bhc", rb * u32[None, :, None, :], kb)
+        ys.append(y_state + torch.einsum("bhcd,bhdv->bhcv", scores, vb)
+                  + bonus[..., None] * vb)
+        total = cum[:, :, -1:, :]
+        k_dec = kb * torch.exp(total - cum)
+        s = torch.exp(total[:, :, 0, :])[..., None] * s + torch.einsum(
+            "bhck,bhcv->bhkv", k_dec, vb)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, n * chunk, h, hd)
+    return y[:, :t].to(r.dtype), s
+
+
+# ---------------------------------------------------------------------------
+# Full RWKV6 block (time mix + channel mix): parameters and application
+# ---------------------------------------------------------------------------
+
+
+def init_rwkv_block(gen: torch.Generator, d: int, f: int, head_dim: int,
+                    dtype: torch.dtype, device) -> dict:
+    """One block's weights with the reference's distributions
+    (``rwkv6.py:107-133``); the lerp bases, decay base, bonus u and the
+    group-norm scale stay fp32 as there."""
+    h = d // head_dim
+    s = 1.0 / math.sqrt(d)
+    lr = LORA_RANK
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=device)
+                * std).to(dtype)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    return {
+        "mix_base": full((5, d), 0.5),
+        "mix_lora_a": normal((d, lr), s),
+        "mix_lora_b": normal((5, lr, d), 0.01),
+        "wr": normal((d, d), s),
+        "wk": normal((d, d), s),
+        "wv": normal((d, d), s),
+        "wg": normal((d, d), s),
+        "wo": normal((d, d), s),
+        "decay_base": full((d,), -4.0),
+        "decay_lora_a": normal((d, lr), s),
+        "decay_lora_b": normal((lr, d), 0.01),
+        "bonus_u": full((h, head_dim), 0.0),
+        "ln_x": full((d,), 1.0),
+        "cm_mix": full((2, d), 0.5),
+        "cm_k": normal((d, f), s),
+        "cm_v": normal((f, d), 1.0 / math.sqrt(f)),
+        "cm_r": normal((d, d), s),
+    }
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """shifted[t] = x[t-1]; position 0 takes ``last`` (carried across
+    calls)."""
+    return torch.cat([last[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
+
+
+def _last_valid(x: torch.Tensor, n_valid: Optional[int]) -> torch.Tensor:
+    """x[:, n_valid-1, :]: the carried last-token input comes from the last
+    REAL position, not a pad."""
+    return x[:, -1, :] if n_valid is None else x[:, n_valid - 1, :]
+
+
+def rwkv_time_mix(p: dict, x: torch.Tensor, head_dim: int,
+                  state: torch.Tensor, last_x: torch.Tensor,
+                  n_valid: Optional[int] = None, impl: str = "auto"):
+    """x: (B, T, D); state: (B, H, hd, hd) fp32, advanced IN PLACE through
+    ``ops.wkv6``; last_x: (B, D) the previous call's last input. Returns
+    (y, state, new_last_x).
+
+    ``n_valid`` marks positions >= n_valid as padding (the bucketed-prefill
+    contract): their recurrence steps become exact identities (w -> 1,
+    k -> 0) and new_last_x is taken at n_valid-1."""
+    b, t, d = x.shape
+    h = d // head_dim
+    xs = _token_shift(x, last_x)
+    delta = (xs - x).float()
+    # data-dependent lerp (ddlerp): mix = base + lora(x)
+    lora = x @ p["mix_lora_a"]
+    mixes = p["mix_base"][:, None, None, :] + torch.einsum(
+        "btr,mrd->mbtd", torch.tanh(lora.float()).to(x.dtype),
+        p["mix_lora_b"]).float()
+    xr, xk, xv, xw, xg = (x.float() + delta * mixes[i] for i in range(5))
+
+    def proj(a, wname):
+        return a.to(x.dtype) @ p[wname]
+
+    r = proj(xr, "wr").reshape(b, t, h, head_dim)
+    k = proj(xk, "wk").reshape(b, t, h, head_dim)
+    v = proj(xv, "wv").reshape(b, t, h, head_dim)
+    g = F.silu(proj(xg, "wg"))
+    dec = p["decay_base"] + ((xw.to(x.dtype) @ p["decay_lora_a"])
+                             @ p["decay_lora_b"]).float()
+    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, head_dim)
+    if n_valid is not None and n_valid < t:
+        valid = (torch.arange(t, device=x.device) < n_valid)[None, :, None,
+                                                             None]
+        w = torch.where(valid, w, torch.ones_like(w))
+        k = torch.where(valid, k, torch.zeros_like(k))
+    # the reference's cast of w to r's dtype: in bf16 that rounding is part
+    # of the result
+    y, state = ops.wkv6(r.contiguous(), k.contiguous(), v.contiguous(),
+                        w.to(r.dtype).contiguous(), p["bonus_u"], state,
+                        impl=impl)
+    # per-head group norm, then the gate
+    y32 = y.float()
+    mu = y32.mean(-1, keepdim=True)
+    var = (y32 - mu).square().mean(-1, keepdim=True)
+    y32 = (y32 - mu) * torch.rsqrt(var + 1e-5)
+    y = (y32.reshape(b, t, d) * p["ln_x"]).to(x.dtype) * g
+    return y @ p["wo"], state, _last_valid(x, n_valid)
+
+
+def rwkv_channel_mix(p: dict, x: torch.Tensor, last_x: torch.Tensor,
+                     n_valid: Optional[int] = None):
+    """Squared-relu channel mix with token shift. Returns (y, new_last_x)."""
+    xs = _token_shift(x, last_x)
+    delta = (xs - x).float()
+    xk = (x.float() + delta * p["cm_mix"][0]).to(x.dtype)
+    xr = (x.float() + delta * p["cm_mix"][1]).to(x.dtype)
+    kk = torch.relu(xk @ p["cm_k"]).square()
+    rr = torch.sigmoid((xr @ p["cm_r"]).float()).to(x.dtype)
+    return rr * (kk @ p["cm_v"]), _last_valid(x, n_valid)

@@ -1,11 +1,14 @@
-"""Paged-family transformer of the port (the dense-tower half of
-``repro/models/transformer.py``): parameter init with the reference's
+"""Transformer towers of the port (the dense, rwkv and hybrid-rglru halves
+of ``repro/models/transformer.py``): parameter init with the reference's
 distributions, embedding / unembedding, the per-layer window schedule, the
 two halves of an attention block that the runners wrap around their
-attention kernels, and a teacher-forced dense ``forward`` for the tests.
+attention kernels, the rwkv and rglru blocks, and a teacher-forced
+``forward`` for the tests.
 
 Parameters are a plain dict mirroring the JAX pytree: per-layer tensors
-are stacked on a leading layer axis under ``blocks``."""
+are stacked on a leading layer axis under ``blocks`` (dense and rwkv
+towers); the hybrid tower keeps per-kind lists ``rglru_blocks`` and
+``attn_blocks``, as the reference does."""
 from __future__ import annotations
 
 import math
@@ -16,6 +19,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as G
+from repro_torch.models import rwkv6 as R
 
 GLOBAL_WINDOW = 2 ** 30  # sentinel "window" meaning full causal attention
 
@@ -24,52 +29,113 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 device="cuda") -> Dict[str, Any]:
     """Random weights with the reference's distributions
-    (``transformer.py:82-125``), drawn from ``gen`` on ``device`` one layer
-    at a time so a full-width model never holds an fp32 copy. Norm scales
-    are fp32 zeros (the ``(1 + w)`` form)."""
+    (``transformer.py:40-104``), drawn from ``gen`` on ``device`` one layer
+    at a time, so a full-width model never holds an fp32 copy or a second
+    copy of its stacked layers. Norm scales are fp32 (rmsnorm zeros in the
+    ``(1 + w)`` form; layernorm ones and zero bias)."""
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, params on {dev}")
-    if cfg.attn_kind not in ("global", "swa", "local_global"):
+    if cfg.attn_kind not in ("global", "swa", "local_global", "rwkv",
+                             "hybrid_rglru"):
         raise NotImplementedError(f"attn_kind {cfg.attn_kind!r}")
-    d, f, vp = cfg.d_model, cfg.d_ff, cfg.padded_vocab
-    nl, h, hkv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
-
-    def stacked(shape, std):
-        w = torch.empty((nl, *shape), dtype=dtype, device=dev)
-        for i in range(nl):
-            w[i] = normal(shape, std)
-        return w
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
-
+    d, vp = cfg.d_model, cfg.padded_vocab
     params: Dict[str, Any] = {
-        "embed": normal((vp, d), 0.02),
-        "final_norm": {"scale": zeros(d)},
+        "embed": _normal(gen, (vp, d), 0.02, dtype, dev),
+        "final_norm": _init_norm(cfg, dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, vp), 1.0 / math.sqrt(d))
-    attn = {"wq": stacked((d, h * hd), 1.0 / math.sqrt(d)),
-            "wk": stacked((d, hkv * hd), 1.0 / math.sqrt(d)),
-            "wv": stacked((d, hkv * hd), 1.0 / math.sqrt(d)),
-            "wo": stacked((h * hd, d), 1.0 / math.sqrt(h * hd))}
-    if cfg.qk_norm:
-        attn["q_norm"] = zeros(nl, hd)
-        attn["k_norm"] = zeros(nl, hd)
-    blocks = {"ln1": {"scale": zeros(nl, d)}, "attn": attn,
-              "ln2": {"scale": zeros(nl, d)},
-              "mlp": {"w_gate": stacked((d, f), 1.0 / math.sqrt(d)),
-                      "w_up": stacked((d, f), 1.0 / math.sqrt(d)),
-                      "w_down": stacked((f, d), 1.0 / math.sqrt(f))}}
-    if cfg.post_norms:
-        blocks["ln1_post"] = {"scale": zeros(nl, d)}
-        blocks["ln2_post"] = {"scale": zeros(nl, d)}
-    params["blocks"] = blocks
+        params["lm_head"] = _normal(gen, (d, vp), 1.0 / math.sqrt(d), dtype,
+                                    dev)
+    if cfg.attn_kind == "rwkv":
+        params["blocks"] = _stack_layers(cfg.n_layers, lambda: {
+            "ln1": _init_norm(cfg, dev),
+            "tm": R.init_rwkv_block(gen, d, cfg.d_ff, cfg.rwkv.head_dim,
+                                    dtype, dev),
+            "ln2": _init_norm(cfg, dev)})
+    elif cfg.attn_kind == "hybrid_rglru":
+        # heterogeneous tower: per-kind lists, as the reference keeps them
+        params["rglru_blocks"], params["attn_blocks"] = [], []
+        for kind in cfg.layer_kinds():
+            if kind == "rglru":
+                params["rglru_blocks"].append({
+                    "ln1": _init_norm(cfg, dev),
+                    "rec": G.init_rglru_block(gen, d, cfg.rglru.lru_width,
+                                              cfg.rglru.conv1d_width, dtype,
+                                              dev),
+                    "ln2": _init_norm(cfg, dev),
+                    "mlp": _init_mlp(cfg, gen, dtype, dev)})
+            else:
+                params["attn_blocks"].append(
+                    _init_attn_block(cfg, gen, dtype, dev))
+    else:
+        params["blocks"] = _stack_layers(
+            cfg.n_layers, lambda: _init_attn_block(cfg, gen, dtype, dev))
     return params
+
+
+def _normal(gen, shape, std, dtype, dev) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+
+def _init_norm(cfg: ModelConfig, dev) -> dict:
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((d,), dtype=torch.float32, device=dev),
+                "bias": torch.zeros((d,), dtype=torch.float32, device=dev)}
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=dev)}
+
+
+def _init_mlp(cfg: ModelConfig, gen, dtype, dev) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"w_up": _normal(gen, (d, f), 1.0 / math.sqrt(d), dtype, dev),
+         "w_down": _normal(gen, (f, d), 1.0 / math.sqrt(f), dtype, dev)}
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        p["w_gate"] = _normal(gen, (d, f), 1.0 / math.sqrt(d), dtype, dev)
+    return p
+
+
+def _init_attn_block(cfg: ModelConfig, gen, dtype, dev) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {"wq": _normal(gen, (d, h * hd), 1.0 / math.sqrt(d), dtype, dev),
+            "wk": _normal(gen, (d, hkv * hd), 1.0 / math.sqrt(d), dtype, dev),
+            "wv": _normal(gen, (d, hkv * hd), 1.0 / math.sqrt(d), dtype, dev),
+            "wo": _normal(gen, (h * hd, d), 1.0 / math.sqrt(h * hd), dtype,
+                          dev)}
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.zeros((hd,), dtype=torch.float32, device=dev)
+        attn["k_norm"] = torch.zeros((hd,), dtype=torch.float32, device=dev)
+    p = {"ln1": _init_norm(cfg, dev), "attn": attn,
+         "ln2": _init_norm(cfg, dev), "mlp": _init_mlp(cfg, gen, dtype, dev)}
+    if cfg.post_norms:
+        p["ln1_post"] = _init_norm(cfg, dev)
+        p["ln2_post"] = _init_norm(cfg, dev)
+    return p
+
+
+def _stack_layers(n: int, make) -> dict:
+    """``n`` layers drawn by ``make()``, stacked leaf by leaf on a leading
+    layer axis and written into the stacked tensors one layer at a time."""
+    first = make()
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+        out[0] = t
+        return out
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    stacked = alloc(first)
+    for i in range(1, n):
+        put(stacked, make(), i)
+    return stacked
 
 
 def layer(params, li: int) -> dict:
@@ -88,7 +154,9 @@ def window_schedule(cfg: ModelConfig) -> List[int]:
 def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens]
     if cfg.embed_scale:
-        x = x * math.sqrt(cfg.d_model)
+        # the scale is rounded to the embedding's dtype first, as in the
+        # reference (a bf16 model multiplies by bf16(sqrt(d)))
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
@@ -127,18 +195,80 @@ def block_out(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + m
 
 
+def attn_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     positions: torch.Tensor, window: int) -> torch.Tensor:
+    """A whole attention block with naive masked attention over the
+    block's own tokens (the teacher-forced path)."""
+    q, k, v = block_qkv(cfg, p, x, positions)
+    mask = L.causal_mask(positions, positions, window)
+    return block_out(cfg, p, x, L.attention(q, k, v, mask,
+                                            cfg.attn_logit_softcap))
+
+
+def rwkv_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     state: torch.Tensor, last_tm: torch.Tensor,
+                     last_cm: torch.Tensor, n_valid: Optional[int] = None,
+                     impl: str = "auto"):
+    """Pre-norm time mix + channel mix (``transformer.py:251-261``). The
+    state is advanced in place. Returns (x, state, last_tm, last_cm)."""
+    h = L.apply_norm(x, p["ln1"], cfg.norm)
+    y, state, last_tm = R.rwkv_time_mix(p["tm"], h, cfg.rwkv.head_dim,
+                                        state, last_tm, n_valid=n_valid,
+                                        impl=impl)
+    x = x + y
+    h = L.apply_norm(x, p["ln2"], cfg.norm)
+    y, last_cm = R.rwkv_channel_mix(p["tm"], h, last_cm, n_valid=n_valid)
+    return x + y, state, last_tm, last_cm
+
+
+def rglru_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      h0: torch.Tensor, conv_state: torch.Tensor,
+                      decode: bool = False, n_valid: Optional[int] = None,
+                      impl: str = "auto"):
+    """Pre-norm recurrent block + MLP (``transformer.py:264-272``).
+    Returns (x, h, conv_state)."""
+    h = L.apply_norm(x, p["ln1"], cfg.norm)
+    y, h0, conv_state = G.rglru_block_apply(p["rec"], h, h0, conv_state,
+                                            decode=decode, n_valid=n_valid,
+                                            impl=impl)
+    x = x + y
+    h = L.apply_norm(x, p["ln2"], cfg.norm)
+    return x + L.mlp_apply(p["mlp"], h, cfg.mlp_act), h0, conv_state
+
+
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Teacher-forced logits (B, S, padded_vocab) with naive masked
-    attention — the counterpart of ``T.forward(attn_impl="naive")``."""
+    attention and zero initial recurrent states — the counterpart of
+    ``T.forward(attn_impl="naive")``. Used by the tests only."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed(cfg, params, tokens)
-    for li, win in enumerate(window_schedule(cfg)):
-        p = layer(params, li)
-        q, k, v = block_qkv(cfg, p, x, positions)
-        mask = L.causal_mask(positions, positions, win)
-        o = L.attention(q, k, v, mask, cfg.attn_logit_softcap)
-        x = block_out(cfg, p, x, o)
+    dev = x.device
+    if cfg.attn_kind == "rwkv":
+        nh, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        for li in range(cfg.n_layers):
+            state = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
+                                device=dev)
+            last = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=dev)
+            x, _, _, _ = rwkv_block_apply(cfg, layer(params, li), x, state,
+                                          last, last)
+    elif cfg.attn_kind == "hybrid_rglru":
+        w, cw = cfg.rglru.lru_width, cfg.rglru.conv1d_width
+        ri = ai = 0
+        for kind in cfg.layer_kinds():
+            if kind == "rglru":
+                x, _, _ = rglru_block_apply(
+                    cfg, params["rglru_blocks"][ri], x,
+                    torch.zeros((b, w), dtype=torch.float32, device=dev),
+                    torch.zeros((b, cw - 1, w), dtype=x.dtype, device=dev))
+                ri += 1
+            else:
+                x = attn_block_apply(cfg, params["attn_blocks"][ai], x,
+                                     positions, cfg.window or GLOBAL_WINDOW)
+                ai += 1
+    else:
+        for li, win in enumerate(window_schedule(cfg)):
+            x = attn_block_apply(cfg, layer(params, li), x, positions, win)
     return unembed(cfg, params, x)

@@ -1,4 +1,4 @@
-"""The port's attention kernels against the JAX package, on the CPU.
+"""The port's kernels against the JAX package, on the CPU.
 
 The CUDA kernels have no CPU mode, so here their plain PyTorch versions
 (``repro_torch.kernels.ref``) are held against the JAX oracles on the
@@ -6,8 +6,12 @@ The CUDA kernels have no CPU mode, so here their plain PyTorch versions
 bf16 2e-2), one case each against the Pallas kernels in interpret mode,
 and the ragged paged prefill form against the gather + dense masked
 attention math of ``repro/engine/runners/paged.py:281-313``. The same
-inputs, made with numpy from a fixed seed, go to both sides. The CUDA
-kernels themselves are held against these plain versions on the card by
+inputs, made with numpy from a fixed seed, go to both sides. The two
+recurrences of the slot family (WKV6, RG-LRU) are held against the Pallas
+kernels in interpret mode on the ``test_wkv6``/``test_rglru`` sweeps with
+those tests' tolerances, and with a carried state against the JAX
+package's ``wkv_sequential``/``wkv_chunked``. The CUDA kernels themselves
+are held against these plain versions on the card by
 ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``."""
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +20,7 @@ import torch
 
 from repro.kernels import ops as JOPS
 from repro.models import layers as JL
+from repro.models import rwkv6 as JR
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import ops
 
@@ -230,3 +235,102 @@ def test_launchers_refuse_cpu_tensors_and_unknown_impl():
                          torch.zeros(1, 16, 1, 4))
     with pytest.raises(ValueError, match="impl"):
         ops.paged_attention(*args, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the slot family's recurrences
+# ---------------------------------------------------------------------------
+
+WKV6_SHAPES = [(1, 64, 2, 16, 16), (2, 128, 3, 32, 32), (1, 96, 1, 64, 48)]
+RGLRU_SHAPES = [(1, 128, 128, 32, 128), (2, 256, 256, 64, 128),
+                (1, 64, 384, 64, 128)]
+
+
+def _wkv6_inputs(b, t, h, hd, seed=0):
+    """tests/test_kernels.py::test_wkv6's distributions, from numpy."""
+    rs = np.random.RandomState(seed)
+    r, k, v = ((rs.standard_normal((b, t, h, hd)) * 0.5).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rs.standard_normal((b, t, h, hd)) * 0.5 - 1.0)) \
+        .astype(np.float32)
+    u = (rs.standard_normal((h, hd)) * 0.3).astype(np.float32)
+    state = (rs.standard_normal((b, h, hd, hd)) * 0.5).astype(np.float32)
+    return r, k, v, w, u, state
+
+
+@pytest.mark.parametrize("b,t,h,hd,chunk", WKV6_SHAPES)
+@pytest.mark.parametrize("dname,jdt,tdt", DTYPES)
+def test_wkv6_ref_vs_pallas(b, t, h, hd, chunk, dname, jdt, tdt):
+    """Plain WKV6 from a zero state against the Pallas kernel (interpret
+    mode), test_wkv6's tolerances: f32 2e-3 (chunked vs sequential fp32
+    sums), bf16 3e-2 (output rounding)."""
+    r, k, v, w, u, _ = _wkv6_inputs(b, t, h, hd)
+    pairs = [_pair(a, jdt, tdt) for a in (r, k, v, w)]
+    want = JOPS.wkv6(*(p[0] for p in pairs), jnp.asarray(u), chunk=chunk,
+                     impl="pallas")
+    state = torch.zeros((b, h, hd, hd))
+    got, s_out = ops.wkv6(*(p[1] for p in pairs), torch.from_numpy(u), state)
+    assert got.dtype == tdt and got.shape == (b, t, h, hd)
+    assert s_out is state                  # advanced in place
+    np.testing.assert_allclose(_f32(got), _f32(want),
+                               atol=3e-2 if dname == "bfloat16" else 2e-3)
+
+
+@pytest.mark.parametrize("b,t,w,chunk,bw", RGLRU_SHAPES)
+@pytest.mark.parametrize("dname,jdt,tdt", DTYPES)
+def test_rglru_ref_vs_pallas(b, t, w, chunk, bw, dname, jdt, tdt):
+    """Plain RG-LRU against the Pallas kernel (interpret mode),
+    test_rglru's tolerances: f32 1e-4, bf16 5e-2."""
+    rs = np.random.RandomState(1)
+    a = (1.0 / (1.0 + np.exp(-rs.standard_normal((b, t, w))))) \
+        .astype(np.float32)
+    bb = (rs.standard_normal((b, t, w)) * 0.2).astype(np.float32)
+    h0 = (rs.standard_normal((b, w)) * 0.5).astype(np.float32)
+    (ja, ta), (jb, tb), (jh, th) = (_pair(x, jdt, tdt) for x in (a, bb, h0))
+    want = JOPS.rglru(ja, jb, jh, chunk=chunk, block_w=bw, impl="pallas")
+    got, h_last = ops.rglru(ta, tb, th)
+    assert got.dtype == tdt and h_last.dtype == torch.float32
+    tol = 5e-2 if dname == "bfloat16" else 1e-4
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol)
+    np.testing.assert_allclose(h_last.numpy(), _f32(want)[:, -1], atol=tol)
+
+
+@pytest.mark.parametrize("t", [1, 80])
+def test_wkv6_carried_state_matches_reference(t):
+    """With a random carried state, the plain WKV6 (and the port's chunked
+    and sequential twins) against JAX ``wkv_sequential`` and
+    ``wkv_chunked``: y and the
+    final state within 2e-4 in fp32 (test_kernels.py's chunked-vs-
+    sequential tolerance). T = 1 is the decode step."""
+    r, k, v, w, u, s0 = _wkv6_inputs(2, t, 2, 16, seed=2)
+    jin = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    y_seq, s_seq = JR.wkv_sequential(*jin, jnp.asarray(s0))
+    y_chk, s_chk = JR.wkv_chunked(*jin, jnp.asarray(s0), chunk=32)
+    tin = [torch.from_numpy(a) for a in (r, k, v, w, u)]
+    state = torch.from_numpy(s0.copy())
+    y, s = ops.wkv6(*tin, state)
+    from repro_torch.models import rwkv6 as TR
+    y2, s2 = TR.wkv_chunked(*tin, torch.from_numpy(s0), chunk=32)
+    y3, s3 = TR.wkv_sequential(*tin, torch.from_numpy(s0))
+    for got_y, got_s in ((y, s), (y2, s2), (y3, s3)):
+        for want_y, want_s in ((y_seq, s_seq), (y_chk, s_chk)):
+            np.testing.assert_allclose(_f32(got_y), np.asarray(want_y),
+                                       atol=2e-4)
+            np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                                       atol=2e-4)
+
+
+def test_recurrence_launchers_refuse_cpu_tensors():
+    """The WKV6 and RG-LRU launchers take CUDA tensors only; the plain
+    versions are reached through ``ops`` by where the tensors lie."""
+    from repro_torch.kernels import rglru as RG
+    from repro_torch.kernels import wkv6 as WKV
+    x = torch.zeros(1, 2, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        WKV.wkv6(x, x, x, x, torch.zeros(1, 16), torch.zeros(1, 1, 16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        RG.rglru(torch.zeros(1, 2, 8), torch.zeros(1, 2, 8),
+                 torch.zeros(1, 8))
+    with pytest.raises(ValueError, match="impl"):
+        ops.rglru(torch.zeros(1, 2, 8), torch.zeros(1, 2, 8),
+                  torch.zeros(1, 8), impl="pallas")

@@ -1,6 +1,8 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
 card: the ``tests/test_kernels.py`` sweep shapes and tolerances (f32 atol
-2e-4, bf16 2e-2) plus the engine's ragged paged prefill form. Every test
+2e-4, bf16 2e-2) plus the engine's ragged paged prefill form, and the slot
+family's WKV6 and RG-LRU recurrences on the test_wkv6 / test_rglru sweeps
+with a state carried in and out. Every test
 is marked ``gpu`` and skips without a CUDA card (the kernels have no CPU
 mode). This file imports no JAX, so it runs on a machine that has only
 PyTorch:
@@ -125,3 +127,58 @@ def test_decode_horizon_never_syncs(cuda, temperature):
         torch.cuda.set_sync_debug_mode("default")
     assert toks.shape == (4, hot.bb)
     assert int(toks.max()) < cfg.vocab_size
+
+
+WKV6_SHAPES = [(1, 64, 2, 16), (2, 128, 3, 32), (1, 96, 1, 64), (8, 1, 4, 64)]
+RGLRU_SHAPES = [(1, 128, 128), (2, 256, 256), (1, 64, 384), (8, 1, 2560),
+                (3, 37, 200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,hd", WKV6_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wkv6_kernel(cuda, b, t, h, hd, dtype):
+    """y and the state after the last token, from a zero and from a random
+    state; the state is updated in place on both routes. f32 y within
+    2e-4 and the state within 1e-4 (fp32 sums in another order); bf16 y
+    within 2e-2 + 1e-2 |y| (both round an fp32 value to bf16, and a value
+    next to a rounding boundary may round one ulp, 2^-7 |y|, apart) and
+    the fp32 state within 1e-4."""
+    g = torch.Generator().manual_seed(3)
+    r, k, v = (torch.randn((b, t, h, hd), generator=g) * 0.5 for _ in
+               range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, t, h, hd), generator=g) * 0.5
+                             - 1.0))
+    u = (torch.randn((h, hd), generator=g) * 0.3).to(cuda)
+    r, k, v, w = (x.to(cuda, dtype) for x in (r, k, v, w))
+    for s0 in (torch.zeros((b, h, hd, hd)),
+               torch.randn((b, h, hd, hd), generator=g) * 0.5):
+        s_k, s_r = s0.to(cuda), s0.to(cuda)
+        y_k, out = ops.wkv6(r, k, v, w, u, s_k)
+        y_r, _ = ops.wkv6(r, k, v, w, u, s_r, impl="ref")
+        assert out is s_k and y_k.dtype == dtype
+        np.testing.assert_allclose(
+            y_k.float().cpu().numpy(), y_r.float().cpu().numpy(),
+            atol=_tol(dtype), rtol=1e-2 if dtype == torch.bfloat16 else 0)
+        np.testing.assert_allclose(s_k.cpu().numpy(), s_r.cpu().numpy(),
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,w", RGLRU_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_kernel(cuda, b, t, w, dtype):
+    """h and h_last from a random h0: the kernel rounds its multiply and
+    its add as the plain version does, so fp32 agrees exactly; bf16 h
+    within 2e-2 (output rounding), h_last (fp32) exactly."""
+    g = torch.Generator().manual_seed(4)
+    a = torch.sigmoid(torch.randn((b, t, w), generator=g)).to(cuda, dtype)
+    bb = (torch.randn((b, t, w), generator=g) * 0.2).to(cuda, dtype)
+    h0 = (torch.randn((b, w), generator=g) * 0.5).to(cuda)
+    h_k, last_k = ops.rglru(a, bb, h0)
+    h_r, last_r = ops.rglru(a, bb, h0, impl="ref")
+    assert h_k.dtype == dtype and last_k.dtype == torch.float32
+    _close(h_k, h_r, dtype)
+    assert torch.equal(last_k, last_r)
+    if dtype == torch.float32:
+        assert torch.equal(h_k, h_r)
