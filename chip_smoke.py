@@ -7,15 +7,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
                 process per source, in parallel) for sm_90a.
   2. kernels  — each kernel against its plain PyTorch version on the card:
-                the tests/test_kernels.py sweep shapes, the engine's paged
-                varlen prefill form, WKV6 and RG-LRU with a state carried
-                in and out, and the main-path shapes at full width
-                (qwen3-8b attention in bf16, rwkv6-1.6b WKV6 in bf16,
-                recurrentgemma-2b RG-LRU in fp32, prefill and decode), with
-                kernel / plain / library times (scaled_dot_product_attention
-                on a gathered dense copy for attention; no single PyTorch
-                call computes either recurrence) and the card's least time
-                for the same work.
+                the tests/test_kernels.py sweep shapes (plus one long
+                split decode sequence, and the tensor-core prefill at G = 8
+                and hd 256), the engine's paged varlen prefill form, WKV6
+                and RG-LRU with a state carried in and out, and the
+                main-path shapes at full width (qwen3-8b attention in bf16,
+                rwkv6-1.6b WKV6 in bf16, recurrentgemma-2b RG-LRU in fp32,
+                prefill and decode), with kernel / plain / library times
+                (scaled_dot_product_attention on a gathered dense copy for
+                attention; no single PyTorch call computes either
+                recurrence), eager and CUDA-graph-replayed (device time),
+                the card's least time for the same work, the decode split
+                count and its effect, and the ptxas lines of the main-path
+                attention kernels.
   3. serving  — full-width TEs (random bf16 weights from a seed) serve
                 through the entry points a user calls: qwen3-8b (36
                 layers) 8 greedy + 2 sampled requests, then rwkv6-1.6b (24
@@ -136,6 +140,21 @@ def rel(x, y) -> float:
     return err(x, y) / max(float(y.float().abs().max()), 1e-30)
 
 
+def ptxas_lines(stem: str, *needles: str):
+    """The ``-Xptxas -v`` lines (registers / shared memory, spills) of the
+    kernels in csrc/<stem>.cu whose mangled names contain every needle."""
+    from repro_torch.kernels import _build
+    out, name = [], None
+    for line in _build.ptxas_report.get(stem, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            continue
+        if name and all(n in name for n in needles) and (
+                "registers" in line or "spill" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
 def sweep_paged_attention(gen, dev):
     import torch
     from repro_torch.kernels import ops
@@ -161,6 +180,26 @@ def sweep_paged_attention(gen, dev):
                 check(f"paged_attention b{b} h{h}/{hkv} hd{hd} P{page} "
                       f"{str(dtype)[6:]} cap={softcap} win={window}",
                       err(o_k, o_r), _tol(dtype))
+    # one long sequence (B 1): the planner splits it over many blocks
+    from repro_torch.kernels import paged_attention as PA
+    b, h, hkv, hd, page, npages = 1, 32, 8, 128, 16, 512
+    for dtype in (torch.float32, torch.bfloat16):
+        for softcap, window in [(None, None), (30.0, 1000)]:
+            q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
+            kp = torch.randn((npages + 1, page, hkv, hd), generator=gen,
+                             device=dev).to(dtype)
+            vp = torch.randn_like(kp)
+            bt = torch.randperm(npages + 1, generator=gen, device=dev)[
+                :npages].view(1, npages).int()
+            ln = torch.tensor([8000], dtype=torch.int32, device=dev)
+            o_k = ops.paged_attention(q, kp, vp, bt, ln, softcap, window)
+            o_r = ops.paged_attention(q, kp, vp, bt, ln, softcap, window,
+                                      impl="ref")
+            torch.cuda.synchronize()
+            s = PA.n_splits(b, hkv, npages, PA.sm_count(dev))
+            check(f"paged_attention b1 len8000 h{h}/{hkv} hd{hd} P{page} "
+                  f"S={s} {str(dtype)[6:]} cap={softcap} win={window}",
+                  err(o_k, o_r), _tol(dtype))
 
 
 def sweep_flash_prefill(gen, dev):
@@ -222,6 +261,19 @@ def sweep_paged_prefill(dev):
             torch.cuda.synchronize()
             check(f"flash_prefill paged varlen {str(dtype)[6:]} "
                   f"cap={softcap} win={window}", err(o_k, o_r), _tol(dtype))
+    # the tensor-core body at G = 8 and at hd 256 (two column halves)
+    for h, hkv, hd in [(16, 2, 128), (8, 4, 256), (16, 2, 256)]:
+        for softcap, window in [(None, None), (30.0, 40)]:
+            q, kp, vp, meta, _ = ragged_pack(
+                gen, dev, torch.bfloat16, lens=[9, 1, 37, 16],
+                starts=[0, 40, 7, 21], tb=64, p=16, hkv=hkv, hd=hd, h=h,
+                n_pool=24)
+            o_k = ops.paged_prefill(q, kp, vp, *meta, softcap, window)
+            o_r = ops.paged_prefill(q, kp, vp, *meta, softcap, window,
+                                    impl="ref")
+            torch.cuda.synchronize()
+            check(f"flash_prefill paged varlen h{h}/{hkv} hd{hd} bfloat16 "
+                  f"cap={softcap} win={window}", err(o_k, o_r), _tol(torch.bfloat16))
 
 
 def main_path_decode(cfg, dev):
@@ -260,10 +312,14 @@ def main_path_decode(cfg, dev):
     mask = (torch.arange(lmax, device=dev)[None] < ln[:, None])[:, None, None]
     qd = q[:, :, None]
 
+    from repro_torch.kernels import paged_attention as PA
     kernel_ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln))
     plain_ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln,
                                                    impl="ref"))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+    kernel_graph = graph_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln))
+    library_graph = graph_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
     n_keys = sum(lens)
     nbytes = 2 * (2 * b * h * hd) + 2 * 2 * n_keys * hkv * hd \
@@ -272,14 +328,30 @@ def main_path_decode(cfg, dev):
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
-    log(f"  paged_attention main path: kernel_ms {kernel_ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound:.4f} "
-        f"({by}: {nbytes} B, {flops} flop)")
+    splits = PA.n_splits(b, hkv, maxp, PA.sm_count(dev))
+    log(f"  paged_attention main path: splits S={splits} (grid {b}x{hkv}x"
+        f"{splits} = {b * hkv * splits} blocks on {PA.sm_count(dev)} SMs); "
+        f"kernel_ms {kernel_ms:.4f} eager / {kernel_graph:.4f} graph-replayed;"
+        f" plain_ms {plain_ms:.4f}; library_ms {library_ms:.4f} eager / "
+        f"{library_graph:.4f} graph-replayed; bound_ms {bound:.4f} ({by}: "
+        f"{nbytes} B, {flops} flop); bound / graph time "
+        f"{bound / kernel_graph:.3f}")
+    # the split count's effect at this shape (not a choice made at run
+    # time: n_splits depends on shapes only)
+    sweep = {sp: graph_ms(lambda: PA.paged_attention(q, kp, vp, bt, ln,
+                                                     splits=sp))
+             for sp in sorted({1, 2, 4, splits, 8, 16, 32})}
+    log("  paged_attention main path, graph-replayed ms by split count: "
+        + ", ".join(f"S={sp} {t:.4f}" for sp, t in sweep.items()))
+    for line in ptxas_lines("paged_attention", "bfloat16", "Li128ELi4E"):
+        log(f"  ptxas main path: {line}")
     return dict(name="paged_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:87",
                 max_abs_err=e, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=library_ms,
+                graph_ms=kernel_graph, library_graph_ms=library_graph,
+                splits=splits,
                 shape=f"B={b} H={h} Hkv={hkv} hd={hd} P={p} "
                       f"len {min(lens)}..{max(lens)} bf16")
 
@@ -329,6 +401,9 @@ def main_path_prefill(cfg, dev):
                                                  impl="ref"), iters=5)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
+    kernel_graph = graph_ms(lambda: ops.paged_prefill(q, kp, vp, *meta))
+    library_graph = graph_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
     pairs = sum(sum(s + j + 1 for j in range(n)) for s, n in zip(starts, lens))
     keys_read = sum(s + n for s, n in zip(starts, lens))
     n_tok = sum(lens)
@@ -338,14 +413,20 @@ def main_path_prefill(cfg, dev):
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
-    log(f"  flash_prefill main path: kernel_ms {kernel_ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound:.4f} "
-        f"({by}: {nbytes} B, {flops} flop)")
+    log(f"  flash_prefill main path: kernel_ms {kernel_ms:.4f} eager / "
+        f"{kernel_graph:.4f} graph-replayed; plain_ms {plain_ms:.4f}; "
+        f"library_ms {library_ms:.4f} eager / {library_graph:.4f} "
+        f"graph-replayed; bound_ms {bound:.4f} ({by}: {nbytes} B, {flops} "
+        f"flop); bound / graph time {bound / kernel_graph:.3f}; "
+        f"{flops / kernel_graph / 1e9:.1f} TFLOP/s")
+    for line in ptxas_lines("flash_prefill", "prefill_bf16", "ILi128E"):
+        log(f"  ptxas main path: {line}")
     return dict(name="flash_prefill", route="cuda",
                 source="src/repro_torch/csrc/flash_prefill.cu",
                 replaces="src/repro/kernels/flash_prefill.py:76",
                 max_abs_err=e, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=library_ms,
+                graph_ms=kernel_graph, library_graph_ms=library_graph,
                 shape=f"Tb={tb} entries={lens} starts={starts} H={h} "
                       f"Hkv={hkv} hd={hd} P={p} bf16")
 

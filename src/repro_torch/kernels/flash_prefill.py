@@ -9,7 +9,10 @@ entry points, replacing the Pallas kernel
     tensors, viewed as B one-entry page runs (plain version
     ``ref.flash_prefill_ref``).
 
-Go through ``ops``, which routes CPU tensors to the plain versions."""
+bf16 runs on the tensor cores (``wgmma``, K/V pages copied by TMA into a
+ring of stages, through maps over the whole pool from ``tma``); fp32 runs
+an exact CUDA-core body. Go through ``ops``, which routes CPU tensors to
+the plain versions."""
 from __future__ import annotations
 
 import ctypes
@@ -18,10 +21,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tma
 
-BLOCK_Q = 16        # tokens per query tile; equals BQ in flash_prefill.cu
+BLOCK_Q = 32        # tokens per query tile; equals BQ in flash_prefill.cu
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0        # kernel launches since the last reset (main-path proof)
 
@@ -55,7 +59,8 @@ def _fn():
     fn = lib.flash_prefill_paged_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p, i, i, i, i, i, i,
+                       i, f, i, p]
         fn.restype = ctypes.c_int
         lib.flash_prefill_block_q.restype = ctypes.c_int
         if lib.flash_prefill_block_q() != BLOCK_Q:
@@ -85,6 +90,11 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     if hd2 != hd or v_pages.shape != k_pages.shape or h % hkv:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"pages {tuple(k_pages.shape)}")
+    if q.dtype == torch.bfloat16 and (hd % 8 or hd > 256
+                                      or p not in (8, 16, 32, 64)):
+        raise ValueError(f"head_dim {hd}, page size {p}: the bf16 "
+                         f"tensor-core body takes a multiple of 8 up to 256 "
+                         f"and pages of 8, 16, 32 or 64 rows")
     sb = entry_bt.shape[0]
     if cu_tokens.shape != (sb + 1,) or entry_start.shape != (sb,) \
             or tiles.ndim != 2 or tiles.shape[1] != 3:
@@ -101,8 +111,15 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     fn = _fn()
     with torch.cuda.device(dev):
+        k_map = v_map = None
+        k_row0 = v_row0 = 0
+        if q.dtype == torch.bfloat16:
+            # one TMA box = 64 columns (128 bytes) of one page, swizzled
+            k_map, k_row0 = tma.pool_map(k_pages, 64, p, swizzle128=True)
+            v_map, v_row0 = tma.pool_map(v_pages, 64, p, swizzle128=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_map, v_map, k_row0, v_row0,
                 cu_tokens.data_ptr(), entry_bt.data_ptr(),
                 entry_start.data_ptr(), tiles.data_ptr(), out.data_ptr(),
                 tiles.shape[0], h, hkv, hd, p, entry_bt.shape[1],
@@ -124,6 +141,13 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, s, hkv, hd) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype == torch.bfloat16 and s % 16:
+        # the bf16 body reads pages of 8-64 rows: pad the sequence to a
+        # multiple of 16 (causality keeps the pad keys out of every real
+        # row) and drop the pad rows
+        pad = (0, 0, 0, 0, 0, -s % 16)
+        return flash_prefill(*(F.pad(x, pad) for x in (q, k, v)),
+                             softcap=softcap, window=window)[:, :s]
     p = math.gcd(s, 16)
     pb = s // p
     dev = q.device

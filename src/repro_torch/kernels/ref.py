@@ -51,6 +51,74 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return o.reshape(b, h, hd).to(q.dtype)
 
 
+def split_ranges(length: int, page_size: int, maxp: int, n_splits: int,
+                 window: Optional[int] = None):
+    """The key range [k0, k1) each of ``n_splits`` splits of one sequence
+    reads in the split-K decode kernel (``csrc/paged_attention.cu``): the
+    valid pages [key_lo // P, pg_end) cut into runs of ceil(n / S) pages,
+    clipped to the valid keys [key_lo, length). Splits past the valid
+    range come out empty (k1 <= k0)."""
+    key_lo = max(0, length - window) if window else 0
+    pg_lo = key_lo // page_size
+    pg_end = min(-(-length // page_size), maxp)
+    per = -(-max(pg_end - pg_lo, 0) // n_splits)
+    out = []
+    for s in range(n_splits):
+        sp0 = pg_lo + s * per
+        sp1 = min(pg_end, sp0 + per)
+        out.append((max(sp0 * page_size, key_lo),
+                    min(sp1 * page_size, length)))
+    return out
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              lengths: torch.Tensor, n_splits: int,
+                              softcap: Optional[float] = None,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """Plain emulation of the split-K decode kernel: per (sequence, KV
+    head) each split of ``split_ranges`` computes its fp32 partial
+    (m, l, acc) over its own keys (m = -inf, l = 0 when it has none), and
+    the partials merge as the combine kernel does: m* = max m_s,
+    out = sum e^{m_s - m*} acc_s / max(sum e^{m_s - m*} l_s, 1e-30), an
+    empty split contributing exactly 0. Same arguments as
+    ``paged_attention_ref``; returns (B, H, hd) in q's dtype."""
+    b, h, hd = q.shape
+    _, p, hkv, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        qh = q[i].reshape(hkv, g, hd).float()
+        parts = []
+        for k0, k1 in split_ranges(int(lengths[i]), p, maxp, n_splits,
+                                   window):
+            if k1 <= k0:
+                parts.append(None)
+                continue
+            pos = torch.arange(k0, k1, device=q.device)
+            pages = block_tables[i].long()[pos // p]
+            k = k_pages[pages, pos % p].float()              # (n, Hkv, hd)
+            v = v_pages[pages, pos % p].float()
+            s = torch.einsum("hgd,nhd->hgn", qh, k) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            m = s.amax(-1, keepdim=True)                     # (Hkv, G, 1)
+            e = torch.exp(s - m)
+            parts.append((m, e.sum(-1, keepdim=True),
+                          torch.einsum("hgn,nhd->hgd", e, v)))
+        live = [x for x in parts if x is not None]
+        if not live:
+            continue
+        mx = torch.stack([m for m, _, _ in live]).amax(0)
+        den = sum(torch.exp(m - mx) * l for m, l, _ in live)
+        num = sum(torch.exp(m - mx) * a for m, _, a in live)
+        out[i] = (num / den.clamp_min(1e-30)).reshape(h, hd)
+    return out.to(q.dtype)
+
+
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       softcap: Optional[float] = None,
                       window: Optional[int] = None) -> torch.Tensor:

@@ -9,9 +9,11 @@ One colocated TE serves a warm-up batch (untimed: it builds the kernels
 and warms the allocator), then traffic of the same shape under
 ``torch.profiler`` with CUDA activity only, so every recorded event is a
 kernel or a copy on the card. Prints one JSON line: the window's wall
-time, the device's busy time by kernel group, the idle share (an upper
-bound: the profiler's own host cost sits inside the window) and the top
-kernels, then the card's name and power limit.
+time, the device's busy time and kernel count by kernel group (the paged
+decode is two kernels per call when it splits: the split kernel and the
+merge), the idle share (an upper bound: the profiler's own host cost sits
+inside the window) and the top kernels, then the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -32,9 +34,10 @@ from repro_torch.models import transformer as T
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "paged_attention_kernel" in low:
+    # csrc/paged_attention.cu: the split kernel and the merge of its splits
+    if "decode_split_kernel" in low or "combine_kernel" in low:
         return "paged_attention kernel"
-    if "flash_prefill_kernel" in low:
+    if "prefill_bf16_kernel" in low or "prefill_f32_kernel" in low:
         return "flash_prefill kernel"
     if "wkv6_kernel" in low:
         return "wkv6 kernel"
@@ -73,7 +76,7 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
         te.run_to_completion()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    groups, top = {}, []
+    groups, launches, top = {}, {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -84,6 +87,7 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
             continue
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + us
+        launches[g] = launches.get(g, 0) + e.count
         top.append((us, e.count, e.key[:70]))
     busy = sum(groups.values())
     if busy <= 0:
@@ -93,6 +97,7 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
         device_idle_share=max(0.0, 1.0 - busy / wall_us),
         steps=te.steps - steps0, groups_ms={k: v / 1e3 for k, v in sorted(
             groups.items(), key=lambda kv: -kv[1])},
+        kernels_by_group=launches,
         top_kernels=[dict(ms=us / 1e3, count=n, name=nm)
                      for us, n, nm in sorted(top, reverse=True)[:8]])
 

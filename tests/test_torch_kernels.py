@@ -220,6 +220,143 @@ def test_build_tiles_cover_each_token_once():
     assert sorted(seen) == list(range(32))
 
 
+@pytest.mark.parametrize("lens,n_tokens", [([9, 1, 33, 16], 64),
+                                           ([32, 64, 31], 128),
+                                           ([256, 128, 96, 32], 512),
+                                           ([0, 5, 0], 8)])
+def test_build_tiles_32_token_tiles(lens, n_tokens):
+    """The tensor-core prefill takes tiles of up to 32 tokens (two
+    16-token halves, one warpgroup each): each entry is cut into
+    ceil(len / 32) runs, the padding tail likewise, and the list fits the
+    ``max_tiles`` bound the engine allocates."""
+    assert FP.BLOCK_Q == 32
+    cu = np.cumsum([0] + lens).tolist()
+    tiles = FP.build_tiles(cu, n_tokens).tolist()
+    assert len(tiles) == FP.max_tiles(n_tokens, len(lens))
+    used = [t for t in tiles if t[2] > t[1]]
+    spans = lens + [n_tokens - cu[-1]]
+    assert len(used) == sum(-(-n // FP.BLOCK_Q) for n in spans)
+    for e, a, b in used:
+        lo, hi = (cu[e], cu[e + 1]) if e >= 0 else (cu[-1], n_tokens)
+        assert lo <= a < b <= hi and b - a <= FP.BLOCK_Q
+        assert (a - lo) % FP.BLOCK_Q == 0
+    assert sorted(t for _, a, b in used for t in range(a, b)) == \
+        list(range(n_tokens))
+
+
+# ---------------------------------------------------------------------------
+# split-K decode: the host's split planner and the split-and-merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hkv,maxp,n_sm,want", [
+    (8, 8, 128, 132, 5),        # the main path: 320 blocks >= 2 x 132 SMs
+    (1, 8, 512, 132, 32),       # one long sequence: capped at MAX_SPLITS
+    (1, 8, 3, 132, 3),          # never more splits than block-table pages
+    (64, 8, 128, 132, 1),       # a full batch already covers the card
+    (3, 1, 64, 114, 64 // 2),   # another SM count (H100 PCIe)
+    (0, 8, 16, 132, 1)])
+def test_n_splits_planner(b, hkv, maxp, n_sm, want):
+    """S depends on shapes only (B, Hkv, the block-table width, the SM
+    count): enough blocks to cover the SMs twice, within [1, maxp] and
+    MAX_SPLITS. The lengths live on the device inside a decode horizon, so
+    the planner never sees them."""
+    from repro_torch.kernels import paged_attention as PA
+    s = PA.n_splits(b, hkv, maxp, n_sm)
+    assert s == min(want, PA.MAX_SPLITS)
+    assert 1 <= s <= max(1, min(maxp, PA.MAX_SPLITS))
+    if b * hkv and s < min(maxp, PA.MAX_SPLITS):
+        assert b * hkv * s >= 2 * n_sm
+
+
+@pytest.mark.parametrize("length,page,maxp,n_splits,window", [
+    (1, 16, 4, 5, None),        # length 1: one key, one non-empty split
+    (32, 16, 4, 2, None),       # exact page multiple
+    (48, 16, 3, 3, None),       # exact multiple filling the table
+    (100, 8, 16, 8, 10),        # a window that empties most splits
+    (40, 16, 8, 16, None),      # more splits than the sequence's pages
+    (2000, 16, 128, 5, 2 ** 30)])  # the global-window sentinel
+def test_split_ranges_partition(length, page, maxp, n_splits, window):
+    """The kernel's partition (mirrored by ``ref.split_ranges``): the
+    splits' key ranges are disjoint, in order, cover exactly the valid keys
+    [max(0, len - window), len), start on page boundaries, and their page
+    counts differ by at most one run; splits past the range are empty."""
+    from repro_torch.kernels import ref as R
+    rs = R.split_ranges(length, page, maxp, n_splits, window)
+    assert len(rs) == n_splits
+    lo = max(0, length - window) if window else 0
+    keys = [k for k0, k1 in rs for k in range(k0, k1)]
+    assert keys == list(range(lo, length))
+    live = [(k0, k1) for k0, k1 in rs if k1 > k0]
+    assert all(k0 == lo or k0 % page == 0 for k0, _ in live)
+    pages = [-(-k1 // page) - k0 // page for k0, k1 in live]
+    per = -(-(min(-(-length // page), maxp) - lo // page) // n_splits)
+    assert all(p == per for p in pages[:-1]) and 1 <= pages[-1] <= per
+    # empty splits come last (the device skips them at once)
+    first_empty = next((i for i, (k0, k1) in enumerate(rs) if k1 <= k0),
+                       n_splits)
+    assert all(k1 <= k0 for k0, k1 in rs[first_empty:])
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,page,npages", PAGED_SHAPES)
+@pytest.mark.parametrize("dname,jdt,tdt", DTYPES)
+@pytest.mark.parametrize("softcap,window",
+                         [(None, None), (30.0, None), (None, 20)])
+def test_split_merge_emulation(b, h, hkv, hd, page, npages, dname, jdt, tdt,
+                               softcap, window):
+    """The plain emulation of split-and-merge (each split's fp32 partial
+    (m, l, acc) over its own keys, merged as the combine kernel does) gives
+    the plain single-pass version's answer and the JAX oracle's, for one
+    split, a few, and more splits than the sequences have pages (empty
+    splits contribute exactly 0)."""
+    from repro_torch.kernels import ref as R
+    q, kp, vp, bt, ln = _paged_inputs(b, h, hkv, hd, page, npages)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, jdt, tdt) for a in (q, kp, vp))
+    want = _f32(JOPS.paged_attention(jq, jk, jv, jnp.asarray(bt),
+                                     jnp.asarray(ln), softcap=softcap,
+                                     window=window, impl="ref"))
+    tbt, tln = torch.from_numpy(bt), torch.from_numpy(ln)
+    single = _f32(R.paged_attention_ref(tq, tk, tv, tbt, tln, softcap,
+                                        window))
+    for s in (1, 2, 3, npages + 3):
+        got = R.paged_attention_split_ref(tq, tk, tv, tbt, tln, s, softcap,
+                                          window)
+        assert got.dtype == tdt and got.shape == (b, h, hd)
+        np.testing.assert_allclose(_f32(got), want, atol=_tol(dname))
+        np.testing.assert_allclose(_f32(got), single, atol=_tol(dname))
+
+
+@pytest.mark.parametrize("lengths,window,softcap,n_splits,has_empty", [
+    ([1, 1], None, None, 4, True),      # length 1
+    ([16, 48], None, 30.0, 3, True),    # exact page multiples
+    ([48, 33], None, None, 3, False),   # every split holds a page
+    ([100, 61], 10, None, 8, True),     # a window that empties whole splits
+    ([5, 40], None, None, 16, True),    # S larger than a sequence's pages
+    ([64, 64], 16, 50.0, 2, True)])     # window + softcap on a page edge
+def test_split_merge_edge_cases(lengths, window, softcap, n_splits,
+                                has_empty):
+    """Edge cases of the split-K plan against the plain version in fp32
+    (atol 2e-6: the same math summed in another order), with the empty
+    splits they create checked to exist where the case says so."""
+    from repro_torch.kernels import ref as R
+    rs = np.random.RandomState(11)
+    b, h, hkv, hd, page = len(lengths), 8, 2, 32, 16
+    maxp = max(-(-n // page) for n in lengths)
+    pool = b * maxp + 1
+    q = torch.from_numpy(rs.standard_normal((b, h, hd)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rs.standard_normal(
+        (pool, page, hkv, hd)).astype(np.float32)) for _ in range(2))
+    bt = torch.from_numpy(rs.permutation(pool)[:b * maxp].reshape(
+        b, maxp).astype(np.int32))
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    got = R.paged_attention_split_ref(q, kp, vp, bt, ln, n_splits, softcap,
+                                      window)
+    want = R.paged_attention_ref(q, kp, vp, bt, ln, softcap, window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-6)
+    empty = sum(k1 <= k0 for n in lengths
+                for k0, k1 in R.split_ranges(n, page, maxp, n_splits, window))
+    assert (empty > 0) == has_empty
+
+
 def test_launchers_refuse_cpu_tensors_and_unknown_impl():
     """No silent fallback: a kernel launcher given CPU tensors raises (the
     plain version is reached only through ``ops`` by where tensors lie),

@@ -2,8 +2,9 @@
 card: the ``tests/test_kernels.py`` sweep shapes and tolerances (f32 atol
 2e-4, bf16 2e-2) plus the engine's ragged paged prefill form, and the slot
 family's WKV6 and RG-LRU recurrences on the test_wkv6 / test_rglru sweeps
-with a state carried in and out. Every test
-is marked ``gpu`` and skips without a CUDA card (the kernels have no CPU
+with a state carried in and out, the split-K decode at forced split
+counts, and the bf16 tensor-core prefill at G = 1-8 and hd 64-256. Every
+test is marked ``gpu`` and skips without a CUDA card (the kernels have no CPU
 mode). This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -91,6 +92,72 @@ def test_paged_prefill_kernel_ragged(cuda, dtype):
         _close(ops.paged_prefill(q, kp, vp, *meta, softcap, window),
                ops.paged_prefill(q, kp, vp, *meta, softcap, window,
                                  impl="ref"), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 16])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_split_counts(cuda, splits, dtype):
+    """The split-K decode at a forced split count: one split (no merge),
+    two, and more splits than most sequences have pages (empty splits must
+    add exactly 0), with lengths from 1 to a full table, a window that
+    empties whole splits, and softcap, against the plain version."""
+    from repro_torch.kernels import paged_attention as PA
+    g = torch.Generator().manual_seed(5)
+    b, h, hkv, hd, page, maxp = 6, 16, 4, 64, 16, 12
+    pool = b * maxp + 1
+    q = torch.randn((b, h, hd), generator=g).to(cuda, dtype)
+    kp = torch.randn((pool, page, hkv, hd), generator=g).to(cuda, dtype)
+    vp = torch.randn((pool, page, hkv, hd), generator=g).to(cuda, dtype)
+    bt = torch.randperm(pool, generator=g)[:b * maxp].view(b, maxp)
+    bt = bt.int().to(cuda)
+    ln = torch.tensor([1, 16, 17, 100, 150, maxp * page], dtype=torch.int32,
+                      device=cuda)
+    for softcap, window in [(None, None), (30.0, None), (None, 24),
+                            (20.0, 40)]:
+        got = PA.paged_attention(q, kp, vp, bt, ln, softcap, window,
+                                 splits=splits)
+        want = ops.paged_attention(q, kp, vp, bt, ln, softcap, window,
+                                   impl="ref")
+        assert torch.isfinite(got.float()).all()
+        _close(got, want, dtype)
+
+
+PREFILL_GS = [1, 2, 4, 8]
+PREFILL_HDS = [64, 128, 256]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_heads", PREFILL_GS)
+@pytest.mark.parametrize("hd", PREFILL_HDS)
+def test_prefill_tensor_core_body(cuda, g_heads, hd):
+    """The bf16 tensor-core prefill at G = 1, 2, 4, 8 query heads per KV
+    head and hd 64, 128, 256 (two column halves), on a ragged pack whose
+    entries start mid-page, with chunk lengths that are not multiples of
+    16 (tiles with one warpgroup idle, and 32-token tiles), a cached
+    prefix past one key block, and bucket padding; plain causal, then
+    window + softcap."""
+    g = torch.Generator().manual_seed(6)
+    hkv, p = 2, 16
+    h = g_heads * hkv
+    lens, starts, tb = [9, 37, 23, 1], [5, 40, 77, 130], 80
+    pb = max(-(-(s + n) // p) for s, n in zip(starts, lens))
+    n_pool = len(lens) * pb + 3
+    cu = np.cumsum([0] + lens).tolist()
+    ebt = torch.randperm(n_pool, generator=g)[:len(lens) * pb].view(-1, pb)
+    kp = torch.randn((n_pool, p, hkv, hd), generator=g).to(cuda,
+                                                          torch.bfloat16)
+    vp = torch.randn((n_pool, p, hkv, hd), generator=g).to(cuda,
+                                                          torch.bfloat16)
+    q = torch.randn((tb, h, hd), generator=g).to(cuda, torch.bfloat16)
+    meta = [torch.as_tensor(np.asarray(a, np.int32)).to(cuda) for a in
+            (cu, ebt.numpy(), starts, FP.build_tiles(cu, tb))]
+    for softcap, window in [(None, None), (30.0, 50)]:
+        got = ops.paged_prefill(q, kp, vp, *meta, softcap, window)
+        want = ops.paged_prefill(q, kp, vp, *meta, softcap, window,
+                                 impl="ref")
+        _close(got, want, torch.bfloat16)
+        assert not got[cu[-1]:].float().any()     # padding rows are zeros
 
 
 @pytest.mark.gpu
