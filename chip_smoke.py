@@ -10,16 +10,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the tests/test_kernels.py sweep shapes (plus one long
                 split decode sequence, and the tensor-core prefill at G = 8
                 and hd 256), the engine's paged varlen prefill form, WKV6
-                and RG-LRU with a state carried in and out, and the
-                main-path shapes at full width (qwen3-8b attention in bf16,
-                rwkv6-1.6b WKV6 in bf16, recurrentgemma-2b RG-LRU in fp32,
-                prefill and decode), with kernel / plain / library times
-                (scaled_dot_product_attention on a gathered dense copy for
-                attention; no single PyTorch call computes either
-                recurrence), eager and CUDA-graph-replayed (device time),
-                the card's least time for the same work, the decode split
-                count and its effect, and the ptxas lines of the main-path
-                attention kernels.
+                and RG-LRU with a state carried in and out (WKV6 also with
+                decays at the -30 log-decay clamp and with T no multiple of
+                its 16-token chunk), and the main-path shapes at full width
+                (qwen3-8b attention in bf16, rwkv6-1.6b WKV6 in bf16,
+                recurrentgemma-2b RG-LRU in fp32, prefill and decode), with
+                kernel / plain / library times (scaled_dot_product_attention
+                on a gathered dense copy for attention; no single PyTorch
+                call computes either recurrence), eager and
+                CUDA-graph-replayed (device time), each recurrence's other
+                body at the same shape in the same run, the card's least
+                time for the same work, the decode split count and its
+                effect, and the ptxas lines of the main-path attention
+                kernels.
   3. serving  — full-width TEs (random bf16 weights from a seed) serve
                 through the entry points a user calls: qwen3-8b (36
                 layers) 8 greedy + 2 sampled requests, then rwkv6-1.6b (24
@@ -436,6 +439,7 @@ def main_path_prefill(cfg, dev):
 # --------------------------------------------------------------------------
 
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM TF32 on the tensor cores (dense)
 
 
 def close(name, got, want, atol, rtol=0.0) -> float:
@@ -493,10 +497,40 @@ def sweep_wkv6(gen, dev):
                 close(tag + " state", s_k, s_r, WKV6_STATE_TOL)
 
 
+def edges_wkv6(gen, dev):
+    """The chunked body's edges against the plain version: log-decays at
+    the -30 clamp (half of the w's, or all of them, at e^-30), and T that
+    is no multiple of the chunk (the padded tail), from a random state."""
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    for (b, t, h, hd, clamp) in [(1, 64, 2, 64, "half"), (2, 48, 2, 32, "all"),
+                                 (1, 37, 2, 64, None), (1, 257, 2, 64, None),
+                                 (2, 5, 3, 16, None), (1, 100, 1, 128, "half")]:
+        for dtype in (torch.float32, torch.bfloat16):
+            r, k, v, w, u, s0 = _wkv6_inputs(gen, dev, b, t, h, hd, dtype,
+                                             True)
+            if clamp:
+                at = torch.full_like(w, math.exp(-30.0))
+                if clamp == "half":
+                    at = torch.where(torch.rand(w.shape, generator=gen,
+                                                device=dev) < 0.5, at, w)
+                w = at.to(dtype)
+            s_k, s_r = s0.clone(), s0.clone()
+            y_k, _ = ops.wkv6(r, k, v, w, u, s_k)
+            y_r, _ = ops.wkv6(r, k, v, w, u, s_r, impl="ref")
+            torch.cuda.synchronize()
+            tag = (f"wkv6 b{b} t{t} h{h} hd{hd} {str(dtype)[6:]} "
+                   f"{'w at the clamp (' + clamp + ')' if clamp else 'ragged T'}")
+            close(tag + " y", y_k, y_r, *_wkv6_tols(dtype))
+            close(tag + " state", s_k, s_r, WKV6_STATE_TOL)
+
+
 def sweep_rglru(gen, dev):
     import torch
     from repro_torch.kernels import ops
-    for (b, t, w) in [(1, 128, 128), (2, 256, 256), (1, 64, 384)]:
+    for (b, t, w) in [(1, 128, 128), (2, 256, 256), (1, 64, 384),
+                      (3, 37, 200), (2, 300, 2560)]:
         for dtype in (torch.float32, torch.bfloat16):
             a = torch.sigmoid(torch.randn((b, t, w), generator=gen,
                                           device=dev)).to(dtype)
@@ -524,6 +558,7 @@ def main_path_wkv6(cfg, dev):
     (8, 1, 32, 64), each from a random fp32 state."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as WKV
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     h, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
@@ -544,16 +579,36 @@ def main_path_wkv6(cfg, dev):
         device_ms = graph_ms(lambda: ops.wkv6(r, k, v, w, u, s_k))
         plain_ms = time_ms(lambda: ops.wkv6(r, k, v, w, u, s_r, impl="ref"),
                            iters=5)
+        # both bodies at the same shape, in the same call (the prefill ran
+        # on the per-token body before the chunked one)
+        pl = WKV.plan(t, hd)
+        bodies = {sp: graph_ms(lambda: WKV._launch(r, k, v, w, u, s_k, sp))
+                  for sp in (0, hd // WKV.V_COLS)}
+        other_ms = bodies[0 if pl["chunked"] else hd // WKV.V_COLS]
         n = b * t * h * hd
         nbytes = 5 * 2 * n + 4 * h * hd + 2 * 4 * b * h * hd * hd
         flops = b * t * h * (5 * hd * hd + 3 * hd)
-        bound, by = _bound(nbytes, flops, FP32_FLOPS)
-        log(f"  {tag}: kernel_ms {kernel_ms:.4f} (graph-replayed "
-            f"{device_ms:.4f}) plain_ms {plain_ms:.4f} library_ms none (no "
-            f"single PyTorch call computes WKV6) bound_ms {bound:.4f} ({by}: "
-            f"{nbytes} B, {flops} fp32 flop)")
+        # the operations at the peak of the units the planned body runs
+        # them on: the chunked body's products on the tensor cores as three
+        # TF32 products each (its split precision), the per-token body on
+        # the CUDA cores in fp32
+        if pl["chunked"]:
+            ops_n, peak, unit = 3 * flops, TF32_FLOPS, "TF32 flop (3 x split)"
+        else:
+            ops_n, peak, unit = flops, FP32_FLOPS, "fp32 flop"
+        bound, by = _bound(nbytes, ops_n, peak)
+        log(f"  {tag}: {pl}; kernel_ms {kernel_ms:.4f} (graph-replayed "
+            f"{device_ms:.4f}; by body, splits=0 per token: "
+            + ", ".join(f"splits={sp} {ms:.4f}" for sp, ms in bodies.items())
+            + ") "
+            f"plain_ms {plain_ms:.4f} library_ms none (no single PyTorch "
+            f"call computes WKV6) bound_ms {bound:.4f} ({by}: {nbytes} B, "
+            f"{ops_n} {unit}; at the fp32 CUDA-core peak the operations "
+            f"alone take {flops / FP32_FLOPS * 1e3:.4f}); bound / graph "
+            f"time {bound / device_ms:.3f}")
         res[phase] = dict(max_abs_err=e, ms=kernel_ms, graph_ms=device_ms,
-                          plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          other_body_graph_ms=other_ms)
     p, d = res["prefill"], res["decode"]
     return dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
                 replaces="src/repro/kernels/rwkv6_wkv.py:63",
@@ -563,6 +618,8 @@ def main_path_wkv6(cfg, dev):
                 graph_ms=p["graph_ms"], decode_graph_ms=d["graph_ms"],
                 decode_ms=d["ms"], decode_plain_ms=d["plain_ms"],
                 decode_bound_ms=d["bound_ms"], decode_bound_by=d["bound_by"],
+                per_token_body_prefill_graph_ms=p["other_body_graph_ms"],
+                chunked_body_decode_graph_ms=d["other_body_graph_ms"],
                 shape=f"prefill (1,256,{h},{hd}), decode (8,1,{h},{hd}); "
                       f"bf16, fp32 state")
 
@@ -573,6 +630,7 @@ def main_path_rglru(cfg, dev):
     slots (8, 1, 2560)."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru as RG
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     wd = cfg.rglru.lru_width
@@ -590,15 +648,25 @@ def main_path_rglru(cfg, dev):
         kernel_ms = time_ms(lambda: ops.rglru(a, bb, h0))
         device_ms = graph_ms(lambda: ops.rglru(a, bb, h0))
         plain_ms = time_ms(lambda: ops.rglru(a, bb, h0, impl="ref"), iters=5)
+        # both bodies at the same shape, in the same call
+        pl = RG.plan(t, wd, 4)
+        bodies = {ch: graph_ms(lambda: RG._launch(a, bb, h0, ch))
+                  for ch in (0, RG.CHANNELS)}
+        other_ms = bodies[0 if pl["channels"] else RG.CHANNELS]
         nbytes = 3 * 4 * b * t * wd + 2 * 4 * b * wd
         flops = 2 * b * t * wd
         bound, by = _bound(nbytes, flops, FP32_FLOPS)
-        log(f"  {tag}: kernel_ms {kernel_ms:.4f} (graph-replayed "
-            f"{device_ms:.4f}) plain_ms {plain_ms:.4f} library_ms none (no "
-            f"single PyTorch call computes the recurrence) bound_ms "
-            f"{bound:.4f} ({by}: {nbytes} B, {flops} fp32 flop)")
+        log(f"  {tag}: {pl}; kernel_ms {kernel_ms:.4f} (graph-replayed "
+            f"{device_ms:.4f}; by body, channels=0 per thread: "
+            + ", ".join(f"channels={ch} {ms:.4f}" for ch, ms in bodies.items())
+            + ") "
+            f"plain_ms {plain_ms:.4f} library_ms none (no single PyTorch "
+            f"call computes the recurrence) bound_ms {bound:.4f} ({by}: "
+            f"{nbytes} B, {flops} fp32 flop); bound / graph time "
+            f"{bound / device_ms:.3f}")
         res[phase] = dict(max_abs_err=e, ms=kernel_ms, graph_ms=device_ms,
-                          plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          other_body_graph_ms=other_ms)
     p, d = res["prefill"], res["decode"]
     return dict(name="rglru", route="cuda",
                 source="src/repro_torch/csrc/rglru_scan.cu",
@@ -609,6 +677,8 @@ def main_path_rglru(cfg, dev):
                 graph_ms=p["graph_ms"], decode_graph_ms=d["graph_ms"],
                 decode_ms=d["ms"], decode_plain_ms=d["plain_ms"],
                 decode_bound_ms=d["bound_ms"], decode_bound_by=d["bound_by"],
+                per_thread_body_prefill_graph_ms=p["other_body_graph_ms"],
+                streamed_body_decode_graph_ms=d["other_body_graph_ms"],
                 shape=f"prefill (1,256,{wd}), decode (8,1,{wd}); fp32")
 
 
@@ -828,6 +898,7 @@ def main() -> int:
     sweep_flash_prefill(gen, dev)
     sweep_paged_prefill(dev)
     sweep_wkv6(gen, dev)
+    edges_wkv6(gen, dev)
     sweep_rglru(gen, dev)
     qwen, rwkv, rgemma = (get_config(n) for n in
                           ("qwen3-8b", "rwkv6-1.6b", "recurrentgemma-2b"))

@@ -30,7 +30,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.engine.hotloop import DecodeHotState, pow2_bucket, pow2s
+from repro_torch.engine.hotloop import (DecodeHotState, pow2_bucket, pow2s,
+                                        to_device)
 from repro_torch.engine.kv_cache import (OutOfPagesError, PagedKVPool,
                                          pages_needed)
 from repro_torch.engine.rtc import RelationalTensorCache, RTCCostModel
@@ -90,10 +91,11 @@ class EngineConfig:
 
 
 def _upload_i32(device, *arrays) -> List[torch.Tensor]:
-    """Host int32 arrays -> device views, in ONE host-to-device copy."""
+    """Host int32 arrays -> device views, in ONE host-to-device copy that
+    does not drain the stream."""
     flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
                            for a in arrays])
-    buf = torch.from_numpy(flat).to(device)
+    buf = to_device(flat, device)
     out, off = [], 0
     for a in arrays:
         shape = np.shape(a)
@@ -154,7 +156,7 @@ class FlowServe:
         # in-flight token blocks (fetched one horizon late) and the
         # per-sequence count of sampled-but-uncommitted tokens
         self._hot: Optional[DecodeHotState] = None
-        self._inflight: deque = deque()  # (toks, [(slot, id)], K, event)
+        self._inflight: deque = deque()  # (host toks, [(slot, id)], K, event)
         self._pending: Dict[str, int] = {}
         self._completed_buf: List[Completion] = []
         self._sp_cache: tuple = (None, None, None)  # batch-keyed temps/top_ps
@@ -320,8 +322,8 @@ class FlowServe:
         all_greedy = not bool((temps > 0.0).any())
         t_dev = p_dev = None
         if not all_greedy:
-            t_dev = torch.from_numpy(temps).to(dev)
-            p_dev = torch.from_numpy(top_ps).to(dev)
+            t_dev = to_device(temps, dev)
+            p_dev = to_device(top_ps, dev)
         _, toks_dev = self.runner.prefill_ragged(*ops_i32, t_dev, p_dev,
                                                  all_greedy, self._gen)
         self.prefill_dispatches += 1
@@ -510,8 +512,15 @@ class FlowServe:
             toks = self.runner.decode_fused(hot, k)
             event = None
             if toks.is_cuda:
+                # the block goes to pinned host memory behind the horizon;
+                # the event marks that copy done, so the commit one horizon
+                # later waits for this block alone (DESIGN.md §8)
+                host = torch.empty(toks.shape, dtype=toks.dtype,
+                                   pin_memory=True)
+                host.copy_(toks, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record()
+                toks = host
             self.host_dispatches += 1
             self.decode_steps += k
             self.decode_tokens += k * len(live)
@@ -529,13 +538,15 @@ class FlowServe:
         return False
 
     def _commit_oldest(self) -> None:
-        """Copy the oldest in-flight token block to the host and commit it:
+        """Commit the oldest in-flight token block, already on its way to
+        the host: wait for its own copy (never for a later horizon), then
         append tokens, stamp TTFT, finish sequences whose EOS /
         max_new_tokens stop fired (post-stop tokens are discarded)."""
-        toks_dev, rows, k, event = self._inflight.popleft()
+        toks_host, rows, k, event = self._inflight.popleft()
         if event is not None and not event.query():
             self.host_syncs += 1
-        toks = toks_dev.cpu().numpy()
+            event.synchronize()
+        toks = toks_host.numpy()
         for slot, sid in rows:
             seq = self._seqs.get(sid)
             if seq is None or sid not in self._pending:

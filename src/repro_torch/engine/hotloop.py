@@ -28,6 +28,19 @@ Row = Tuple[str, List[int], int, int, float, float]
 #     (seq_id, pages, length, last_tok, temperature, top_p)
 
 
+def to_device(arr, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on ``device``, without draining the stream.
+    On a card the copy goes from pinned memory with ``non_blocking=True``:
+    PyTorch's pinned caching allocator records the copy on the stream and
+    keeps the staging block until it has run (a copy from pageable memory
+    would synchronize the stream). On the CPU the tensor is the array's
+    own, as before."""
+    t = torch.as_tensor(np.asarray(arr), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def pow2_bucket(n: int) -> int:
     """Smallest power of two >= n (n >= 1)."""
     return 1 << max(0, int(n) - 1).bit_length()
@@ -67,7 +80,7 @@ class DecodeHotState:
 
     # ------------------------------------------------------------ helpers
     def _t(self, arr, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr), dtype=dtype).to(self.device)
+        return to_device(arr, self.device, dtype)
 
     def _set(self, name: str, idx, values, dtype) -> None:
         getattr(self, name)[self._t(idx, torch.long)] = self._t(values, dtype)
@@ -90,7 +103,7 @@ class DecodeHotState:
         self.npages[slot] = 0
         self._set("active", [slot], [False], torch.bool)
         self._set("lengths", [slot], [1], torch.int32)
-        self.bt[slot, 0] = self.scratch
+        self.bt[slot, :1].fill_(self.scratch)   # a scalar fill: no host copy
         self.event_dispatches += 1
 
     # ------------------------------------------------------------ planning
@@ -132,7 +145,9 @@ class DecodeHotState:
             self._set("active", leave, [False] * len(leave), torch.bool)
             self._set("lengths", leave, [1] * len(leave), torch.int32)
             # park the freed row's per-step KV write on the scratch sink
-            self.bt[self._t(leave, torch.long), 0] = self.scratch
+            # (index_fill_ takes the page id as a scalar: no host copy)
+            self.bt[:, 0].index_fill_(0, self._t(leave, torch.long),
+                                      self.scratch)
             self.event_dispatches += 1
         joins, extends = [], []
         for r in rows:

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.engine.hotloop import pow2_bucket
+from repro_torch.engine.hotloop import pow2_bucket, to_device
 from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.sampling import greedy_core, sample_core
 from repro_torch.models import serving as S
@@ -65,7 +65,7 @@ class SlotRunner:
         # reset the slot's length AND its recurrent/conv state: stale KV is
         # masked by length, but a recurrent state would leak the previous
         # occupant into the new sequence
-        self.cache["length"][seq.slot] = 0
+        self.cache["length"][seq.slot:seq.slot + 1].fill_(0)
         for key in _STATE_KEYS:
             if key in self.cache:
                 self.cache[key][:, seq.slot].zero_()
@@ -117,7 +117,7 @@ class SlotPrefillRunner:
         toks = np.zeros((1, cb), np.int64)
         toks[0, :c] = chunk_tokens
         logits, _ = S.prefill(rt.cfg, rt.params,
-                              torch.from_numpy(toks).to(rt.device),
+                              to_device(toks, rt.device),
                               rt._slot_slice(seq.slot), n_valid=c,
                               impl=rt.impl)
         seq.n_cached += c
@@ -150,13 +150,13 @@ class SlotDecodeRunner:
         for s in seqs:
             tokens[s.slot] = s.tokens[-1]
         logits, _ = S.decode_step(cfg, rt.params,
-                                  torch.from_numpy(tokens).to(rt.device),
+                                  to_device(tokens, rt.device),
                                   rt.cache, impl=rt.impl)
         if float(temps.max()) <= 0.0:
             toks = greedy_core(logits, cfg.vocab_size)
         else:
-            toks = sample_core(logits, torch.from_numpy(temps).to(rt.device),
-                               torch.from_numpy(top_ps).to(rt.device), gen,
+            toks = sample_core(logits, to_device(temps, rt.device),
+                               to_device(top_ps, rt.device), gen,
                                cfg.vocab_size)
         for s in seqs:
             s.n_cached = len(s.tokens)

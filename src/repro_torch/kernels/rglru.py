@@ -1,18 +1,36 @@
-"""RG-LRU recurrence: the CUDA kernel ``csrc/rglru_scan.cu`` and its
-launcher. It replaces the Pallas kernel
-``repro/kernels/rglru_scan.py::rglru``; its plain version is
+"""RG-LRU recurrence: the CUDA kernels ``csrc/rglru_scan.cu`` and their
+launcher. They replace the Pallas kernel
+``repro/kernels/rglru_scan.py::rglru``; the plain version is
 ``ref.rglru_ref``. Go through ``ops.rglru``, which routes CPU tensors to
-the plain version."""
+the plain version.
+
+``plan`` picks the body from the shapes alone: the streamed body (tiles of
+a and b in a ring of shared-memory stages, filled by TMA copies) for a
+chunk of ``STREAM_MIN_T`` steps or more whose rows are 16-byte aligned,
+else the per-thread body (the decode step)."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tma
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-launches = 0        # kernel launches since the last reset (main-path proof)
+STREAM_MIN_T = 16       # shorter calls (decode) take the per-thread body
+CHANNELS = 16           # channels per block of the streamed body
+STEPS = 64              # steps per TMA tile of the streamed body
+launches = 0            # kernel launches since the last reset (main-path proof)
+
+
+def plan(t: int, w: int, elem_bytes: int, aligned: bool = True) -> dict:
+    """The body and grid for a call with T steps and width ``w``:
+    ``channels`` per block (0 = the per-thread body, 64 threads a block)
+    and ``blocks`` per batch row. TMA needs rows of a 16-byte multiple at
+    16-byte aligned addresses."""
+    if t >= STREAM_MIN_T and aligned and (w * elem_bytes) % 16 == 0:
+        return {"channels": CHANNELS, "blocks": -(-w // CHANNELS)}
+    return {"channels": 0, "blocks": -(-w // 64)}
 
 
 def _fn():
@@ -20,7 +38,7 @@ def _fn():
     fn = lib.rglru_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -29,7 +47,6 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """Launch the recurrence ``h_t = a_t * h_{t-1} + b_t``. a, b: (B, T, W)
     in one dtype (fp32 on the engine path, bf16 also taken); h0: (B, W)
     fp32. Returns (h (B, T, W) in a's dtype, h_last (B, W) fp32)."""
-    global launches
     bsz, t, w = a.shape
     dev = a.device
     if dev.type != "cuda":
@@ -45,15 +62,30 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     for name, x in (("a", a), ("b", b), ("h0", h0)):
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {dev}")
-    h = torch.empty_like(a)
     if bsz * t * w == 0:
-        return h, h0.clone()
+        return torch.empty_like(a), h0.clone()
+    aligned = all(x.data_ptr() % 16 == 0 for x in (a, b))
+    return _launch(a, b, h0, plan(t, w, a.element_size(), aligned)["channels"])
+
+
+def _launch(a, b, h0, channels: int):
+    """One launch of the body ``channels`` selects (0: per thread;
+    ``CHANNELS``: streamed) on arguments ``rglru`` has checked; ``rglru``
+    passes what ``plan`` picks (a same-call timing of the other body
+    passes the other)."""
+    global launches
+    bsz, t, w = a.shape
+    dev = a.device
+    h = torch.empty_like(a)           # the allocator aligns it to 512 bytes
     h_last = torch.empty_like(h0)
+    maps = [tma.seq_map(x, CHANNELS, STEPS) for x in (a, b, h)] \
+        if channels else [None] * 3
     fn = _fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
-                h_last.data_ptr(), bsz, t, w, DTYPES[a.dtype], stream)
+                h_last.data_ptr(), bsz, t, w, DTYPES[a.dtype], channels,
+                *maps, stream)
     _build.check(rc, "rglru")
     launches += 1
     return h, h_last

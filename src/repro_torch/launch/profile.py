@@ -8,12 +8,17 @@
 One colocated TE serves a warm-up batch (untimed: it builds the kernels
 and warms the allocator), then traffic of the same shape under
 ``torch.profiler`` with CUDA activity only, so every recorded event is a
-kernel or a copy on the card. Prints one JSON line: the window's wall
-time, the device's busy time and kernel count by kernel group (the paged
-decode is two kernels per call when it splits: the split kernel and the
-merge), the idle share (an upper bound: the profiler's own host cost sits
-inside the window) and the top kernels, then the card's name and power
-limit.
+kernel or a copy on the card, then the same traffic again (fresh prompts)
+without the profiler. Prints one JSON line: for the traced window its
+wall time, the device's busy time and kernel count by kernel group (the
+paged decode is two kernels per call when it splits: the split kernel and
+the merge), the idle share (an upper bound: the profiler's own host cost
+sits inside the window) and the top kernels; for both windows the mean
+TPOT, the median TTFT and the blocking fetches the engine counted
+(``host_syncs``: a horizon's commit that found its token block not yet on
+the host, or a slot step's token fetch); then the card's name and power
+limit. Host-clock figures spread between processes: compare versions
+inside one chip call, in turns.
 """
 from __future__ import annotations
 
@@ -39,9 +44,10 @@ def _group(name: str) -> str:
         return "paged_attention kernel"
     if "prefill_bf16_kernel" in low or "prefill_f32_kernel" in low:
         return "flash_prefill kernel"
-    if "wkv6_kernel" in low:
+    # csrc/wkv6.cu and csrc/rglru_scan.cu: both bodies of each
+    if "wkv6_kernel" in low or "wkv6_chunk_kernel" in low:
         return "wkv6 kernel"
-    if "rglru_kernel" in low:
+    if "rglru_kernel" in low or "rglru_stream_kernel" in low:
         return "rglru kernel"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                               "splitk", "nvjet")):
@@ -61,6 +67,28 @@ def _submit(te, cfg, rng, tag, n, prompt_len, max_new):
             sampling=sp, req_id=f"{tag}{i}"))
 
 
+def _latency(comps, syncs) -> dict:
+    ttft = sorted(c.ttft * 1e3 for c in comps)
+    return dict(tpot_ms_mean=sum(c.tpot for c in comps) * 1e3 / len(comps),
+                ttft_ms_p50=ttft[len(ttft) // 2], host_syncs=syncs)
+
+
+def timed_window(te, cfg, requests=8, prompt_len=256, max_new=24,
+                 seed=1) -> dict:
+    """The same traffic as ``profile_window`` without the profiler: wall
+    time, TPOT and TTFT on the host's clock."""
+    _submit(te, cfg, np.random.RandomState(seed), "u", requests, prompt_len,
+            max_new)
+    torch.cuda.synchronize()
+    syncs0 = te.host_syncs
+    t0 = time.monotonic()
+    comps = te.run_to_completion()
+    torch.cuda.synchronize()
+    out = dict(window_ms=(time.monotonic() - t0) * 1e3)
+    out.update(_latency(comps, te.host_syncs - syncs0))
+    return out
+
+
 def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
                    seed=1) -> dict:
     """Serve ``requests`` greedy requests under the profiler on a warm TE
@@ -70,10 +98,10 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
     rng = np.random.RandomState(seed)
     _submit(te, cfg, rng, "t", requests, prompt_len, max_new)
     torch.cuda.synchronize()
-    steps0 = te.steps
+    steps0, syncs0 = te.steps, te.host_syncs
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        te.run_to_completion()
+        comps = te.run_to_completion()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     groups, launches, top = {}, {}, []
@@ -93,6 +121,7 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
     if busy <= 0:
         raise RuntimeError("the profiler saw no CUDA kernel time")
     return dict(
+        **_latency(comps, te.host_syncs - syncs0),
         window_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
         device_idle_share=max(0.0, 1.0 - busy / wall_us),
         steps=te.steps - steps0, groups_ms={k: v / 1e3 for k, v in sorted(
@@ -128,8 +157,12 @@ def main() -> None:
     _submit(te, cfg, np.random.RandomState(args.seed + 1000), "w",
             args.requests, args.prompt_len, args.max_new)
     te.run_to_completion()                          # warm-up, untimed
+    # fresh prompts for each window: a repeated prompt would hit the paged
+    # family's prefix cache and skip its prefill
     out = profile_window(te, cfg, args.requests, args.prompt_len,
                          args.max_new, seed=args.seed + 1)
+    out["untraced"] = timed_window(te, cfg, args.requests, args.prompt_len,
+                                   args.max_new, seed=args.seed + 2)
     out.update(arch=cfg.name, layers=cfg.n_layers, requests=args.requests,
                prompt_len=args.prompt_len, max_new=args.max_new)
     print(json.dumps(out), flush=True)

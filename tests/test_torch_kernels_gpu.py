@@ -249,3 +249,264 @@ def test_rglru_kernel(cuda, b, t, w, dtype):
     assert torch.equal(last_k, last_r)
     if dtype == torch.float32:
         assert torch.equal(h_k, h_r)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned recurrences: WKV6's chunked body at its edges and at the
+# main-path shape, RG-LRU's streamed body at the main-path shape
+# ---------------------------------------------------------------------------
+
+def _wkv6_case(cuda, b, t, h, hd, dtype, seed, clamp=None):
+    """test_wkv6's distributions with a random state; ``clamp`` puts half
+    ("half") or all ("all") of the w's at e^-30, the log-decay clamp."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((b, t, h, hd), generator=g) * 0.5 for _ in
+               range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, t, h, hd), generator=g) * 0.5
+                             - 1.0))
+    if clamp:
+        at = torch.full_like(w, float(np.exp(-30.0)))
+        w = at if clamp == "all" else torch.where(
+            torch.rand(w.shape, generator=g) < 0.5, at, w)
+    u = (torch.randn((h, hd), generator=g) * 0.3).to(cuda)
+    s0 = (torch.randn((b, h, hd, hd), generator=g) * 0.5).to(cuda)
+    return [x.to(cuda, dtype) for x in (r, k, v, w)] + [u, s0]
+
+
+def _wkv6_against_plain(r, k, v, w, u, s0, dtype):
+    """The kernel and the plain version on one input, the test_wkv6_kernel
+    tolerances: f32 y 2e-4, bf16 y 2e-2 + 1e-2 |y|, state 1e-4."""
+    s_k, s_r = s0.clone(), s0.clone()
+    y_k, _ = ops.wkv6(r, k, v, w, u, s_k)
+    y_r, _ = ops.wkv6(r, k, v, w, u, s_r, impl="ref")
+    assert torch.isfinite(y_k.float()).all() and torch.isfinite(s_k).all()
+    np.testing.assert_allclose(
+        y_k.float().cpu().numpy(), y_r.float().cpu().numpy(),
+        atol=_tol(dtype), rtol=1e-2 if dtype == torch.bfloat16 else 0)
+    np.testing.assert_allclose(s_k.cpu().numpy(), s_r.cpu().numpy(),
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clamp", ["half", "all"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wkv6_kernel_decays_at_the_clamp(cuda, clamp, dtype):
+    """Log-decays at the -30 clamp (w = e^-30): a decay factor taken as
+    exp(cum) * exp(-cum) over a chunk would overflow fp32 here; the
+    chunked body's products of w's stay finite and agree."""
+    _wkv6_against_plain(*_wkv6_case(cuda, 2, 64, 2, 64, dtype, 7, clamp),
+                        dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [37, 257])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wkv6_kernel_ragged_t(cuda, t, dtype):
+    """T that is no multiple of the 16-token chunk: the padded tail."""
+    _wkv6_against_plain(*_wkv6_case(cuda, 1, t, 3, 64, dtype, 8), dtype)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_main_path_shape(cuda):
+    """The full-width rwkv6-1.6b prefill chunk: (1, 256, 32, 64) in bf16
+    from a random state (128 blocks of the chunked body)."""
+    _wkv6_against_plain(*_wkv6_case(cuda, 1, 256, 32, 64, torch.bfloat16, 9),
+                        torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wkv6_kernel_chained_calls(cuda, dtype):
+    """One call of 2T against two calls of T chained through the state (as
+    chunked prefill carries it): the same y and state within the
+    tolerances above."""
+    r, k, v, w, u, s0 = _wkv6_case(cuda, 2, 96, 2, 64, dtype, 10)
+    s_one, s_two = s0.clone(), s0.clone()
+    y_one, _ = ops.wkv6(r, k, v, w, u, s_one)
+    halves = [ops.wkv6(*(x[:, sl].contiguous() for x in (r, k, v, w)), u,
+                       s_two)[0] for sl in (slice(0, 48), slice(48, 96))]
+    np.testing.assert_allclose(
+        torch.cat(halves, 1).float().cpu().numpy(),
+        y_one.float().cpu().numpy(), atol=_tol(dtype),
+        rtol=1e-2 if dtype == torch.bfloat16 else 0)
+    np.testing.assert_allclose(s_two.cpu().numpy(), s_one.cpu().numpy(),
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wkv6_kernel_head_dims(cuda, hd, dtype):
+    """The chunked body at every head dim it takes (hd/16 column blocks,
+    hd/8 k-steps of its tensor-core products), on a ragged T."""
+    from repro_torch.kernels import wkv6 as WKV
+    assert WKV.plan(45, hd) == {"chunked": True, "chunks": 3,
+                                "splits": hd // 16}
+    _wkv6_against_plain(*_wkv6_case(cuda, 2, 45, 2, hd, dtype, 12), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,w,streamed", [
+    (77, 328, True),      # streamed, ragged T and W (the maps clip both)
+    (77, 330, False),     # rows no multiple of 16 bytes: per thread
+    (9, 328, False),      # shorter than a streamed chunk: per thread
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rglru_kernel_bodies(cuda, t, w, streamed, dtype):
+    """Each RG-LRU body, reached by the shapes that select it (the
+    streamed one in blocks of 16 channels, the per-thread one): fp32
+    bit-exact, bf16 h within 2e-2, h_last exact."""
+    from repro_torch.kernels import rglru as RG
+    assert bool(RG.plan(t, w, torch.tensor([], dtype=dtype).element_size())
+                ["channels"]) == streamed
+    g = torch.Generator().manual_seed(13)
+    a = torch.sigmoid(torch.randn((3, t, w), generator=g)).to(cuda, dtype)
+    bb = (torch.randn((3, t, w), generator=g) * 0.2).to(cuda, dtype)
+    h0 = (torch.randn((3, w), generator=g) * 0.5).to(cuda)
+    h_k, last_k = ops.rglru(a, bb, h0)
+    h_r, last_r = ops.rglru(a, bb, h0, impl="ref")
+    _close(h_k, h_r, dtype)
+    assert torch.equal(last_k, last_r)
+    if dtype == torch.float32:
+        assert torch.equal(h_k, h_r)
+
+
+@pytest.mark.gpu
+def test_rglru_kernel_main_path_shape(cuda):
+    """The full-width recurrentgemma-2b prefill chunk (1, 256, 2560) in
+    fp32 on the streamed body: bit-exact against the plain version."""
+    from repro_torch.kernels import rglru as RG
+    assert RG.plan(256, 2560, 4)["channels"]
+    g = torch.Generator().manual_seed(11)
+    a = torch.sigmoid(torch.randn((1, 256, 2560), generator=g)).to(cuda)
+    bb = (torch.randn((1, 256, 2560), generator=g) * 0.2).to(cuda)
+    h0 = (torch.randn((1, 2560), generator=g) * 0.5).to(cuda)
+    h_k, last_k = ops.rglru(a, bb, h0)
+    h_r, last_r = ops.rglru(a, bb, h0, impl="ref")
+    assert torch.equal(h_k, h_r) and torch.equal(last_k, last_r)
+
+
+# ---------------------------------------------------------------------------
+# the hot loop's host side never drains the stream (no blocking copy)
+# ---------------------------------------------------------------------------
+
+def _paged_te(cuda, horizon):
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.engine import EngineConfig, FlowServe
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(get_config("qwen3-8b"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return FlowServe(cfg, T.init_params(cfg, gen, torch.float32, cuda),
+                     EngineConfig(n_pages=64, page_size=16,
+                                  decode_horizon=horizon), device=cuda)
+
+
+@pytest.mark.gpu
+def test_steady_decode_step_never_syncs(cuda):
+    """F1: a steady-state paged step() with a horizon in flight and no
+    batch event (no join, leave or page growth) makes no blocking device
+    call: it enqueues the next horizon and commits the previous block from
+    pinned host memory. The stream is synchronized before the step, so the
+    previous block's event has completed and the commit needs no wait at
+    all (a wait on that event is the one the reference also makes); any
+    blocking copy, such as ``.cpu()`` of a device tensor, raises under
+    sync-debug "error"."""
+    from repro_torch.engine import Request, SamplingParams
+    from repro_torch.engine.kv_cache import pages_needed
+    te = _paged_te(cuda, horizon=1)
+    for i in range(3):
+        te.add_request(Request(prompt_tokens=list(range(3, 10 + i)),
+                               req_id=f"r{i}", sampling=SamplingParams(
+                                   temperature=0.8, max_new_tokens=40,
+                                   stop_on_eos=False)))
+
+    def quiet():           # the next horizon needs no page and ends no one
+        live = list(te.scheduler.running)
+        return (te._inflight and not te.scheduler.prefilling
+                and len(live) == 3 and all(
+                    pages_needed(len(s.tokens) + te._pending.get(s.seq_id, 0)
+                                 + 1, 16) <= len(s.pages) for s in live))
+
+    for _ in range(30):
+        if quiet():
+            break
+        te.step()
+    assert quiet(), "no steady decode step within 30 steps"
+    torch.cuda.synchronize()
+    before = (te.host_syncs, te.host_dispatches, te._hot.event_dispatches,
+              te.decode_steps)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        te.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = (te.host_syncs, te.host_dispatches, te._hot.event_dispatches,
+             te.decode_steps)
+    assert after == (before[0], before[1] + 1, before[2], before[3] + 1)
+    assert len(te._inflight) == 1 and not te._inflight[0][0].is_cuda
+    te.run_to_completion()
+
+
+@pytest.mark.gpu
+def test_hot_state_sync_and_evict_never_sync(cuda):
+    """F2: ``DecodeHotState.sync`` with a join, a page growth and a leave in
+    one call, then ``evict``, upload from pinned memory without draining
+    the stream (sync-debug "error"), and the device rows come out right."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.engine.hotloop import DecodeHotState
+    from repro_torch.engine.kv_cache import PagedKVPool
+    cfg = smoke_config(get_config("qwen3-8b"))
+    pool = PagedKVPool(cfg, 32, 16, torch.float32, cuda)
+    hot = DecodeHotState(pool, torch.Generator(device=cuda))
+    hot.sync([("a", [1, 2], 20, 5, 0.0, 1.0), ("b", [3], 9, 6, 0.5, 0.9)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        n = hot.sync([("b", [3, 4], 17, 0, 0.5, 0.9),     # page growth
+                      ("c", [7], 4, 8, 0.8, 0.95)])       # join; "a" leaves
+        hot.evict("b")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert n > 0
+    c, b = hot.slot_of["c"], 1 - hot.slot_of["c"]
+    assert "b" not in hot.slot_of
+    assert hot.bt[c].tolist()[:1] == [7] and hot.lengths[c].item() == 4
+    assert hot.last_tok[c].item() == 8 and bool(hot.active[c])
+    assert abs(hot.temps[c].item() - 0.8) < 1e-6
+    assert not bool(hot.active[b]) and hot.bt[b, 0].item() == hot.scratch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_slot_decode_sample_never_syncs(cuda, arch):
+    """F2: one slot-family ``decode_sample`` (tokens and sampling params
+    uploaded from pinned memory) enqueues its step with no blocking device
+    call. The token fetch after it, which the reference also blocks on,
+    is outside the checked region."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.engine import (EngineConfig, FlowServe, Request,
+                                    SamplingParams)
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(get_config(arch))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    te = FlowServe(cfg, T.init_params(cfg, gen, torch.float32, cuda),
+                   EngineConfig(n_slots=4, max_len=64), device=cuda)
+    for i in range(2):
+        te.add_request(Request(prompt_tokens=list(range(3, 12 + i)),
+                               req_id=f"r{i}", sampling=SamplingParams(
+                                   temperature=0.8, max_new_tokens=8,
+                                   stop_on_eos=False)))
+    while not te.scheduler.running or te.scheduler.prefilling:
+        te.step()
+    live = list(te.scheduler.running)
+    temps = np.zeros((4,), np.float32)
+    top_ps = np.ones((4,), np.float32)
+    for s in live:
+        temps[s.slot], top_ps[s.slot] = 0.8, 0.9
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = te.runner.decode_sample(live, temps, top_ps, te._gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert toks.shape == (4,) and int(toks.max()) < cfg.vocab_size
