@@ -7,12 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
                 process per source, in parallel) for sm_90a.
   2. kernels  — each kernel against its plain PyTorch version on the card:
-                the tests/test_kernels.py sweep shapes (plus one long
-                split decode sequence, and the tensor-core prefill at G = 8
-                and hd 256), the engine's paged varlen prefill form, WKV6
-                and RG-LRU with a state carried in and out (WKV6 also with
-                decays at the -30 log-decay clamp and with T no multiple of
-                its 16-token chunk), and the main-path shapes at full width
+                the tests/test_kernels.py sweep shapes (plus the decode
+                shapes of the other paged archs: G 2-6, hd 120 and 256,
+                softcap 50 with a window; one long split decode sequence;
+                the tensor-core prefill at G = 3, 6, 8, hd 120 and 256),
+                the engine's paged varlen prefill form, WKV6 and RG-LRU
+                with a state carried in and out (WKV6 also with decays at
+                the -30 log-decay clamp and with T no multiple of its
+                16-token chunk), and the main-path shapes at full width
                 (qwen3-8b attention in bf16, rwkv6-1.6b WKV6 in bf16,
                 recurrentgemma-2b RG-LRU in fp32, prefill and decode), with
                 kernel / plain / library times (scaled_dot_product_attention
@@ -22,22 +24,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                 body at the same shape in the same run, the card's least
                 time for the same work, the decode split count and its
                 effect, and the ptxas lines of the main-path attention
-                kernels.
+                kernels. Then both attention kernels at the attention
+                shape of each other paged arch (granite-moe-3b-a800m,
+                gemma2-9b, h2o-danube-3-4b, nemotron-4-15b, mixtral-8x7b),
+                timed the same way; the windowed archs' rows run past
+                their 4096-token window, so it masks keys.
   3. serving  — full-width TEs (random bf16 weights from a seed) serve
                 through the entry points a user calls: qwen3-8b (36
                 layers) 8 greedy + 2 sampled requests, then rwkv6-1.6b (24
-                layers) and recurrentgemma-2b (26 layers) 6 + 2 each. Every
-                request must complete with valid ids, and each path must
-                have launched its kernels (counts reset just before it):
-                36 attention launches per decode iteration / prefill pass,
-                24 WKV6 and 18 RG-LRU launches per decode step / prefill
-                dispatch.
+                layers), recurrentgemma-2b (26 layers), granite-moe-3b-
+                a800m (32), gemma2-9b (42), h2o-danube-3-4b (24),
+                nemotron-4-15b (32) and mixtral-8x7b (16 of its 32 layers:
+                all 32 do not fit the card) 6 + 2 each. Every request must
+                complete with valid ids, and each path must have launched
+                its kernels (counts reset just before it): one launch of
+                each attention kernel per layer per decode iteration /
+                prefill pass, 24 WKV6 and 18 RG-LRU launches per decode
+                step / prefill dispatch.
   4. parity   — at full width cut to a few layers in fp32 (qwen3 2,
-                rwkv6 2, recurrentgemma 3 = 2 RG-LRU + 1 attention), the TE
-                on the kernels and the TE on the plain versions give
-                identical greedy tokens.
-The last lines are the kernel table as JSON, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+                rwkv6 2, recurrentgemma 3 = 2 RG-LRU + 1 attention, each
+                other paged arch 2; gemma2's are one local and one global
+                layer), the TE on the kernels and the TE on the plain
+                versions give identical greedy tokens.
+The last lines are the other paged archs' attention rows as JSON
+({"arch_kernels": [...]}), the kernel table as JSON, the card's name and
+power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -136,6 +147,28 @@ def _tol(dtype):
 # output is below 1e-3, so a dropped page or a length off by one (about
 # 2e-2 at the maximum) fails here, where the sweeps' 2e-2 would let it by.
 MAIN_PATH_TOL = 4e-3
+# The other paged archs' rows (arch_rows) are held to MAIN_PATH_TOL plus
+# one bf16 step of the plain output (2^-7 |plain|): their packs hold rows
+# over a few keys (an entry from position 0), whose outputs reach |out| >=
+# 1, and there the kernel's and the plain version's fp32 sums, both right,
+# may round one bf16 step apart (7.8e-3 at [1, 2)); a dropped page or a
+# length off by one still moves many small outputs past MAIN_PATH_TOL.
+ARCH_ROW_RTOL = 2.0 ** -7
+
+
+def check_main_path(tag, got, want, arch_row) -> float:
+    """The main-path check of a row: MAIN_PATH_TOL (qwen3-8b's rows), or
+    with one bf16 step of the plain output on top (the other archs')."""
+    if not arch_row:
+        e = err(got, want)
+        check(tag, e, MAIN_PATH_TOL)
+        return e
+    e = close(tag, got, want, MAIN_PATH_TOL, ARCH_ROW_RTOL)
+    d = (got.float() - want.float()).abs().flatten()
+    i = int(d.argmax())
+    log(f"  {tag}: largest error at |plain| = "
+        f"{float(want.flatten()[i].float().abs()):.4f}")
+    return e
 
 
 def rel(x, y) -> float:
@@ -158,14 +191,25 @@ def ptxas_lines(stem: str, *needles: str):
     return out
 
 
+# decode shapes the other paged archs bring (tests/test_torch_kernels_gpu.py
+# PAGED_SHAPES): G 2 at hd 256 (gemma2), G 3 at hd 64 (granite), G 4 at
+# hd 120 (danube), G 6 at hd 128 (nemotron), and G 3 at hd 120 / G 6 at
+# hd 256 (each body, each head-dim padding)
+NEW_DECODE_SHAPES = [(2, 16, 8, 256, 16, 5), (3, 24, 8, 64, 16, 4),
+                     (2, 32, 8, 120, 16, 5), (2, 48, 8, 128, 16, 6),
+                     (2, 6, 2, 120, 16, 5), (2, 12, 2, 256, 16, 4)]
+
+
 def sweep_paged_attention(gen, dev):
     import torch
     from repro_torch.kernels import ops
     for (b, h, hkv, hd, page, npages) in [(1, 4, 4, 16, 8, 3),
                                           (2, 8, 4, 32, 16, 5),
-                                          (3, 8, 1, 64, 16, 4)]:
+                                          (3, 8, 1, 64, 16, 4),
+                                          *NEW_DECODE_SHAPES]:
         for dtype in (torch.float32, torch.bfloat16):
-            for softcap, window in [(None, None), (30.0, None), (None, 20)]:
+            for softcap, window in [(None, None), (30.0, None), (None, 20),
+                                    (50.0, 40)]:
                 pool = npages * b + 2
                 q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
                 kp = torch.randn((pool, page, hkv, hd), generator=gen,
@@ -264,8 +308,12 @@ def sweep_paged_prefill(dev):
             torch.cuda.synchronize()
             check(f"flash_prefill paged varlen {str(dtype)[6:]} "
                   f"cap={softcap} win={window}", err(o_k, o_r), _tol(dtype))
-    # the tensor-core body at G = 8 and at hd 256 (two column halves)
-    for h, hkv, hd in [(16, 2, 128), (8, 4, 256), (16, 2, 256)]:
+    # the tensor-core body at G = 8, at hd 256 (two column halves), at
+    # G = 3 and 6 (a head chunk with padding heads) and at hd 120 (padded
+    # to 128: the last KV head's second box reaches past the row)
+    for h, hkv, hd in [(16, 2, 128), (8, 4, 256), (16, 2, 256),
+                       (24, 8, 64), (48, 8, 128), (6, 2, 120), (32, 8, 120),
+                       (12, 2, 256)]:
         for softcap, window in [(None, None), (30.0, 40)]:
             q, kp, vp, meta, _ = ragged_pack(
                 gen, dev, torch.bfloat16, lens=[9, 1, 37, 16],
@@ -279,15 +327,19 @@ def sweep_paged_prefill(dev):
                   f"cap={softcap} win={window}", err(o_k, o_r), _tol(torch.bfloat16))
 
 
-def main_path_decode(cfg, dev):
-    """Decode attention at full qwen3-8b width: Bb=8, lengths to 2048."""
+def main_path_decode(cfg, dev, window=None, softcap=None, lens=(1024, 2048),
+                     seed=2, arch_row=False):
+    """Decode attention at full width of ``cfg``: Bb=8, lengths drawn from
+    ``lens`` (the first at its maximum), with the layer's window and
+    softcap. The qwen3-8b row (not ``arch_row``) adds the split-count
+    sweep."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
+    gen.manual_seed(seed)
     b, h, hkv, hd, p = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16
-    maxp = 2048 // p
+    maxp = lens[1] // p
     n_pool = b * maxp + 1
     dt = torch.bfloat16
     q = torch.randn((b, h, hd), generator=gen, device=dev).to(dt)
@@ -295,36 +347,46 @@ def main_path_decode(cfg, dev):
     vp = torch.randn((n_pool, p, hkv, hd), generator=gen, device=dev).to(dt)
     bt = torch.randperm(n_pool, generator=gen, device=dev)[:b * maxp] \
         .view(b, maxp).int()
-    ln = torch.randint(1024, 2049, (b,), generator=gen, device=dev).int()
-    ln[0] = 2048
-    o_k = ops.paged_attention(q, kp, vp, bt, ln)
-    o_r = ops.paged_attention(q, kp, vp, bt, ln, impl="ref")
+    ln = torch.randint(lens[0], lens[1] + 1, (b,), generator=gen,
+                       device=dev).int()
+    ln[0] = lens[1]
+
+    def kernel():
+        return ops.paged_attention(q, kp, vp, bt, ln, softcap, window)
+
+    o_k = kernel()
+    o_r = ops.paged_attention(q, kp, vp, bt, ln, softcap, window, impl="ref")
     torch.cuda.synchronize()
-    e = err(o_k, o_r)
-    check(f"paged_attention main path B{b} H{h}/{hkv} hd{hd} P{p} len<=2048 bf16",
-          e, MAIN_PATH_TOL)
-    log(f"  paged_attention main path: max_abs_err / max|plain| "
-        f"{rel(o_k, o_r):.3e}")
-    lens = ln.tolist()
-    # the library yardstick: SDPA on a gathered dense copy (set-up untimed)
-    lmax = max(lens)
+    tag = (f"paged_attention main path {cfg.name} B{b} H{h}/{hkv} hd{hd} "
+           f"P{p} len {lens[0]}..{lens[1]} cap={softcap} win={window} bf16")
+    e = check_main_path(tag, o_k, o_r, arch_row)
+    log(f"  {tag}: max_abs_err / max|plain| {rel(o_k, o_r):.3e}")
+    lengths = ln.tolist()
+    # the library yardstick: SDPA on a gathered dense copy (set-up untimed;
+    # it has no softcap, so with one it is a yardstick, not the same
+    # function)
+    lmax = max(lengths)
     kd = kp[bt.long()].reshape(b, maxp * p, hkv, hd)[:, :lmax]
     vd = vp[bt.long()].reshape(b, maxp * p, hkv, hd)[:, :lmax]
     kd = kd.permute(0, 2, 1, 3).repeat_interleave(h // hkv, 1).contiguous()
     vd = vd.permute(0, 2, 1, 3).repeat_interleave(h // hkv, 1).contiguous()
-    mask = (torch.arange(lmax, device=dev)[None] < ln[:, None])[:, None, None]
+    key = torch.arange(lmax, device=dev)[None]
+    mask = key < ln[:, None]
+    if window:
+        mask &= key >= ln[:, None] - window
+    mask = mask[:, None, None]
     qd = q[:, :, None]
 
     from repro_torch.kernels import paged_attention as PA
-    kernel_ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln))
-    plain_ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln,
-                                                   impl="ref"))
+    kernel_ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln, softcap,
+                                                   window, impl="ref"))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
-    kernel_graph = graph_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln))
+    kernel_graph = graph_ms(kernel)
     library_graph = graph_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
-    n_keys = sum(lens)
+    n_keys = sum(min(n, window or n) for n in lengths)   # keys read
     nbytes = 2 * (2 * b * h * hd) + 2 * 2 * n_keys * hkv * hd \
         + 4 * (b * maxp + b)
     flops = 4 * h * hd * n_keys
@@ -332,56 +394,77 @@ def main_path_decode(cfg, dev):
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
     splits = PA.n_splits(b, hkv, maxp, PA.sm_count(dev))
-    log(f"  paged_attention main path: splits S={splits} (grid {b}x{hkv}x"
+    log(f"  {tag}: splits S={splits} (grid {b}x{hkv}x"
         f"{splits} = {b * hkv * splits} blocks on {PA.sm_count(dev)} SMs); "
         f"kernel_ms {kernel_ms:.4f} eager / {kernel_graph:.4f} graph-replayed;"
         f" plain_ms {plain_ms:.4f}; library_ms {library_ms:.4f} eager / "
         f"{library_graph:.4f} graph-replayed; bound_ms {bound:.4f} ({by}: "
         f"{nbytes} B, {flops} flop); bound / graph time "
         f"{bound / kernel_graph:.3f}")
-    # the split count's effect at this shape (not a choice made at run
-    # time: n_splits depends on shapes only)
-    sweep = {sp: graph_ms(lambda: PA.paged_attention(q, kp, vp, bt, ln,
-                                                     splits=sp))
-             for sp in sorted({1, 2, 4, splits, 8, 16, 32})}
-    log("  paged_attention main path, graph-replayed ms by split count: "
-        + ", ".join(f"S={sp} {t:.4f}" for sp, t in sweep.items()))
-    for line in ptxas_lines("paged_attention", "bfloat16", "Li128ELi4E"):
-        log(f"  ptxas main path: {line}")
+    extra = {}
+    if softcap:
+        # what the softcap costs at this shape
+        extra["graph_ms_without_softcap"] = graph_ms(
+            lambda: ops.paged_attention(q, kp, vp, bt, ln, None, window))
+        log(f"  {tag}: without the softcap "
+            f"{extra['graph_ms_without_softcap']:.4f} graph-replayed")
+    gb = 4 if h // hkv <= 4 else 8
+    hdp = next(x for x in (16, 32, 64, 128, 256) if hd <= x)
+    if not arch_row:
+        # the split count's effect at this shape (not a choice made at run
+        # time: n_splits depends on shapes only)
+        sweep = {sp: graph_ms(lambda: PA.paged_attention(
+            q, kp, vp, bt, ln, softcap, window, splits=sp))
+            for sp in sorted({1, 2, 4, splits, 8, 16, 32})}
+        log("  paged_attention main path, graph-replayed ms by split count: "
+            + ", ".join(f"S={sp} {t:.4f}" for sp, t in sweep.items()))
+    for line in ptxas_lines("paged_attention", "bfloat16",
+                            f"Li{hdp}ELi{gb}E"):
+        log(f"  ptxas {cfg.name}: {line}")
     return dict(name="paged_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:87",
                 max_abs_err=e, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=library_ms,
                 graph_ms=kernel_graph, library_graph_ms=library_graph,
-                splits=splits,
+                splits=splits, **extra,
                 shape=f"B={b} H={h} Hkv={hkv} hd={hd} P={p} "
-                      f"len {min(lens)}..{max(lens)} bf16")
+                      f"len {min(lengths)}..{max(lengths)} softcap={softcap} "
+                      f"window={window} bf16")
 
 
-def main_path_prefill(cfg, dev):
-    """Ragged paged prefill at full qwen3-8b width: Tb=512 over 4 entries
-    (chunks of 256/128/96/32 tokens, cached prefixes up to 768)."""
+def main_path_prefill(cfg, dev, window=None, softcap=None,
+                      lens=(256, 128, 96, 32), starts=(768, 0, 256, 992),
+                      seed=3, arch_row=False):
+    """Ragged paged prefill at full width of ``cfg``: Tb=512 over 4 entries
+    (chunks ``lens`` after cached prefixes ``starts``) with the layer's
+    window and softcap."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cpu")
-    gen.manual_seed(3)
+    gen.manual_seed(seed)
     h, hkv, hd, p = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16
-    lens, starts = [256, 128, 96, 32], [768, 0, 256, 992]
+    lens, starts = list(lens), list(starts)
     tb = 512
-    q, kp, vp, meta, cu = ragged_pack(gen, dev, torch.bfloat16, lens, starts,
-                                      tb, p, hkv, hd, h, n_pool=512)
-    o_k = ops.paged_prefill(q, kp, vp, *meta)
-    o_r = ops.paged_prefill(q, kp, vp, *meta, impl="ref")
-    torch.cuda.synchronize()
-    e = err(o_k, o_r)
-    check(f"flash_prefill main path Tb{tb} entries {lens} from {starts} "
-          f"H{h}/{hkv} hd{hd} P{p} bf16", e, MAIN_PATH_TOL)
-    log(f"  flash_prefill main path: max_abs_err / max|plain| "
-        f"{rel(o_k, o_r):.3e}")
-    # library yardstick: one SDPA over the entries padded to dense
     sb = len(lens)
+    pb = max(-(-(s + n) // p) for s, n in zip(starts, lens))
+    q, kp, vp, meta, cu = ragged_pack(gen, dev, torch.bfloat16, lens, starts,
+                                      tb, p, hkv, hd, h,
+                                      n_pool=max(512, sb * pb))
+
+    def kernel():
+        return ops.paged_prefill(q, kp, vp, *meta, softcap, window)
+
+    o_k = kernel()
+    o_r = ops.paged_prefill(q, kp, vp, *meta, softcap, window, impl="ref")
+    torch.cuda.synchronize()
+    tag = (f"flash_prefill main path {cfg.name} Tb{tb} entries {lens} from "
+           f"{starts} H{h}/{hkv} hd{hd} P{p} cap={softcap} win={window} bf16")
+    e = check_main_path(tag, o_k, o_r, arch_row)
+    log(f"  {tag}: max_abs_err / max|plain| {rel(o_k, o_r):.3e}")
+    # library yardstick: one SDPA over the entries padded to dense (no
+    # softcap, as for decode)
     smax, kmax = max(lens), max(s + n for s, n in zip(starts, lens))
     cu_t, ebt = meta[0], meta[1]
     qd = torch.zeros((sb, h, smax, hd), dtype=q.dtype, device=dev)
@@ -397,18 +480,24 @@ def main_path_prefill(cfg, dev):
         kd[i, :, :nk] = kr.repeat_interleave(h // hkv, 0)
         vd[i, :, :nk] = vr.repeat_interleave(h // hkv, 0)
         qpos = s + torch.arange(n, device=dev)
-        mask[i, 0, :n, :nk] = torch.arange(nk, device=dev)[None] <= qpos[:, None]
+        key = torch.arange(nk, device=dev)[None]
+        m = key <= qpos[:, None]
+        if window:
+            m &= key > qpos[:, None] - window
+        mask[i, 0, :n, :nk] = m
         mask[i, 0, n:, 0] = True        # padding rows: any one key
-    kernel_ms = time_ms(lambda: ops.paged_prefill(q, kp, vp, *meta))
-    plain_ms = time_ms(lambda: ops.paged_prefill(q, kp, vp, *meta,
-                                                 impl="ref"), iters=5)
+    kernel_ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: ops.paged_prefill(q, kp, vp, *meta, softcap,
+                                                 window, impl="ref"), iters=5)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
-    kernel_graph = graph_ms(lambda: ops.paged_prefill(q, kp, vp, *meta))
+    kernel_graph = graph_ms(kernel)
     library_graph = graph_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
-    pairs = sum(sum(s + j + 1 for j in range(n)) for s, n in zip(starts, lens))
-    keys_read = sum(s + n for s, n in zip(starts, lens))
+    win = window or 2 ** 62
+    pairs = sum(sum(min(s + j + 1, win) for j in range(n))
+                for s, n in zip(starts, lens))
+    keys_read = sum(s + n - max(0, s - win + 1) for s, n in zip(starts, lens))
     n_tok = sum(lens)
     nbytes = 2 * (2 * n_tok * h * hd) + 2 * 2 * keys_read * hkv * hd \
         + 4 * (ebt.numel() + 3 * sb + 1)
@@ -416,22 +505,54 @@ def main_path_prefill(cfg, dev):
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
-    log(f"  flash_prefill main path: kernel_ms {kernel_ms:.4f} eager / "
+    log(f"  {tag}: kernel_ms {kernel_ms:.4f} eager / "
         f"{kernel_graph:.4f} graph-replayed; plain_ms {plain_ms:.4f}; "
         f"library_ms {library_ms:.4f} eager / {library_graph:.4f} "
         f"graph-replayed; bound_ms {bound:.4f} ({by}: {nbytes} B, {flops} "
         f"flop); bound / graph time {bound / kernel_graph:.3f}; "
         f"{flops / kernel_graph / 1e9:.1f} TFLOP/s")
-    for line in ptxas_lines("flash_prefill", "prefill_bf16", "ILi128E"):
-        log(f"  ptxas main path: {line}")
+    extra = {}
+    if softcap:
+        extra["graph_ms_without_softcap"] = graph_ms(
+            lambda: ops.paged_prefill(q, kp, vp, *meta, None, window))
+        log(f"  {tag}: without the softcap "
+            f"{extra['graph_ms_without_softcap']:.4f} graph-replayed")
+    hdp = next(x for x in (16, 32, 64, 128, 256) if hd <= x)
+    for line in ptxas_lines("flash_prefill", "prefill_bf16", f"ILi{hdp}E"):
+        log(f"  ptxas {cfg.name}: {line}")
     return dict(name="flash_prefill", route="cuda",
                 source="src/repro_torch/csrc/flash_prefill.cu",
                 replaces="src/repro/kernels/flash_prefill.py:76",
                 max_abs_err=e, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=library_ms,
                 graph_ms=kernel_graph, library_graph_ms=library_graph,
+                **extra,
                 shape=f"Tb={tb} entries={lens} starts={starts} H={h} "
-                      f"Hkv={hkv} hd={hd} P={p} bf16")
+                      f"Hkv={hkv} hd={hd} P={p} softcap={softcap} "
+                      f"window={window} bf16")
+
+
+# The other paged archs' attention rows: a windowed arch's rows run past
+# its window (decode lengths 4097-8192, prefill chunks after prefixes up
+# to 8000), with the window and softcap of its local layers, so the
+# window masks keys; a global arch's rows take qwen3-8b's lengths.
+LONG_DECODE = (4097, 8192)
+LONG_PREFILL = dict(lens=(256, 128, 96, 32), starts=(6144, 0, 4352, 8000))
+
+
+def arch_rows(cfg, dev):
+    """Both attention kernels at ``cfg``'s attention shape; each row names
+    its arch (a softcapped row is also timed without its softcap)."""
+    window, softcap = cfg.window, cfg.attn_logit_softcap
+    dec_lens = LONG_DECODE if window else (1024, 2048)
+    pre = LONG_PREFILL if window else {}
+    rows = [main_path_decode(cfg, dev, window, softcap, dec_lens, seed=12,
+                             arch_row=True),
+            main_path_prefill(cfg, dev, window, softcap, seed=13,
+                              arch_row=True, **pre)]
+    for r in rows:
+        r["arch"] = cfg.name
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -689,8 +810,17 @@ def main_path_rglru(cfg, dev):
 # The kernels each serving path must launch, and how many launches one
 # decode step / one prefill dispatch of that path makes (one per layer of
 # the kernel's kind; the paged family's prefill pass and decode iteration).
-PATH_KERNELS = {"qwen3-8b": ("paged_attention", "flash_prefill"),
+PAGED = ("paged_attention", "flash_prefill")
+PATH_KERNELS = {"qwen3-8b": PAGED, "granite-moe-3b-a800m": PAGED,
+                "gemma2-9b": PAGED, "h2o-danube-3-4b": PAGED,
+                "nemotron-4-15b": PAGED, "mixtral-8x7b": PAGED,
                 "rwkv6-1.6b": ("wkv6",), "recurrentgemma-2b": ("rglru",)}
+# the paged archs after qwen3-8b, served at full width; mixtral-8x7b's 93
+# GB of bf16 weights do not fit the card's 80 GB, so it serves 16 of its
+# 32 layers (about 47 GB)
+NEW_ARCHS = ("granite-moe-3b-a800m", "gemma2-9b", "h2o-danube-3-4b",
+             "nemotron-4-15b", "mixtral-8x7b")
+DEPTH_CUT = {"mixtral-8x7b": 16}
 
 
 def _engine_config(cfg, dtype, kernel_impl="auto"):
@@ -788,11 +918,17 @@ def serve(cfg, dev, n_greedy, n_sampled):
         launches=launches,
         launches_per_step=sum(launches.values()) / te.steps,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if cfg.name == "qwen3-8b":
+    if PATH_KERNELS[cfg.name] == PAGED:
+        # one launch of each attention kernel per layer: per decode
+        # iteration, and per prefill pass
         out["paged_attention_per_decode_iteration"] = (
             launches["paged_attention"] / max(te.decode_steps, 1))
         out["flash_prefill_per_prefill_pass"] = (
             launches["flash_prefill"] / max(te.prefill_dispatches, 1))
+        assert launches["paged_attention"] == cfg.n_layers * te.decode_steps \
+            and launches["flash_prefill"] == \
+            cfg.n_layers * te.prefill_dispatches, \
+            (launches, cfg.n_layers, te.decode_steps, te.prefill_dispatches)
     else:
         # one launch per recurrent layer for every prefill dispatch and
         # every decode step: read both from the steps that ran only one
@@ -809,9 +945,82 @@ def serve(cfg, dev, n_greedy, n_sampled):
             (launches[name], per, te.prefill_dispatches, te.decode_steps)
         assert out[f"{name}_per_decode_step"] == per \
             == out[f"{name}_per_prefill_dispatch"], out
+    if cfg.moe is not None:
+        out["moe_census"] = moe_census(te, cfg, rng)
     log("  serving: " + json.dumps(out))
     del te, params
     _release()
+    return out
+
+
+def moe_census(te, cfg, rng, n=8):
+    """What the full-width capacity drops: ``n`` more greedy requests like
+    the served ones (fresh prompts, 2 new tokens) through the same TE,
+    after its timed window, with every MoE call's routing counted on the
+    device and read once at the end: the routed (token, expert)
+    assignments and the kept ones, over a prefill pass's real rows and
+    over all its rows (its bucket's padding rows are routed too, and take
+    capacity). A decode iteration (at most 8 rows) keeps every token: its
+    capacity is its row count."""
+    import torch
+    from repro_torch.engine import Request, SamplingParams
+    from repro_torch.engine.runners.paged import PagedPrefillRunner
+    from repro_torch.models import moe as M
+    calls = []
+    n_real = []                     # the pass's real rows (device scalar)
+    orig, orig_pf = M.moe_apply, PagedPrefillRunner.prefill_ragged
+
+    def counted(p, x, mcfg, act, groups=1):
+        t = x.shape[0] * x.shape[1]
+        tg = t // groups
+        w_te, _, sel_tok, keep = M.moe_route(
+            p, x.reshape(groups, tg, -1), mcfg,
+            min(M.moe_capacity(tg, mcfg), tg))
+        real = n_real[-1] if n_real else t
+        rows = torch.arange(tg, device=x.device)[None, :, None] \
+            + tg * torch.arange(groups, device=x.device)[:, None, None]
+        routed = w_te > 0
+        sel = sel_tok + tg * torch.arange(groups, device=x.device)[:, None,
+                                                                  None]
+        calls.append((t, routed.sum(), keep.sum(),
+                      (routed & (rows < real)).sum(),
+                      (keep & (sel < real)).sum(), torch.as_tensor(real)))
+        return orig(p, x, mcfg, act, groups)
+
+    def prefill(self, tokens, positions, pages, slots, cu_tokens, *a, **kw):
+        n_real.append(cu_tokens[-1])
+        try:
+            return orig_pf(self, tokens, positions, pages, slots, cu_tokens,
+                           *a, **kw)
+        finally:
+            n_real.pop()
+
+    sp = SamplingParams(temperature=0.0, max_new_tokens=2, stop_on_eos=False)
+    for i in range(n):
+        te.add_request(Request(
+            prompt_tokens=[int(t) for t in rng.randint(
+                3, cfg.vocab_size, int(rng.randint(64, 1025)))],
+            sampling=sp, req_id=f"census{i}"))
+    M.moe_apply, PagedPrefillRunner.prefill_ragged = counted, prefill
+    try:
+        te.run_to_completion()
+    finally:
+        M.moe_apply, PagedPrefillRunner.prefill_ragged = orig, orig_pf
+    out = {}
+    for phase, sel in (("prefill", lambda t: t > 8),
+                       ("decode", lambda t: t <= 8)):
+        mine = [[int(v) for v in c[1:]] + [c[0]] for c in calls
+                if sel(c[0])]
+        routed, kept, r_real, k_real = (sum(c[i] for c in mine)
+                                        for i in range(4))
+        out[phase] = dict(
+            moe_calls=len(mine), passes=len(mine) // cfg.n_layers,
+            rows_per_pass=[c[5] for c in mine[::cfg.n_layers]],
+            real_rows_per_pass=[c[4] for c in mine[::cfg.n_layers]],
+            assignments_real=r_real, dropped_real=r_real - k_real,
+            dropped_share_real=(r_real - k_real) / max(r_real, 1),
+            assignments_all=routed, dropped_all=routed - kept,
+            dropped_share_all=(routed - kept) / max(routed, 1))
     return out
 
 
@@ -904,7 +1113,12 @@ def main() -> int:
                           ("qwen3-8b", "rwkv6-1.6b", "recurrentgemma-2b"))
     rows = [main_path_decode(qwen, dev), main_path_prefill(qwen, dev),
             main_path_wkv6(rwkv, dev), main_path_rglru(rgemma, dev)]
+    for r, cfg in zip(rows, (qwen, qwen, rwkv, rgemma)):
+        r["arch"] = cfg.name
+    new = [get_config(n) for n in NEW_ARCHS]
+    arch = [r for cfg in new for r in arch_rows(cfg, dev)]
     if args.only == "kernels":
+        log(json.dumps({"arch_kernels": arch}))
         log(json.dumps({"kernels": rows}))
         log(card)
         return 0
@@ -912,22 +1126,30 @@ def main() -> int:
     # phase 3: each path's launch counts are zeroed just before it runs and
     # read just after; a kernel's row takes the count of its own path
     launches = {}
-    for cfg, n_greedy, n_sampled in ((qwen, 8, 2), (rwkv, 6, 2),
-                                     (rgemma, 6, 2)):
+    served = [(qwen, 8, 2), (rwkv, 6, 2), (rgemma, 6, 2)] \
+        + [(a, 6, 2) for a in new]
+    for cfg, n_greedy, n_sampled in served:
+        full = cfg.n_layers
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT.get(cfg.name, full))
+        cut = "" if cfg.n_layers == full else \
+            f" (depth cut from {full}: full-width weights of all {full} " \
+            f"layers do not fit the card)"
         log(f"phase 3: full-width serving ({cfg.name}, {cfg.n_layers} "
-            f"layers, bf16) [{time.monotonic() - T0:.1f} s]")
-        served = serve(cfg, dev, n_greedy, n_sampled)
+            f"layers{cut}, bf16) [{time.monotonic() - T0:.1f} s]")
+        out = serve(cfg, dev, n_greedy, n_sampled)
         for name in PATH_KERNELS[cfg.name]:
-            launches[name] = served["launches"][name]
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+            launches[cfg.name, name] = out["launches"][name]
+    for r in rows + arch:
+        r["launches"] = launches[r["arch"], r["name"]]
 
-    for cfg, n_layers in ((qwen, 2), (rwkv, 2), (rgemma, 3)):
+    for cfg, n_layers in ((qwen, 2), (rwkv, 2), (rgemma, 3),
+                          *((a, 2) for a in new)):
         log(f"phase 4: kernel path vs plain path ({cfg.name}, {n_layers} "
             f"layers, fp32) [{time.monotonic() - T0:.1f} s]")
         parity(cfg, dev, n_layers)
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
+    log(json.dumps({"arch_kernels": arch}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,23 @@
 """Model configuration for the port: the paged- and slot-family subset of
-the JAX package's ``configs/base.py`` (own copy — the port imports nothing
-of ``repro``). Field names and derived quantities match the reference so a
-config means the same model on both sides."""
+the JAX package's ``configs/base.py``, MoE included (own copy — the port
+imports nothing of ``repro``). Field names and derived quantities match
+the reference so a config means the same model on both sides."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int          # per-expert FFN hidden size
+    router_jitter: float = 0.0
+    # tokens an expert keeps per capacity group, as a multiple of its fair
+    # share (top_k / n_experts of the group); the rest are dropped for it
+    capacity_factor: float = 1.25
 
 
 @dataclass(frozen=True)
@@ -29,7 +40,7 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | ssm | hybrid
+    family: str                     # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -52,6 +63,7 @@ class ModelConfig:
     embed_scale: bool = False       # gemma-style sqrt(d_model) embedding scale
     tie_embeddings: bool = False
 
+    moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
     rglru: Optional[RGLRUConfig] = None
 
@@ -88,7 +100,6 @@ class ModelConfig:
         qkv = d * self.n_heads * self.head_dim \
             + 2 * d * self.n_kv_heads * self.head_dim
         o = self.n_heads * self.head_dim * d
-        mlp = (3 if self.mlp_act in ("swiglu", "geglu") else 2) * d * f
         n = 0
         for kind in self.layer_kinds():
             if kind == "rwkv":
@@ -96,16 +107,33 @@ class ModelConfig:
                 n += 6 * d * d + 2 * d * f + d * f
             elif kind == "rglru":
                 w = self.rglru.lru_width
-                n += 2 * d * w + w * d + 2 * w * self.rglru.conv1d_width + mlp
+                n += 2 * d * w + w * d + 2 * w * self.rglru.conv1d_width \
+                    + self._mlp_params(d, f)
             else:
-                n += qkv + o + mlp
+                n += qkv + o + self._mlp_params(d, f)
         n += v * d
         if not self.tie_embeddings:
             n += v * d
         return n
 
+    def _mlp_mult(self) -> int:
+        return 3 if self.mlp_act in ("swiglu", "geglu") else 2
+
+    def _mlp_params(self, d: int, f: int) -> int:
+        if self.moe is not None:
+            e = self.moe
+            return e.n_experts * self._mlp_mult() * d * e.d_expert \
+                + d * e.n_experts                               # + router
+        return self._mlp_mult() * d * f
+
     def active_param_count(self) -> int:
-        return self.param_count()
+        """Parameters a token runs through (MoE: its top-k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        per = self._mlp_mult() * self.d_model * e.d_expert
+        return self.param_count() \
+            - (e.n_experts - e.top_k) * per * self.n_layers
 
 
 _REGISTRY: dict = {}
@@ -132,7 +160,8 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        qwen3_8b, recurrentgemma_2b, rwkv6_1_6b,
+        gemma2_9b, granite_moe_3b_a800m, h2o_danube_3_4b, mixtral_8x7b,
+        nemotron_4_15b, qwen3_8b, recurrentgemma_2b, rwkv6_1_6b,
     )
 
 
@@ -144,6 +173,11 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         d_model=64, n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2),
         head_dim=16, d_ff=128, vocab_size=512,
         window=16 if cfg.window else None)
+    if cfg.moe is not None:
+        # drop-free capacity: chunked prefill, decode and the teacher-forced
+        # forward then agree exactly
+        changes["moe"] = MoEConfig(n_experts=4, top_k=min(cfg.moe.top_k, 2),
+                                   d_expert=32, capacity_factor=100.0)
     if cfg.rwkv is not None:
         changes["rwkv"] = RWKVConfig(head_dim=16, state_ckpt_interval=8)
         changes["n_kv_heads"] = 4

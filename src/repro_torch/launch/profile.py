@@ -4,6 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile
     # the slot family: --arch rwkv6-1.6b or --arch recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch rwkv6-1.6b
+    # an MoE arch: its MoE layers' device time is a group of its own
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch granite-moe-3b-a800m
 
 One colocated TE serves a warm-up batch (untimed: it builds the kernels
 and warms the allocator), then traffic of the same shape under
@@ -19,10 +22,18 @@ TPOT, the median TTFT and the blocking fetches the engine counted
 the host, or a slot step's token fetch); then the card's name and power
 limit. Host-clock figures spread between processes: compare versions
 inside one chip call, in turns.
+
+For an MoE arch the traced window also records host activity, with every
+``moe_apply`` call inside a ``moe dispatch`` range, and the kernels
+launched inside those ranges (routing, gather, the experts' batched
+products, scatter-add) are moved from their kernel groups to a group of
+their own. The host tracing adds its own cost to that window's wall time,
+so its idle share and TPOT read higher than the untraced window's.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -34,7 +45,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+
+MOE_RANGE = "moe dispatch"
 
 
 def _group(name: str) -> str:
@@ -89,6 +103,41 @@ def timed_window(te, cfg, requests=8, prompt_len=256, max_new=24,
     return out
 
 
+@contextlib.contextmanager
+def _moe_ranges():
+    """Every ``moe_apply`` call inside a ``MOE_RANGE`` profiler range."""
+    orig = M.moe_apply
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function(MOE_RANGE):
+            return orig(*a, **kw)
+
+    M.moe_apply = ranged
+    try:
+        yield
+    finally:
+        M.moe_apply = orig
+
+
+def _moe_kernels(prof):
+    """(kernel name, us) of every kernel launched inside a ``MOE_RANGE``
+    range, from the host events' tree."""
+    from torch.autograd import DeviceType
+    out = []
+
+    def walk(e, inside):
+        inside = inside or e.name == MOE_RANGE
+        if inside:
+            out.extend((k.name, k.duration) for k in e.kernels)
+        for c in e.cpu_children:
+            walk(c, inside)
+
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.cpu_parent is None:
+            walk(e, False)
+    return out
+
+
 def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
                    seed=1) -> dict:
     """Serve ``requests`` greedy requests under the profiler on a warm TE
@@ -99,14 +148,17 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
     _submit(te, cfg, rng, "t", requests, prompt_len, max_new)
     torch.cuda.synchronize()
     steps0, syncs0 = te.steps, te.host_syncs
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    moe = cfg.moe is not None
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
+    with (_moe_ranges() if moe else contextlib.nullcontext()), \
+            profile(activities=acts) as prof:
         t0 = time.monotonic()
         comps = te.run_to_completion()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     groups, launches, top = {}, {}, []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -117,6 +169,14 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
         groups[g] = groups.get(g, 0.0) + us
         launches[g] = launches.get(g, 0) + e.count
         top.append((us, e.count, e.key[:70]))
+    if moe:
+        # the MoE layers' kernels leave their name groups for their own
+        for name, us in _moe_kernels(prof):
+            g = _group(name)
+            groups[g] -= us
+            launches[g] -= 1
+            groups[MOE_RANGE] = groups.get(MOE_RANGE, 0.0) + us
+            launches[MOE_RANGE] = launches.get(MOE_RANGE, 0) + 1
     busy = sum(groups.values())
     if busy <= 0:
         raise RuntimeError("the profiler saw no CUDA kernel time")

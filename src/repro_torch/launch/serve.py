@@ -7,6 +7,12 @@
     # the slot family: rwkv6-1.6b or recurrentgemma-2b at full width
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
+    # the other paged archs: granite-moe-3b-a800m, gemma2-9b,
+    # h2o-danube-3-4b, nemotron-4-15b; mixtral-8x7b (93 GB of bf16
+    # weights) fits one 80 GB card only with its depth cut
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --layers 16
+
     # a smoke config on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --device cpu --requests 4 --max-new 8
@@ -14,6 +20,7 @@
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -33,6 +40,8 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced smoke config instead of full width")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = all)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -41,6 +50,8 @@ def main() -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)

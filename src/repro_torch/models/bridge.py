@@ -14,9 +14,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 # leaves that stay fp32 whatever the weight dtype (the reference keeps its
-# norm scales and the recurrences' lerp/decay/bonus/gate constants in fp32)
+# norm scales, the MoE router and the recurrences' lerp/decay/bonus/gate
+# constants in fp32)
 _FP32_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "q_norm",
-              "k_norm", "mix_base", "decay_base", "bonus_u", "ln_x",
+              "k_norm", "router", "mix_base", "decay_base", "bonus_u", "ln_x",
               "cm_mix", "lambda_p")
 
 
@@ -41,11 +42,14 @@ def params_from_numpy(cfg: ModelConfig, tree: Any, device="cuda",
     towers = {"rwkv": ("blocks",),
               "hybrid_rglru": ("rglru_blocks", "attn_blocks")}
     need = towers.get(cfg.attn_kind, ("blocks",))
+    # enc-dec and VLM towers (encoder / cross-attention blocks) are not
+    # ported yet
     if cfg.attn_kind not in ("global", "swa", "local_global", *towers) \
-            or any(k not in tree for k in need):
+            or any(k not in tree for k in need) \
+            or any(k in tree for k in ("enc_blocks", "cross_blocks")):
         raise NotImplementedError(
-            f"bridge covers the dense, rwkv and hybrid_rglru towers, not "
-            f"{cfg.name!r}")
+            f"bridge covers the dense, MoE, rwkv and hybrid_rglru towers, "
+            f"not {cfg.name!r}")
 
     def conv(t, keep_fp32=False):
         if isinstance(t, dict):

@@ -1,9 +1,9 @@
-"""Transformer towers of the port (the dense, rwkv and hybrid-rglru halves
-of ``repro/models/transformer.py``): parameter init with the reference's
-distributions, embedding / unembedding, the per-layer window schedule, the
-two halves of an attention block that the runners wrap around their
-attention kernels, the rwkv and rglru blocks, and a teacher-forced
-``forward`` for the tests.
+"""Transformer towers of the port (the dense, MoE, rwkv and hybrid-rglru
+parts of ``repro/models/transformer.py``): parameter init with the
+reference's distributions, embedding / unembedding, the per-layer window
+schedule, the two halves of an attention block that the runners wrap
+around their attention kernels, the rwkv and rglru blocks, and a
+teacher-forced ``forward`` for the tests.
 
 Parameters are a plain dict mirroring the JAX pytree: per-layer tensors
 are stacked on a leading layer axis under ``blocks`` (dense and rwkv
@@ -19,6 +19,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 
@@ -106,7 +107,11 @@ def _init_attn_block(cfg: ModelConfig, gen, dtype, dev) -> dict:
         attn["q_norm"] = torch.zeros((hd,), dtype=torch.float32, device=dev)
         attn["k_norm"] = torch.zeros((hd,), dtype=torch.float32, device=dev)
     p = {"ln1": _init_norm(cfg, dev), "attn": attn,
-         "ln2": _init_norm(cfg, dev), "mlp": _init_mlp(cfg, gen, dtype, dev)}
+         "ln2": _init_norm(cfg, dev)}
+    if cfg.moe is not None:
+        p["moe"] = M.init_moe(gen, d, cfg.moe, cfg.mlp_act, dtype, dev)
+    else:
+        p["mlp"] = _init_mlp(cfg, gen, dtype, dev)
     if cfg.post_norms:
         p["ln1_post"] = _init_norm(cfg, dev)
         p["ln2_post"] = _init_norm(cfg, dev)
@@ -181,15 +186,20 @@ def block_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def block_out(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              o: torch.Tensor) -> torch.Tensor:
-    """Second half: output projection, residual, MLP, residual.
-    o: (B,S,H,hd) attention output."""
+              o: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """Second half: output projection, residual, MLP (or MoE, over
+    ``groups`` capacity groups), residual. o: (B,S,H,hd) attention
+    output. The engine's passes take one group, as the reference's paged
+    runner does."""
     a = L.attn_out(p["attn"], o)
     if cfg.post_norms:
         a = L.apply_norm(a, p["ln1_post"], cfg.norm)
     x = x + a
-    m = L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"], cfg.norm),
-                    cfg.mlp_act)
+    h = L.apply_norm(x, p["ln2"], cfg.norm)
+    if "moe" in p:
+        m = M.moe_apply(p["moe"], h, cfg.moe, cfg.mlp_act, groups=groups)
+    else:
+        m = L.mlp_apply(p["mlp"], h, cfg.mlp_act)
     if cfg.post_norms:
         m = L.apply_norm(m, p["ln2_post"], cfg.norm)
     return x + m
@@ -202,7 +212,18 @@ def attn_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k, v = block_qkv(cfg, p, x, positions)
     mask = L.causal_mask(positions, positions, window)
     return block_out(cfg, p, x, L.attention(q, k, v, mask,
-                                            cfg.attn_logit_softcap))
+                                            cfg.attn_logit_softcap),
+                     groups=moe_groups(x.shape[0] * x.shape[1]))
+
+
+def moe_groups(tokens: int) -> int:
+    """The teacher-forced forward's capacity groups (the reference's
+    ``_moe_groups``): the most of 16, 8, 4, 2 that splits ``tokens``
+    evenly with at least 64 tokens per group, else 1."""
+    for g in (16, 8, 4, 2, 1):
+        if tokens % g == 0 and tokens // g >= 64:
+            return g
+    return 1
 
 
 def rwkv_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,

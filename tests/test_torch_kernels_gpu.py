@@ -3,7 +3,9 @@ card: the ``tests/test_kernels.py`` sweep shapes and tolerances (f32 atol
 2e-4, bf16 2e-2) plus the engine's ragged paged prefill form, and the slot
 family's WKV6 and RG-LRU recurrences on the test_wkv6 / test_rglru sweeps
 with a state carried in and out, the split-K decode at forced split
-counts, and the bf16 tensor-core prefill at G = 1-8 and hd 64-256. Every
+counts, the decode at the other paged archs' shapes (G 2-6, hd 120 and
+256, softcap 50 with a window), and the bf16 tensor-core prefill at G =
+1-8 and hd 64-256 (hd 120 padded to 128). Every
 test is marked ``gpu`` and skips without a CUDA card (the kernels have no CPU
 mode). This file imports no JAX, so it runs on a machine that has only
 PyTorch:
@@ -17,8 +19,15 @@ import torch
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import ops
 
+# (b, h, hkv, hd, page, npages): the test_kernels.py sweep, then the other
+# paged archs' decode shapes: gemma2 (G 2, hd 256), granite (G 3, hd 64),
+# danube (G 4, hd 120), nemotron (G 6, hd 128), and G 3 at hd 120 / G 6 at
+# hd 256
 PAGED_SHAPES = [(1, 4, 4, 16, 8, 3), (2, 8, 4, 32, 16, 5),
-                (3, 8, 1, 64, 16, 4)]
+                (3, 8, 1, 64, 16, 4),
+                (2, 16, 8, 256, 16, 5), (3, 24, 8, 64, 16, 4),
+                (2, 32, 8, 120, 16, 5), (2, 48, 8, 128, 16, 6),
+                (2, 6, 2, 120, 16, 5), (2, 12, 2, 256, 16, 4)]
 FLASH_SHAPES = [(1, 128, 4, 4, 16), (2, 256, 8, 2, 32), (1, 64, 2, 1, 64)]
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -54,7 +63,8 @@ def test_paged_attention_kernel(cuda, b, h, hkv, hd, page, npages, dtype):
     bt = torch.randperm(pool, generator=g)[:b * npages].view(b, npages)
     ln = torch.randint(1, npages * page, (b,), generator=g)
     bt, ln = bt.int().to(cuda), ln.int().to(cuda)
-    for softcap, window in [(None, None), (30.0, None), (None, 20)]:
+    for softcap, window in [(None, None), (30.0, None), (None, 20),
+                            (50.0, 40)]:
         _close(ops.paged_attention(q, kp, vp, bt, ln, softcap, window),
                ops.paged_attention(q, kp, vp, bt, ln, softcap, window,
                                    impl="ref"), dtype)
@@ -123,16 +133,18 @@ def test_paged_attention_split_counts(cuda, splits, dtype):
         _close(got, want, dtype)
 
 
-PREFILL_GS = [1, 2, 4, 8]
-PREFILL_HDS = [64, 128, 256]
+PREFILL_GS = [1, 2, 3, 4, 6, 8]
+PREFILL_HDS = [64, 120, 128, 256]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("g_heads", PREFILL_GS)
 @pytest.mark.parametrize("hd", PREFILL_HDS)
 def test_prefill_tensor_core_body(cuda, g_heads, hd):
-    """The bf16 tensor-core prefill at G = 1, 2, 4, 8 query heads per KV
-    head and hd 64, 128, 256 (two column halves), on a ragged pack whose
+    """The bf16 tensor-core prefill at G = 1, 2, 3, 4, 6, 8 query heads per
+    KV head (3 and 6 leave padding heads in a head chunk) and hd 64, 120
+    (padded to 128; the last KV head's second box reaches past the row),
+    128, 256 (two column halves), on a ragged pack whose
     entries start mid-page, with chunk lengths that are not multiples of
     16 (tiles with one warpgroup idle, and 32-token tiles), a cached
     prefix past one key block, and bucket padding; plain causal, then
@@ -390,11 +402,11 @@ def test_rglru_kernel_main_path_shape(cuda):
 # the hot loop's host side never drains the stream (no blocking copy)
 # ---------------------------------------------------------------------------
 
-def _paged_te(cuda, horizon):
+def _paged_te(cuda, horizon, arch="qwen3-8b"):
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.engine import EngineConfig, FlowServe
     from repro_torch.models import transformer as T
-    cfg = smoke_config(get_config("qwen3-8b"))
+    cfg = smoke_config(get_config(arch))
     gen = torch.Generator(device=cuda).manual_seed(0)
     return FlowServe(cfg, T.init_params(cfg, gen, torch.float32, cuda),
                      EngineConfig(n_pages=64, page_size=16,
@@ -411,9 +423,21 @@ def test_steady_decode_step_never_syncs(cuda):
     all (a wait on that event is the one the reference also makes); any
     blocking copy, such as ``.cpu()`` of a device tensor, raises under
     sync-debug "error"."""
+    _steady_step_never_syncs(cuda, "qwen3-8b")
+
+
+@pytest.mark.gpu
+def test_steady_moe_decode_step_never_syncs(cuda):
+    """The same steady step on granite-moe smoke: the MoE layers (top-k
+    routing, capacity selection, gather and scatter-add) size everything
+    from shapes and enqueue no blocking copy."""
+    _steady_step_never_syncs(cuda, "granite-moe-3b-a800m")
+
+
+def _steady_step_never_syncs(cuda, arch):
     from repro_torch.engine import Request, SamplingParams
     from repro_torch.engine.kv_cache import pages_needed
-    te = _paged_te(cuda, horizon=1)
+    te = _paged_te(cuda, horizon=1, arch=arch)
     for i in range(3):
         te.add_request(Request(prompt_tokens=list(range(3, 10 + i)),
                                req_id=f"r{i}", sampling=SamplingParams(
