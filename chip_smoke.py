@@ -35,17 +35,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                 layers), recurrentgemma-2b (26 layers), granite-moe-3b-
                 a800m (32), gemma2-9b (42), h2o-danube-3-4b (24),
                 nemotron-4-15b (32) and mixtral-8x7b (16 of its 32 layers:
-                all 32 do not fit the card) 6 + 2 each. Every request must
+                all 32 do not fit the card) 6 + 2 each, then the
+                cross-attention towers at full depth on the slot path,
+                6 + 2 each, every request with seeded random modality
+                inputs: llama-3.2-vision-11b (40 layers, 8 gated cross
+                blocks; patch embeddings (1, 1601, 4096)) and
+                seamless-m4t-large-v2 (24 encoder + 24 decoder layers;
+                frames (1, 4096, 1024), encoded again at every prefill
+                chunk, as the reference does). Every request must
                 complete with valid ids, and each path must have launched
                 its kernels (counts reset just before it): one launch of
                 each attention kernel per layer per decode iteration /
                 prefill pass, 24 WKV6 and 18 RG-LRU launches per decode
-                step / prefill dispatch.
+                step / prefill dispatch; the cross towers' path has no
+                hand-written kernel (the reference's runs no Pallas
+                kernel there) and must launch none.
   4. parity   — at full width cut to a few layers in fp32 (qwen3 2,
                 rwkv6 2, recurrentgemma 3 = 2 RG-LRU + 1 attention, each
                 other paged arch 2; gemma2's are one local and one global
                 layer), the TE on the kernels and the TE on the plain
-                versions give identical greedy tokens.
+                versions give identical greedy tokens. The cross towers
+                (llama-3.2-vision 5 layers = one cross block, seamless 2
+                decoder + 2 encoder layers; non-zero gates, seeded
+                modality inputs) are held instead against the greedy
+                oracle of the port's teacher-forced ``forward``.
 The last lines are the other paged archs' attention rows as JSON
 ({"arch_kernels": [...]}), the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -814,13 +827,27 @@ PAGED = ("paged_attention", "flash_prefill")
 PATH_KERNELS = {"qwen3-8b": PAGED, "granite-moe-3b-a800m": PAGED,
                 "gemma2-9b": PAGED, "h2o-danube-3-4b": PAGED,
                 "nemotron-4-15b": PAGED, "mixtral-8x7b": PAGED,
-                "rwkv6-1.6b": ("wkv6",), "recurrentgemma-2b": ("rglru",)}
+                "rwkv6-1.6b": ("wkv6",), "recurrentgemma-2b": ("rglru",),
+                "llama-3.2-vision-11b": (), "seamless-m4t-large-v2": ()}
 # the paged archs after qwen3-8b, served at full width; mixtral-8x7b's 93
 # GB of bf16 weights do not fit the card's 80 GB, so it serves 16 of its
 # 32 layers (about 47 GB)
 NEW_ARCHS = ("granite-moe-3b-a800m", "gemma2-9b", "h2o-danube-3-4b",
              "nemotron-4-15b", "mixtral-8x7b")
 DEPTH_CUT = {"mixtral-8x7b": 16}
+# the cross-attention towers, served at full width and full depth
+CROSS_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-large-v2")
+
+
+def modality(cfg, rs):
+    """Seeded random modality inputs of one request of ``cfg`` ({} for a
+    model without modality memory), in the keys and shapes of the
+    engine's default zeros: patch embeddings (VLM) or frames (enc-dec),
+    (1, P, d_model) fp32 numpy."""
+    import torch
+    from repro_torch.models import serving as S
+    return {k: rs.standard_normal(tuple(v.shape)).astype("float32")
+            for k, v in S.extra_inputs(cfg, 1, torch.float32, "cpu").items()}
 
 
 def _engine_config(cfg, dtype, kernel_impl="auto"):
@@ -836,7 +863,8 @@ def _engine_config(cfg, dtype, kernel_impl="auto"):
 def serve(cfg, dev, n_greedy, n_sampled):
     """A full-width TE of ``cfg`` (random bf16 weights from a seed) serves
     ``n_greedy`` greedy + ``n_sampled`` sampled (T=0.8, top_p=0.9)
-    requests, prompts of 64-1024 random ids, 32 new tokens each. Launch
+    requests, prompts of 64-1024 random ids, 32 new tokens each, each with
+    its own seeded modality inputs where the model takes them. Launch
     counts are zeroed just before the requests arrive and read just after
     the last completes."""
     import numpy as np
@@ -860,12 +888,14 @@ def serve(cfg, dev, n_greedy, n_sampled):
                             stop_on_eos=False)
     sampled = SamplingParams(temperature=0.8, top_p=0.9, max_new_tokens=32,
                              stop_on_eos=False)
+    mem_rs = np.random.RandomState(1)
     reqs = []
     for i in range(n_greedy + n_sampled):
         n = int(rng.randint(64, 1025))
         reqs.append(Request(
             prompt_tokens=[int(t) for t in rng.randint(3, cfg.vocab_size, n)],
-            sampling=greedy if i < n_greedy else sampled, req_id=f"r{i}"))
+            sampling=greedy if i < n_greedy else sampled, req_id=f"r{i}",
+            extra=modality(cfg, mem_rs)))
     ops.reset_launches()                    # this path's run starts here
     t0 = time.monotonic()
     for r in reqs:
@@ -917,8 +947,27 @@ def serve(cfg, dev, n_greedy, n_sampled):
             [dec for _, pf, dec, _, _ in steps if pf == 0]),
         launches=launches,
         launches_per_step=sum(launches.values()) / te.steps,
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if PATH_KERNELS[cfg.name] == PAGED:
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        card=card_line())
+    if not PATH_KERNELS[cfg.name]:
+        # a cross-attention tower: plain PyTorch on the slot path, no
+        # hand-written kernel launched; what its slots and checkpoints hold
+        assert not any(launches.values()), launches
+        snaps = list(te._state_cache.values())
+        out["snapshot_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in snaps[0].values())
+        out["state_cache_entries"] = len(snaps)
+        out["state_cache_gib"] = out["snapshot_bytes"] * len(snaps) / 2**30
+        if cfg.encoder is not None:
+            # the encoder alone over one request's frames: what each
+            # prefill chunk spends before its decoder layers
+            frames = torch.from_numpy(modality(cfg, mem_rs)["frames"]).to(
+                dev, torch.bfloat16)
+            with torch.no_grad():
+                out["encode_ms"] = time_ms(
+                    lambda: T.encode(cfg, params, frames), iters=5,
+                    warmup=1)
+    elif PATH_KERNELS[cfg.name] == PAGED:
         # one launch of each attention kernel per layer: per decode
         # iteration, and per prefill pass
         out["paged_attention_per_decode_iteration"] = (
@@ -1073,6 +1122,75 @@ def parity(cfg, dev, n_layers):
     _release()
 
 
+def oracle_parity(cfg, dev, n_layers, n_enc_layers=None):
+    """Full width cut to ``n_layers`` decoder layers (and
+    ``n_enc_layers`` encoder layers), fp32, non-zero cross gates: the
+    TE's greedy tokens for 4 requests with seeded modality inputs equal
+    the greedy oracle of the port's teacher-forced ``forward``. One
+    forward over prompt + the TE's tokens gives the oracle's next token
+    after every prefix (causal), so the tokens agree exactly when each
+    of the TE's tokens is that position's argmax.
+
+    As in ``tests/test_system.py::test_engine_matches_oracle``, every
+    prompt prefills in one chunk of the first step, before any decode:
+    the slot family's all-slot decode step also advances a slot whose
+    prompt is still mid-prefill (a reference defect the port keeps for
+    parity; ``tests/test_torch_crossattn.py`` shows it), so a request
+    prefilled across decode steps is not held to the oracle."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import FlowServe, Request, SamplingParams
+    from repro_torch.models import transformer as T
+    enc = cfg.encoder and dataclasses.replace(cfg.encoder,
+                                              n_layers=n_enc_layers)
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, encoder=enc)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    params = T.init_params(cfg2, gen, torch.float32, dev)
+    if cfg2.vision is not None:
+        n = len(cfg2.cross_attn_layers())
+        params["cross_blocks"]["gate_attn"].copy_(torch.linspace(0.6, 0.9, n))
+        params["cross_blocks"]["gate_mlp"].copy_(torch.linspace(-0.7, -0.4,
+                                                                n))
+    rng = np.random.RandomState(5)
+    reqs = [Request(prompt_tokens=[int(t) for t in rng.randint(
+                3, cfg.vocab_size, int(rng.randint(40, 121)))],
+                    sampling=SamplingParams(temperature=0.0,
+                                            max_new_tokens=16,
+                                            stop_on_eos=False),
+                    req_id=f"o{i}", extra=modality(cfg2, rng))
+            for i in range(4)]
+    te = FlowServe(cfg2, params, _engine_config(cfg2, torch.float32),
+                   device=dev)
+    for r in reqs:
+        te.add_request(r)
+    got = {c.req_id: c.tokens for c in te.run_to_completion()}
+    assert te.prefill_dispatches == len(reqs), te.prefill_dispatches
+    del te
+    _release()
+    same, margin = len(got) == 4, float("inf")
+    for r in reqs:
+        seq = r.prompt_tokens + got[r.req_id][:-1]
+        with torch.no_grad():
+            logits = T.forward(
+                cfg2, params, torch.tensor([seq], device=dev),
+                **{k: torch.from_numpy(v).to(dev)
+                   for k, v in r.extra.items()})
+        lg = logits[0, len(r.prompt_tokens) - 1:, :cfg.vocab_size]
+        want = lg.argmax(-1).tolist()
+        top2 = lg.topk(2, dim=-1).values
+        margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
+        same = same and want == got[r.req_id]
+        del logits
+    log(f"  oracle {cfg.name} x{n_layers} layers"
+        f"{'' if enc is None else f' + {n_enc_layers} encoder layers'}: "
+        f"engine {got['o0'][:8]}... identical to the forward's greedy "
+        f"tokens={same} (smallest top-2 logit gap {margin:.3e})")
+    assert same, "engine and teacher-forced greedy tokens differ"
+    del params
+    _release()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["all", "kernels"], default="all",
@@ -1126,8 +1244,9 @@ def main() -> int:
     # phase 3: each path's launch counts are zeroed just before it runs and
     # read just after; a kernel's row takes the count of its own path
     launches = {}
+    cross = [get_config(n) for n in CROSS_ARCHS]
     served = [(qwen, 8, 2), (rwkv, 6, 2), (rgemma, 6, 2)] \
-        + [(a, 6, 2) for a in new]
+        + [(a, 6, 2) for a in new + cross]
     for cfg, n_greedy, n_sampled in served:
         full = cfg.n_layers
         cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT.get(cfg.name, full))
@@ -1147,6 +1266,10 @@ def main() -> int:
         log(f"phase 4: kernel path vs plain path ({cfg.name}, {n_layers} "
             f"layers, fp32) [{time.monotonic() - T0:.1f} s]")
         parity(cfg, dev, n_layers)
+    for cfg, n_layers, n_enc in ((cross[0], 5, None), (cross[1], 2, 2)):
+        log(f"phase 4: engine vs teacher-forced greedy oracle ({cfg.name}, "
+            f"{n_layers} layers, fp32) [{time.monotonic() - T0:.1f} s]")
+        oracle_parity(cfg, dev, n_layers, n_enc)
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
     log(json.dumps({"arch_kernels": arch}))

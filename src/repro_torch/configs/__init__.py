@@ -1,4 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, MoEConfig, RGLRUConfig, RWKVConfig, get_config,
-    list_configs, register, smoke_config,
+    EncoderConfig, ModelConfig, MoEConfig, RGLRUConfig, RWKVConfig,
+    VisionConfig, get_config, list_configs, register, smoke_config,
 )

@@ -1,6 +1,7 @@
-"""Model configuration for the port: the paged- and slot-family subset of
-the JAX package's ``configs/base.py``, MoE included (own copy — the port
-imports nothing of ``repro``). Field names and derived quantities match
+"""Model configuration for the port: the model half of the JAX package's
+``configs/base.py`` (every family it serves: dense, MoE, recurrent,
+hybrid, enc-dec and VLM), an own copy — the port imports nothing of
+``repro``. Field names and derived quantities match
 the reference so a config means the same model on both sides."""
 from __future__ import annotations
 
@@ -18,6 +19,24 @@ class MoEConfig:
     # tokens an expert keeps per capacity group, as a multiple of its fair
     # share (top_k / n_experts of the group); the rest are dropped for it
     capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower of an enc-dec model (seamless-m4t). The speech
+    frontend is a stub: requests carry precomputed frame embeddings
+    (1, n_frames, d_model)."""
+    n_layers: int
+    n_frames: int          # encoder sequence length
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    """Cross-attention vision adapter of a VLM (llama-3.2-vision). The
+    vision tower is a stub: requests carry precomputed patch embeddings
+    (1, n_patches, d_model)."""
+    cross_attn_every: int  # a cross block after every N self-attn layers
+    n_patches: int
 
 
 @dataclass(frozen=True)
@@ -64,10 +83,16 @@ class ModelConfig:
     tie_embeddings: bool = False
 
     moe: Optional[MoEConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    vision: Optional[VisionConfig] = None
     rwkv: Optional[RWKVConfig] = None
     rglru: Optional[RGLRUConfig] = None
 
     source: str = ""
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder is not None
 
     @property
     def padded_vocab(self) -> int:
@@ -93,6 +118,15 @@ class ModelConfig:
                 kinds.append("attn_global")
         return tuple(kinds)
 
+    def cross_attn_layers(self) -> Tuple[int, ...]:
+        """Decoder layers a VLM's gated cross block follows (empty for
+        every other model; an enc-dec model's cross blocks follow every
+        layer, ``models/transformer.py::cross_schedule``)."""
+        if self.vision is None:
+            return ()
+        k = self.vision.cross_attn_every
+        return tuple(i for i in range(self.n_layers) if (i + 1) % k == 0)
+
     def param_count(self) -> int:
         """Approximate parameter count N, counted as the reference counts
         it per layer kind."""
@@ -111,6 +145,12 @@ class ModelConfig:
                     + self._mlp_params(d, f)
             else:
                 n += qkv + o + self._mlp_params(d, f)
+        # the cross blocks' attention (the reference leaves their norms and
+        # the VLM blocks' MLPs out of the count)
+        n += len(self.cross_attn_layers()) * (qkv + o)
+        if self.encoder is not None:
+            n += self.encoder.n_layers * (qkv + o + self._mlp_params(d, f))
+            n += self.n_layers * (qkv + o)
         n += v * d
         if not self.tie_embeddings:
             n += v * d
@@ -160,8 +200,9 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        gemma2_9b, granite_moe_3b_a800m, h2o_danube_3_4b, mixtral_8x7b,
-        nemotron_4_15b, qwen3_8b, recurrentgemma_2b, rwkv6_1_6b,
+        gemma2_9b, granite_moe_3b_a800m, h2o_danube_3_4b,
+        llama_3_2_vision_11b, mixtral_8x7b, nemotron_4_15b, qwen3_8b,
+        recurrentgemma_2b, rwkv6_1_6b, seamless_m4t_large_v2,
     )
 
 
@@ -178,6 +219,12 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         # forward then agree exactly
         changes["moe"] = MoEConfig(n_experts=4, top_k=min(cfg.moe.top_k, 2),
                                    d_expert=32, capacity_factor=100.0)
+    if cfg.encoder is not None:
+        changes["encoder"] = EncoderConfig(n_layers=2, n_frames=24)
+    if cfg.vision is not None:
+        # n_layers stays a multiple of cross_attn_every (the reference's
+        # group tower)
+        changes["vision"] = VisionConfig(cross_attn_every=2, n_patches=16)
     if cfg.rwkv is not None:
         changes["rwkv"] = RWKVConfig(head_dim=16, state_ckpt_interval=8)
         changes["n_kv_heads"] = 4

@@ -9,10 +9,13 @@ plane.
     prefill pass (first tokens sampled in it) and runs decode as K-step
     fused horizons over the device-resident batch state, fetching each
     horizon's tokens one horizon late.
-  * slot family (rwkv6, recurrentgemma): dense per-slot caches, no pool
-    and no RTC. Prefill is chunked per sequence on its slot; decode is one
-    all-slot step with sampling in the same pass; prefix reuse restores a
-    state checkpoint taken when an earlier request released its slot.
+  * slot family (rwkv6, recurrentgemma, seamless-m4t enc-dec,
+    llama-3.2-vision): dense per-slot caches, no pool and no RTC. Prefill
+    is chunked per sequence on its slot, with the request's modality
+    inputs (``Request.extra``) refilling the cross cache at every chunk;
+    decode is one all-slot step with sampling in the same pass; prefix
+    reuse restores a state checkpoint taken when an earlier request
+    released its slot.
 
 PD disaggregation, migration, fork, the warm pool, fault injection and
 tensor parallelism arrive with later slices.
@@ -40,6 +43,7 @@ from repro_torch.engine.sampling import SamplingParams, sample_batch
 from repro_torch.engine.scheduler import Scheduler, SchedulerConfig
 from repro_torch.engine.tokenizer import EOS_ID, ByteTokenizer
 from repro_torch.kernels import flash_prefill as FP
+from repro_torch.models import serving as S
 
 _req_ids = itertools.count()
 
@@ -51,6 +55,9 @@ class Request:
     req_id: str = ""
     ctx_id: Optional[str] = None        # explicit context-caching id
     arrival: float = field(default_factory=time.monotonic)
+    # modality stubs, numpy (1, P, D): "vision_embeds" (VLM) or "frames"
+    # (enc-dec); a request without them gets zeros
+    extra: Dict[str, np.ndarray] = field(default_factory=dict)
 
     def __post_init__(self):
         if not self.req_id:
@@ -164,7 +171,11 @@ class FlowServe:
     # ---------------------------------------------------------------- API
     def add_request(self, req: Request) -> str:
         seq = SequenceState(seq_id=req.req_id, tokens=list(req.prompt_tokens),
-                            n_prompt=len(req.prompt_tokens))
+                            n_prompt=len(req.prompt_tokens),
+                            extra=dict(req.extra))
+        if not seq.extra:
+            seq.extra = {k: v.numpy() for k, v in S.extra_inputs(
+                self.cfg, 1, torch.float32, "cpu").items()}
         if not self.family.uses_pages:
             need = seq.n_prompt + req.sampling.max_new_tokens
             if need > self.ecfg.max_len:
@@ -370,7 +381,9 @@ class FlowServe:
         token prefix is a proper prefix of the prompt (exact-boundary
         reuse, DESIGN.md §4). ``n_cached`` is committed now (the scheduler
         plans chunks from it); the snapshot is restored once a slot is
-        assigned."""
+        assigned. The key is the token prefix alone, as in the reference:
+        a cross-attention tower then reuses self-attention K/V computed
+        under another request's modality memory (kept for parity)."""
         best_key, best_len = None, 0
         prompt = tuple(seq.tokens[:seq.n_prompt])
         for key in self._state_cache:

@@ -6,7 +6,7 @@ family last with an always-true predicate (the fallback)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.configs.base import ModelConfig
 
@@ -22,6 +22,9 @@ class SequenceState:
     slot: Optional[int] = None          # SlotRunner slot id
     state: Any = None                   # state-checkpoint key to restore
                                         # when the slot is assigned
+    # modality inputs the model reads (host arrays, (1, P, D)): only what
+    # the runner passes to the model; the host's own keys live apart
+    extra: Dict[str, Any] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)

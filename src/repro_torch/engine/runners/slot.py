@@ -1,6 +1,7 @@
 """Slot runner family of the port (torch counterpart of
-``repro/engine/runners/slot.py``): recurrent and hybrid towers (rwkv6,
-recurrentgemma) batching through fixed per-slot dense caches. Continuous
+``repro/engine/runners/slot.py``): recurrent, hybrid and cross-attention
+towers (rwkv6, recurrentgemma, seamless-m4t enc-dec, llama-3.2-vision)
+batching through fixed per-slot dense caches. Continuous
 batching assigns sequences to free slots; prefix reuse is state-checkpoint
 based (DESIGN.md §4).
 
@@ -9,7 +10,8 @@ based (DESIGN.md §4).
   * ``SlotPrefillRunner.prefill_chunk`` — one sequence's chunk through
     ``serving.prefill``, its length bucketed to a power of two with a
     masked tail (``n_valid``: pad steps are exact identities for the
-    recurrences and causally masked for attention).
+    recurrences and causally masked for attention), with the sequence's
+    modality inputs (uploaded once, reused by every chunk).
   * ``SlotDecodeRunner.decode_sample`` — the all-slot decode step plus
     in-pass sampling; only the (n_slots,) token vector is returned.
 
@@ -49,6 +51,9 @@ class SlotRunner:
         self.device = device
         self.cache = S.init_cache(cfg, n_slots, max_len, dtype, device)
         self.free_slots = list(range(n_slots))
+        # seq_id -> its modality inputs on the device (in the weights'
+        # dtype), uploaded at its first chunk and dropped with its slot
+        self.extra_dev: Dict[str, Dict[str, torch.Tensor]] = {}
         self.prefill = SlotPrefillRunner(self)
         self.decoder = SlotDecodeRunner(self)
 
@@ -64,7 +69,8 @@ class SlotRunner:
         seq.slot = self.free_slots.pop()
         # reset the slot's length AND its recurrent/conv state: stale KV is
         # masked by length, but a recurrent state would leak the previous
-        # occupant into the new sequence
+        # occupant into the new sequence (the cross cache needs no reset:
+        # every prefill chunk refills it)
         self.cache["length"][seq.slot:seq.slot + 1].fill_(0)
         for key in _STATE_KEYS:
             if key in self.cache:
@@ -72,6 +78,7 @@ class SlotRunner:
         return True
 
     def free_slot(self, seq: SequenceState) -> None:
+        self.extra_dev.pop(seq.seq_id, None)
         if seq.slot is not None:
             self.free_slots.append(seq.slot)
             seq.slot = None
@@ -116,10 +123,15 @@ class SlotPrefillRunner:
         cb = pow2_bucket(c)
         toks = np.zeros((1, cb), np.int64)
         toks[0, :c] = chunk_tokens
+        extra = rt.extra_dev.get(seq.seq_id)
+        if extra is None:
+            dt = rt.params["embed"].dtype
+            extra = rt.extra_dev[seq.seq_id] = {
+                k: to_device(v, rt.device, dt) for k, v in seq.extra.items()}
         logits, _ = S.prefill(rt.cfg, rt.params,
                               to_device(toks, rt.device),
                               rt._slot_slice(seq.slot), n_valid=c,
-                              impl=rt.impl)
+                              impl=rt.impl, **extra)
         seq.n_cached += c
         if seq.n_cached >= seq.n_prompt:
             return logits[0]

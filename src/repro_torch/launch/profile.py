@@ -7,6 +7,10 @@
     # an MoE arch: its MoE layers' device time is a group of its own
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch granite-moe-3b-a800m
+    # the cross-attention towers (zero modality inputs, as the launcher's);
+    # seamless's encoder, run again at every prefill chunk, is a group
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch seamless-m4t-large-v2
 
 One colocated TE serves a warm-up batch (untimed: it builds the kernels
 and warms the allocator), then traffic of the same shape under
@@ -27,8 +31,11 @@ For an MoE arch the traced window also records host activity, with every
 ``moe_apply`` call inside a ``moe dispatch`` range, and the kernels
 launched inside those ranges (routing, gather, the experts' batched
 products, scatter-add) are moved from their kernel groups to a group of
-their own. The host tracing adds its own cost to that window's wall time,
-so its idle share and TPOT read higher than the untraced window's.
+their own; for an enc-dec arch the same holds for every ``encode`` call
+(an ``encoder`` range). The host tracing adds its own cost to that
+window's wall time, so its idle share and TPOT read higher than the
+untraced window's. The cross-attention towers' requests carry the
+engine's default (zero) modality inputs.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
 MOE_RANGE = "moe dispatch"
+ENCODER_RANGE = "encoder"
 
 
 def _group(name: str) -> str:
@@ -103,30 +111,45 @@ def timed_window(te, cfg, requests=8, prompt_len=256, max_new=24,
     return out
 
 
+def _range_targets(cfg):
+    """(module, function, range name) of the calls whose kernels form a
+    group of their own for ``cfg``."""
+    out = []
+    if cfg.moe is not None:
+        out.append((M, "moe_apply", MOE_RANGE))
+    if cfg.encoder is not None:
+        out.append((T, "encode", ENCODER_RANGE))
+    return out
+
+
 @contextlib.contextmanager
-def _moe_ranges():
-    """Every ``moe_apply`` call inside a ``MOE_RANGE`` profiler range."""
-    orig = M.moe_apply
+def _ranges(targets):
+    """Every call of each target function inside its profiler range."""
+    origs = [getattr(mod, fn) for mod, fn, _ in targets]
 
-    def ranged(*a, **kw):
-        with torch.profiler.record_function(MOE_RANGE):
-            return orig(*a, **kw)
+    def wrap(orig, name):
+        def ranged(*a, **kw):
+            with torch.profiler.record_function(name):
+                return orig(*a, **kw)
+        return ranged
 
-    M.moe_apply = ranged
+    for (mod, fn, name), orig in zip(targets, origs):
+        setattr(mod, fn, wrap(orig, name))
     try:
         yield
     finally:
-        M.moe_apply = orig
+        for (mod, fn, _), orig in zip(targets, origs):
+            setattr(mod, fn, orig)
 
 
-def _moe_kernels(prof):
-    """(kernel name, us) of every kernel launched inside a ``MOE_RANGE``
-    range, from the host events' tree."""
+def _range_kernels(prof, name):
+    """(kernel name, us) of every kernel launched inside a range called
+    ``name``, from the host events' tree."""
     from torch.autograd import DeviceType
     out = []
 
     def walk(e, inside):
-        inside = inside or e.name == MOE_RANGE
+        inside = inside or e.name == name
         if inside:
             out.extend((k.name, k.duration) for k in e.kernels)
         for c in e.cpu_children:
@@ -148,10 +171,10 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
     _submit(te, cfg, rng, "t", requests, prompt_len, max_new)
     torch.cuda.synchronize()
     steps0, syncs0 = te.steps, te.host_syncs
-    moe = cfg.moe is not None
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
-    with (_moe_ranges() if moe else contextlib.nullcontext()), \
-            profile(activities=acts) as prof:
+    targets = _range_targets(cfg)
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if targets
+                                      else [])
+    with _ranges(targets), profile(activities=acts) as prof:
         t0 = time.monotonic()
         comps = te.run_to_completion()
         torch.cuda.synchronize()
@@ -169,14 +192,14 @@ def profile_window(te, cfg, requests=8, prompt_len=256, max_new=24,
         groups[g] = groups.get(g, 0.0) + us
         launches[g] = launches.get(g, 0) + e.count
         top.append((us, e.count, e.key[:70]))
-    if moe:
-        # the MoE layers' kernels leave their name groups for their own
-        for name, us in _moe_kernels(prof):
+    for _, _, rng in targets:
+        # the ranged calls' kernels leave their name groups for their own
+        for name, us in _range_kernels(prof, rng):
             g = _group(name)
             groups[g] -= us
             launches[g] -= 1
-            groups[MOE_RANGE] = groups.get(MOE_RANGE, 0.0) + us
-            launches[MOE_RANGE] = launches.get(MOE_RANGE, 0) + 1
+            groups[rng] = groups.get(rng, 0.0) + us
+            launches[rng] = launches.get(rng, 0) + 1
     busy = sum(groups.values())
     if busy <= 0:
         raise RuntimeError("the profiler saw no CUDA kernel time")

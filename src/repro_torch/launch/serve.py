@@ -7,6 +7,11 @@
     # the slot family: rwkv6-1.6b or recurrentgemma-2b at full width
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
+    # the cross-attention towers (slot family), with the engine's default
+    # zero modality inputs: seamless-m4t-large-v2, llama-3.2-vision-11b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-11b
+
     # the other paged archs: granite-moe-3b-a800m, gemma2-9b,
     # h2o-danube-3-4b, nemotron-4-15b; mixtral-8x7b (93 GB of bf16
     # weights) fits one 80 GB card only with its depth cut

@@ -1,8 +1,9 @@
 """Weight bridge: the JAX package's ``init_params`` pytree, handed over as
 nested dicts of numpy arrays, becomes the port's parameter dict — the way
 both sides run identical weights with nothing downloaded. The layouts
-already agree (stacked ``blocks``, per-kind lists of the hybrid tower,
-``x @ w`` weights), so the bridge only converts leaves."""
+already agree (stacked ``blocks``, ``enc_blocks`` and ``cross_blocks``,
+per-kind lists of the hybrid tower, ``x @ w`` weights), so the bridge
+only converts leaves."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -14,11 +15,12 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 # leaves that stay fp32 whatever the weight dtype (the reference keeps its
-# norm scales, the MoE router and the recurrences' lerp/decay/bonus/gate
-# constants in fp32)
-_FP32_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "q_norm",
-              "k_norm", "router", "mix_base", "decay_base", "bonus_u", "ln_x",
-              "cm_mix", "lambda_p")
+# norm scales, the MoE router, the recurrences' lerp/decay/bonus/gate
+# constants and the VLM cross blocks' gates in fp32)
+_FP32_KEYS = ("ln", "ln1", "ln2", "ln1_post", "ln2_post", "final_norm",
+              "enc_final_norm", "q_norm", "k_norm", "router", "mix_base",
+              "decay_base", "bonus_u", "ln_x", "cm_mix", "lambda_p",
+              "gate_attn", "gate_mlp")
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype], keep_fp32: bool):
@@ -41,15 +43,21 @@ def params_from_numpy(cfg: ModelConfig, tree: Any, device="cuda",
     dev = resolve_device(device)
     towers = {"rwkv": ("blocks",),
               "hybrid_rglru": ("rglru_blocks", "attn_blocks")}
-    need = towers.get(cfg.attn_kind, ("blocks",))
-    # enc-dec and VLM towers (encoder / cross-attention blocks) are not
-    # ported yet
+    need = list(towers.get(cfg.attn_kind, ("blocks",)))
+    if cfg.vision is not None or cfg.encoder is not None:
+        need.append("cross_blocks")
+    if cfg.encoder is not None:
+        need += ["enc_blocks", "enc_final_norm"]
+    # a tree must carry exactly the towers its config names: a tower the
+    # config lacks would be dropped without a word
+    carried = {"cross_blocks", "enc_blocks", "enc_final_norm"} & set(tree)
     if cfg.attn_kind not in ("global", "swa", "local_global", *towers) \
             or any(k not in tree for k in need) \
-            or any(k in tree for k in ("enc_blocks", "cross_blocks")):
+            or not carried <= set(need):
         raise NotImplementedError(
-            f"bridge covers the dense, MoE, rwkv and hybrid_rglru towers, "
-            f"not {cfg.name!r}")
+            f"bridge covers the towers a config names (dense, MoE, rwkv, "
+            f"hybrid_rglru, enc-dec, VLM); the tree does not match "
+            f"{cfg.name!r}")
 
     def conv(t, keep_fp32=False):
         if isinstance(t, dict):

@@ -1,19 +1,22 @@
 """Serving entry points of the slot family: cache init, prefill and
-decode_step for the rwkv and hybrid-rglru towers (the counterpart of those
-halves of ``repro/models/serving.py``).
+decode_step for the rwkv, hybrid-rglru and cross-attention (enc-dec, VLM)
+towers (the counterpart of those halves of ``repro/models/serving.py``).
 
 Caches are dense per-slot tensors with the reference's layouts:
 ``length`` (B,) int32; rwkv ``state`` (L, B, H, hd, hd) fp32 and
 ``last_tm``/``last_cm`` (L, B, D); hybrid ``h`` (Lr, B, W) fp32, ``conv``
-(Lr, B, cw-1, W) and the local-attention ``k``/``v`` (La, B, Smax, Hkv,
-hd). Where the reference returns a new cache, ``prefill`` and
-``decode_step`` update every tensor of ``cache`` IN PLACE (the slot runner
-hands them views of one slot's rows) and return the same dict.
+(Lr, B, cw-1, W); the attention layers' ``k``/``v`` (La, B, Smax, Hkv,
+hd); the cross blocks' ``cross_k``/``cross_v`` (Lc, B, P, Hkv, hd), P the
+patches or frames. Where the reference returns a new cache, ``prefill``
+and ``decode_step`` update every tensor of ``cache`` IN PLACE (the slot
+runner hands them views of one slot's rows) and return the same dict.
 
 Ported branches: the engine's joint-over-cache chunked prefill
-(``Smax <= 2048``) and the ring-buffer decode. The single-shot long
+(``Smax <= 2048``) and the ring-buffer decode, which is the reference's
+linear-cache decode while a sequence is shorter than Smax (the engine
+refuses a request that would outgrow its slot). The single-shot long
 prefill branch (``Smax > 2048``) has no caller in the engine and is not
-ported: ``init_cache`` refuses a hybrid cache longer than 2048.
+ported: ``init_cache`` refuses an attention cache longer than 2048.
 """
 from __future__ import annotations
 
@@ -34,13 +37,29 @@ def attn_layer_count(cfg: ModelConfig) -> int:
     return sum(1 for k in cfg.layer_kinds() if k.startswith("attn"))
 
 
+def extra_inputs(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                 device) -> Dict[str, torch.Tensor]:
+    """The modality-stub inputs a request carries when it brings none:
+    zero patch embeddings (VLM) or frame embeddings (enc-dec), as
+    ``repro/models/model_factory.py::extra_inputs`` makes them."""
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.vision is not None:
+        out["vision_embeds"] = torch.zeros(
+            (batch, cfg.vision.n_patches, cfg.d_model), dtype=dtype,
+            device=device)
+    if cfg.encoder is not None:
+        out["frames"] = torch.zeros((batch, cfg.encoder.n_frames,
+                                     cfg.d_model), dtype=dtype, device=device)
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype, device) -> Cache:
     """Zeroed dense cache for ``batch`` slots of ``max_len`` tokens."""
-    if cfg.attn_kind not in ("rwkv", "hybrid_rglru"):
+    if cfg.attn_kind not in ("rwkv", "hybrid_rglru", "global"):
         raise NotImplementedError(
-            f"the port's slot caches cover rwkv and hybrid_rglru, not "
-            f"{cfg.attn_kind!r}")
+            f"the port's slot caches cover rwkv, hybrid_rglru and global "
+            f"attention towers, not {cfg.attn_kind!r}")
     cache: Cache = {"length": torch.zeros((batch,), dtype=torch.int32,
                                           device=device)}
     d = cfg.d_model
@@ -57,15 +76,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             f"max_len {max_len} > {JOINT_PREFILL_MAX}: the reference's "
             f"single-shot prefill branch is not ported")
     la = attn_layer_count(cfg)
-    nr = cfg.n_layers - la
-    w, cw = cfg.rglru.lru_width, cfg.rglru.conv1d_width
-    cache["k"] = torch.zeros((la, batch, max_len, cfg.n_kv_heads,
-                              cfg.head_dim), dtype=dtype, device=device)
-    cache["v"] = torch.zeros_like(cache["k"])
-    cache["h"] = torch.zeros((nr, batch, w), dtype=torch.float32,
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    cache["k"] = torch.zeros((la, batch, max_len, hkv, hd), dtype=dtype,
                              device=device)
-    cache["conv"] = torch.zeros((nr, batch, cw - 1, w), dtype=dtype,
-                                device=device)
+    cache["v"] = torch.zeros_like(cache["k"])
+    if cfg.attn_kind == "hybrid_rglru":
+        nr = cfg.n_layers - la
+        w, cw = cfg.rglru.lru_width, cfg.rglru.conv1d_width
+        cache["h"] = torch.zeros((nr, batch, w), dtype=torch.float32,
+                                 device=device)
+        cache["conv"] = torch.zeros((nr, batch, cw - 1, w), dtype=dtype,
+                                    device=device)
+    mem = None
+    if cfg.vision is not None:
+        mem = (len(cfg.cross_attn_layers()), cfg.vision.n_patches)
+    if cfg.encoder is not None:
+        mem = (cfg.n_layers, cfg.encoder.n_frames)
+    if mem is not None:
+        cache["cross_k"] = torch.zeros((mem[0], batch, mem[1], hkv, hd),
+                                       dtype=dtype, device=device)
+        cache["cross_v"] = torch.zeros_like(cache["cross_k"])
     return cache
 
 
@@ -75,8 +105,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache: Cache,
-            n_valid: Optional[int] = None,
-            impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
+            n_valid: Optional[int] = None, impl: str = "auto",
+            vision_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Cache]:
     """Process a prompt chunk starting at cache['length'] (per sequence).
     Returns (last-position logits (B, Vp), cache updated in place).
 
@@ -84,20 +116,39 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache: Cache,
     s chunk positions are real. Pad positions are exact identity steps in
     the recurrences, causally masked in attention (their KV writes land in
     slots a later chunk overwrites or decode masks), and excluded from the
-    length and the logits."""
+    length and the logits.
+
+    A cross-attention tower refills its cross cache from the modality
+    memory at every chunk, as the reference does (``serving.py:113-118``):
+    a VLM from ``vision_embeds`` (its cross cache is kept when they are
+    None), an enc-dec model from ``frames`` run through the whole encoder
+    each time."""
     b, s = tokens.shape
     nv = s if n_valid is None else n_valid
     start = cache["length"]
     positions = start[:, None] + torch.arange(s, dtype=torch.int32,
                                               device=tokens.device)[None, :]
     x = T.embed(cfg, params, tokens)
+    if cfg.vision is not None and vision_embeds is not None:
+        _fill_cross_cache(cfg, params, vision_embeds, cache)
+    if cfg.encoder is not None:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an enc-dec prefill needs frames")
+        _fill_cross_cache(cfg, params, T.encode(cfg, params, frames), cache)
     if cfg.attn_kind == "rwkv":
         for li in range(cfg.n_layers):
             x = _rwkv_layer(cfg, T.layer(params, li), x, cache, li, n_valid,
                             impl)
-    else:
+    elif cfg.attn_kind == "hybrid_rglru":
         x = _rglru_prefill(cfg, params, x, positions, cache, nv, n_valid,
                            impl)
+    else:
+        cross = T.cross_schedule(cfg)
+        for li, win in enumerate(T.window_schedule(cfg)):
+            p = T.layer(params, li)
+            x = _attn_layer_prefill(cfg, p, x, positions, cache["k"][li],
+                                    cache["v"][li], start, nv, win)
+            x = _cross_after(cfg, params, cross.get(li), x, cache)
     cache["length"].add_(nv)
     logits = T.unembed(cfg, params, x[:, nv - 1:nv, :])
     return logits[:, 0, :], cache
@@ -143,6 +194,19 @@ def _expand_like(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         *idx.shape, *x.shape[2:])
 
 
+def _attn_layer_prefill(cfg, p, x, positions, ck, cv, start, nv, win):
+    """One attention block of a chunk: write its K/V into the layer's
+    cache rows, then attend jointly over the cache (the engine path)."""
+    q, k_new, v_new = T.block_qkv(cfg, p, x, positions)
+    _write_kv(ck, cv, k_new, v_new, start, nv)
+    k_pos = _cache_kpos(ck.shape[1], start, x.shape[1])
+    mask = L.causal_mask(positions, k_pos)
+    mask &= k_pos[:, None, :] > (positions[:, :, None] - win)
+    o = L.attention(q, ck.to(q.dtype), cv.to(q.dtype), mask,
+                    cfg.attn_logit_softcap)
+    return T.block_out(cfg, p, x, o)
+
+
 def _rglru_prefill(cfg, params, x, positions, cache, nv, n_valid, impl):
     start = cache["length"]
     win = cfg.window or GLOBAL_WINDOW
@@ -153,19 +217,33 @@ def _rglru_prefill(cfg, params, x, positions, cache, nv, n_valid, impl):
                              False, n_valid, impl)
             ri += 1
             continue
-        p = params["attn_blocks"][ai]
-        ck, cv = cache["k"][ai], cache["v"][ai]
-        q, k_new, v_new = T.block_qkv(cfg, p, x, positions)
-        _write_kv(ck, cv, k_new, v_new, start, nv)
-        # joint continuation over the cache (the engine path)
-        k_pos = _cache_kpos(ck.shape[1], start, x.shape[1])
-        mask = L.causal_mask(positions, k_pos)
-        mask &= k_pos[:, None, :] > (positions[:, :, None] - win)
-        o = L.attention(q, ck.to(q.dtype), cv.to(q.dtype), mask,
-                        cfg.attn_logit_softcap)
-        x = T.block_out(cfg, p, x, o)
+        x = _attn_layer_prefill(cfg, params["attn_blocks"][ai], x, positions,
+                                cache["k"][ai], cache["v"][ai], start, nv,
+                                win)
         ai += 1
     return x
+
+
+def _fill_cross_cache(cfg, params, mem, cache) -> None:
+    """Project the modality memory (B, P, D) through every cross block's
+    K/V weights into the cross cache, in place (``serving.py:282-291``)."""
+    for ci in range(cache["cross_k"].shape[0]):
+        k, v = T.memory_kv(cfg, T.layer(params, ci, "cross_blocks")["attn"],
+                           mem)
+        cache["cross_k"][ci].copy_(k)
+        cache["cross_v"][ci].copy_(v)
+
+
+def _cross_after(cfg, params, block, x, cache):
+    """The cross block ``block`` = (index, gated) of ``T.cross_schedule``
+    that follows a decoder layer (None: no block there), over the cached
+    modality K/V."""
+    if block is None:
+        return x
+    ci, gated = block
+    return T.cross_block_apply(cfg, T.layer(params, ci, "cross_blocks"), x,
+                               cache["cross_k"][ci], cache["cross_v"][ci],
+                               gated)
 
 
 def _rglru_layer(cfg, p, x, cache, ri, decode, n_valid, impl):
@@ -193,7 +271,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: Cache,
         for li in range(cfg.n_layers):
             x = _rwkv_layer(cfg, T.layer(params, li), x, cache, li, None,
                             impl)
-    else:
+    elif cfg.attn_kind == "hybrid_rglru":
         ri = ai = 0
         win = cfg.window or GLOBAL_WINDOW
         for kind in cfg.layer_kinds():
@@ -203,14 +281,20 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: Cache,
                 ri += 1
             else:
                 p = params["attn_blocks"][ai]
-                o = _ring_decode_attention(cfg, p, x, positions,
-                                           cache["k"][ai], cache["v"][ai],
-                                           win, lengths)
-                x = x + o
-                x = x + L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"],
-                                                           cfg.norm),
-                                    cfg.mlp_act)
+                x = T.block_out(cfg, p, x, _ring_decode_attention(
+                    cfg, p, x, positions, cache["k"][ai], cache["v"][ai],
+                    win, lengths))
                 ai += 1
+    else:
+        # the reference's unrolled tower with its cross blocks
+        # (serving.py:387-445)
+        cross = T.cross_schedule(cfg)
+        for li, win in enumerate(T.window_schedule(cfg)):
+            p = T.layer(params, li)
+            x = T.block_out(cfg, p, x, _ring_decode_attention(
+                cfg, p, x, positions, cache["k"][li], cache["v"][li], win,
+                lengths))
+            x = _cross_after(cfg, params, cross.get(li), x, cache)
     lengths.add_(1)
     logits = T.unembed(cfg, params, x)
     return logits[:, 0, :], cache
@@ -218,10 +302,12 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: Cache,
 
 def _ring_decode_attention(cfg, p, x, positions, k_cache, v_cache, win,
                            lengths):
-    """One self-attention block in decode mode over a rotating buffer
-    (``serving.py:352-371``): slot j holds the newest token t = j (mod
-    Smax); the whole buffer is attended and masks do the rest. While a
-    sequence is shorter than Smax this is the plain linear cache."""
+    """One self-attention block's attention in decode mode over a rotating
+    buffer (``serving.py:352-371``): slot j holds the newest token t = j
+    (mod Smax); the whole buffer is attended and masks do the rest. While
+    a sequence is shorter than Smax this is the plain linear cache
+    (``serving.py:373-384``). Returns the heads' output (B, 1, H, hd),
+    before the output projection."""
     b = x.shape[0]
     smax = k_cache.shape[1]
     h = L.apply_norm(x, p["ln1"], cfg.norm)
@@ -238,6 +324,5 @@ def _ring_decode_attention(cfg, p, x, positions, k_cache, v_cache, win,
     k_pos = torch.where(t >= 0, t, torch.full_like(t, GLOBAL_WINDOW + 1))
     mask = L.causal_mask(positions.long(), k_pos)
     mask &= k_pos[:, None, :] > (positions.long()[:, :, None] - win)
-    o = L.attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask,
-                    cfg.attn_logit_softcap)
-    return L.attn_out(p["attn"], o)
+    return L.attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask,
+                       cfg.attn_logit_softcap)

@@ -1,14 +1,15 @@
-"""Transformer towers of the port (the dense, MoE, rwkv and hybrid-rglru
-parts of ``repro/models/transformer.py``): parameter init with the
-reference's distributions, embedding / unembedding, the per-layer window
-schedule, the two halves of an attention block that the runners wrap
-around their attention kernels, the rwkv and rglru blocks, and a
-teacher-forced ``forward`` for the tests.
+"""Transformer towers of the port (``repro/models/transformer.py``):
+parameter init with the reference's distributions, embedding /
+unembedding, the per-layer window schedule, the two halves of an attention
+block that the runners wrap around their attention kernels, the rwkv and
+rglru blocks, the cross-attention blocks and the bidirectional encoder of
+the enc-dec and VLM towers, and a teacher-forced ``forward`` for the tests.
 
 Parameters are a plain dict mirroring the JAX pytree: per-layer tensors
-are stacked on a leading layer axis under ``blocks`` (dense and rwkv
-towers); the hybrid tower keeps per-kind lists ``rglru_blocks`` and
-``attn_blocks``, as the reference does."""
+are stacked on a leading layer axis under ``blocks`` (dense, rwkv, enc-dec
+and VLM towers; also ``enc_blocks`` and ``cross_blocks``); the hybrid
+tower keeps per-kind lists ``rglru_blocks`` and ``attn_blocks``, as the
+reference does."""
 from __future__ import annotations
 
 import math
@@ -30,10 +31,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 device="cuda") -> Dict[str, Any]:
     """Random weights with the reference's distributions
-    (``transformer.py:40-104``), drawn from ``gen`` on ``device`` one layer
+    (``transformer.py:40-125``), drawn from ``gen`` on ``device`` one layer
     at a time, so a full-width model never holds an fp32 copy or a second
-    copy of its stacked layers. Norm scales are fp32 (rmsnorm zeros in the
-    ``(1 + w)`` form; layernorm ones and zero bias)."""
+    copy of its stacked layers. Norm scales and the VLM cross blocks'
+    gates are fp32 (rmsnorm zeros in the ``(1 + w)`` form; layernorm ones
+    and zero bias; gates zero, as the reference inits them)."""
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, params on {dev}")
@@ -72,6 +74,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     else:
         params["blocks"] = _stack_layers(
             cfg.n_layers, lambda: _init_attn_block(cfg, gen, dtype, dev))
+    if cfg.vision is not None:
+        params["cross_blocks"] = _stack_layers(
+            len(cfg.cross_attn_layers()),
+            lambda: _init_attn_block(cfg, gen, dtype, dev, cross=True))
+    if cfg.encoder is not None:
+        params["enc_blocks"] = _stack_layers(
+            cfg.encoder.n_layers,
+            lambda: _init_attn_block(cfg, gen, dtype, dev))
+        params["enc_final_norm"] = _init_norm(cfg, dev)
+        params["cross_blocks"] = _stack_layers(cfg.n_layers, lambda: {
+            "ln": _init_norm(cfg, dev),
+            "attn": _init_attn(cfg, gen, dtype, dev, qk_norm=False)})
     return params
 
 
@@ -96,20 +110,32 @@ def _init_mlp(cfg: ModelConfig, gen, dtype, dev) -> dict:
     return p
 
 
-def _init_attn_block(cfg: ModelConfig, gen, dtype, dev) -> dict:
+def _init_attn(cfg: ModelConfig, gen, dtype, dev, qk_norm: bool) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn = {"wq": _normal(gen, (d, h * hd), 1.0 / math.sqrt(d), dtype, dev),
             "wk": _normal(gen, (d, hkv * hd), 1.0 / math.sqrt(d), dtype, dev),
             "wv": _normal(gen, (d, hkv * hd), 1.0 / math.sqrt(d), dtype, dev),
             "wo": _normal(gen, (h * hd, d), 1.0 / math.sqrt(h * hd), dtype,
                           dev)}
-    if cfg.qk_norm:
+    if qk_norm:
         attn["q_norm"] = torch.zeros((hd,), dtype=torch.float32, device=dev)
         attn["k_norm"] = torch.zeros((hd,), dtype=torch.float32, device=dev)
-    p = {"ln1": _init_norm(cfg, dev), "attn": attn,
-         "ln2": _init_norm(cfg, dev)}
-    if cfg.moe is not None:
-        p["moe"] = M.init_moe(gen, d, cfg.moe, cfg.mlp_act, dtype, dev)
+    return attn
+
+
+def _init_attn_block(cfg: ModelConfig, gen, dtype, dev,
+                     cross: bool = False) -> dict:
+    """A self-attention block, or (``cross``) a VLM's gated cross block:
+    the same layout with fp32 scalar gates and a dense MLP."""
+    p = {"ln1": _init_norm(cfg, dev),
+         "attn": _init_attn(cfg, gen, dtype, dev, cfg.qk_norm)}
+    if cross:
+        p["gate_attn"] = torch.zeros((), dtype=torch.float32, device=dev)
+        p["gate_mlp"] = torch.zeros((), dtype=torch.float32, device=dev)
+    p["ln2"] = _init_norm(cfg, dev)
+    if cfg.moe is not None and not cross:
+        p["moe"] = M.init_moe(gen, cfg.d_model, cfg.moe, cfg.mlp_act, dtype,
+                              dev)
     else:
         p["mlp"] = _init_mlp(cfg, gen, dtype, dev)
     if cfg.post_norms:
@@ -143,12 +169,13 @@ def _stack_layers(n: int, make) -> dict:
     return stacked
 
 
-def layer(params, li: int) -> dict:
-    """Layer ``li``'s view of the stacked ``blocks`` tree (no copy)."""
+def layer(params, li: int, key: str = "blocks") -> dict:
+    """Layer ``li``'s view of the stacked ``params[key]`` tree (no
+    copy)."""
     def pick(t):
         return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[li]
-    return pick(params["blocks"])
+    return pick(params[key])
 
 
 def window_schedule(cfg: ModelConfig) -> List[int]:
@@ -257,11 +284,64 @@ def rglru_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + L.mlp_apply(p["mlp"], h, cfg.mlp_act), h0, conv_state
 
 
+def cross_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      mem_k: torch.Tensor, mem_v: torch.Tensor,
+                      gated: bool) -> torch.Tensor:
+    """Cross-attention block (``transformer.py:222-240``): the queries of
+    ``x`` attend to every position of the modality memory's mem_k/mem_v
+    (B, P, Hkv, hd). A VLM block (``gated``) adds its attention and its
+    MLP through tanh gates; an enc-dec block adds its attention alone."""
+    h = L.apply_norm(x, p["ln1"] if "ln1" in p else p["ln"], cfg.norm)
+    b, s, _ = h.shape
+    q = (h @ p["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    o = L.attn_out(p["attn"], L.attention(q, mem_k.to(q.dtype),
+                                          mem_v.to(q.dtype), None,
+                                          cfg.attn_logit_softcap))
+    if not gated:
+        return x + o
+    x = x + torch.tanh(p["gate_attn"]).to(o.dtype) * o
+    m = L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"], cfg.norm),
+                    cfg.mlp_act)
+    return x + torch.tanh(p["gate_mlp"]).to(m.dtype) * m
+
+
+def memory_kv(cfg: ModelConfig, p_attn: dict, mem: torch.Tensor):
+    """Project the modality memory (B, P, D) into the cross K/V (B, P,
+    Hkv, hd); no rope (``transformer.py:243-248``)."""
+    b, s, _ = mem.shape
+    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+    return (mem @ p_attn["wk"]).reshape(shape), \
+        (mem @ p_attn["wv"]).reshape(shape)
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over precomputed frame embeddings (B, F, D)
+    (``transformer.py:490-519``), with naive attention at every length:
+    the reference's chunked flash form past 2048 frames computes the same
+    softmax in another order."""
+    b, f, _ = frames.shape
+    pos = torch.arange(f, device=frames.device).expand(b, f)
+    x = frames
+    for li in range(cfg.encoder.n_layers):
+        p = layer(params, li, "enc_blocks")
+        q, k, v = block_qkv(cfg, p, x, pos)
+        x = x + L.attn_out(p["attn"], L.attention(q, k, v, None,
+                                                  cfg.attn_logit_softcap))
+        x = x + L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"], cfg.norm),
+                            cfg.mlp_act)
+    return L.apply_norm(x, params["enc_final_norm"], cfg.norm)
+
+
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+            positions: Optional[torch.Tensor] = None,
+            vision_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Teacher-forced logits (B, S, padded_vocab) with naive masked
     attention and zero initial recurrent states — the counterpart of
-    ``T.forward(attn_impl="naive")``. Used by the tests only."""
+    ``T.forward(attn_impl="naive")``. A VLM runs its cross blocks only
+    when given ``vision_embeds`` (as the reference's tower choice does);
+    an enc-dec model needs ``frames``. Used by the tests and the on-card
+    greedy oracle."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -290,6 +370,26 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
                                      positions, cfg.window or GLOBAL_WINDOW)
                 ai += 1
     else:
+        mem, cross = vision_embeds, cross_schedule(cfg)
+        if cfg.encoder is not None:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: an enc-dec model needs frames")
+            mem = encode(cfg, params, frames)
         for li, win in enumerate(window_schedule(cfg)):
             x = attn_block_apply(cfg, layer(params, li), x, positions, win)
+            if li in cross and mem is not None:
+                ci, gated = cross[li]
+                pc = layer(params, ci, "cross_blocks")
+                x = cross_block_apply(cfg, pc, x,
+                                      *memory_kv(cfg, pc["attn"], mem),
+                                      gated)
     return unembed(cfg, params, x)
+
+
+def cross_schedule(cfg: ModelConfig) -> Dict[int, tuple]:
+    """Decoder layer -> (cross block index, gated) for every layer a cross
+    block follows: each of a VLM's cross layers (gated blocks), every
+    layer of an enc-dec model (ungated)."""
+    if cfg.encoder is not None:
+        return {li: (li, False) for li in range(cfg.n_layers)}
+    return {li: (ci, True) for ci, li in enumerate(cfg.cross_attn_layers())}

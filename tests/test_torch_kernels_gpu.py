@@ -5,9 +5,10 @@ family's WKV6 and RG-LRU recurrences on the test_wkv6 / test_rglru sweeps
 with a state carried in and out, the split-K decode at forced split
 counts, the decode at the other paged archs' shapes (G 2-6, hd 120 and
 256, softcap 50 with a window), and the bf16 tensor-core prefill at G =
-1-8 and hd 64-256 (hd 120 padded to 128). Every
-test is marked ``gpu`` and skips without a CUDA card (the kernels have no CPU
-mode). This file imports no JAX, so it runs on a machine that has only
+1-8 and hd 64-256 (hd 120 padded to 128); the hot loop under sync-debug
+"error", the cross-attention towers' prefill chunk and decode included.
+Every test is marked ``gpu`` and skips without a CUDA card (the kernels
+have no CPU mode). This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
@@ -520,6 +521,62 @@ def test_slot_decode_sample_never_syncs(cuda, arch):
                                req_id=f"r{i}", sampling=SamplingParams(
                                    temperature=0.8, max_new_tokens=8,
                                    stop_on_eos=False)))
+    while not te.scheduler.running or te.scheduler.prefilling:
+        te.step()
+    live = list(te.scheduler.running)
+    temps = np.zeros((4,), np.float32)
+    top_ps = np.ones((4,), np.float32)
+    for s in live:
+        temps[s.slot], top_ps[s.slot] = 0.8, 0.9
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = te.runner.decode_sample(live, temps, top_ps, te._gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert toks.shape == (4,) and int(toks.max()) < cfg.vocab_size
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
+def test_cross_attn_prefill_and_decode_never_sync(cuda, arch):
+    """A cross-attention tower's prefill chunk with modality inputs (their
+    upload from pinned memory, the cross-cache refill, the encoder for
+    the enc-dec model), then one ``decode_sample`` over its cross blocks,
+    enqueue with no blocking device call (sync-debug "error")."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.engine import (EngineConfig, FlowServe, Request,
+                                    SamplingParams)
+    from repro_torch.engine.runners import SequenceState
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(get_config(arch))
+    key, p = (("vision_embeds", cfg.vision.n_patches) if cfg.vision
+              else ("frames", cfg.encoder.n_frames))
+    rs = np.random.RandomState(0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    te = FlowServe(cfg, T.init_params(cfg, gen, torch.float32, cuda),
+                   EngineConfig(n_slots=4, max_len=64), device=cuda)
+    prompt = list(range(3, 14))
+    seq = SequenceState(seq_id="x", tokens=prompt, n_prompt=len(prompt),
+                        extra={key: rs.standard_normal(
+                            (1, p, cfg.d_model)).astype(np.float32)})
+    assert te.runner.alloc_slot(seq)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        te.runner.prefill_chunk(seq, prompt[:8])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert seq.n_cached == 8 and int(te.runner.cache["length"][seq.slot]) == 8
+    te.runner.free_slot(seq)
+    for i in range(2):
+        te.add_request(Request(
+            prompt_tokens=list(range(3, 12 + i)), req_id=f"r{i}",
+            sampling=SamplingParams(temperature=0.8, max_new_tokens=8,
+                                    stop_on_eos=False),
+            extra={key: rs.standard_normal(
+                (1, p, cfg.d_model)).astype(np.float32)}))
     while not te.scheduler.running or te.scheduler.prefilling:
         te.step()
     live = list(te.scheduler.running)

@@ -239,13 +239,28 @@ def test_bridge_keeps_tree_and_values(models, arch):
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
                                   "llama-3.2-vision-11b"])
 def test_bridge_refuses_uncovered_towers(arch):
-    """Enc-dec and VLM trees (encoder / cross-attention blocks) are not
-    ported yet: the bridge raises rather than drop those blocks."""
+    """An enc-dec or VLM tree (encoder / cross-attention blocks) handed to
+    a config without those towers: the bridge raises rather than drop the
+    blocks its config does not name."""
     jp = get_model(arch, smoke=True).init_params(jax.random.PRNGKey(0),
                                                  jnp.float32)
     cfg = smoke_config(get_config("qwen3-8b"))      # a global-attention tower
     with pytest.raises(NotImplementedError, match="bridge covers"):
         params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def test_resolve_family_sends_cross_towers_to_slot():
+    """The paged family claims attention-only towers without modality
+    memory, as the reference's predicate does: the enc-dec and VLM configs
+    resolve to the slot runner, the eight others as before."""
+    from repro_torch.configs import list_configs
+    cross = {"seamless-m4t-large-v2", "llama-3.2-vision-11b"}
+    slot = cross | {"rwkv6-1.6b", "recurrentgemma-2b"}
+    assert len(list_configs()) == 10 and cross <= set(list_configs())
+    for name in list_configs():
+        want = "slot" if name in slot else "paged"
+        assert resolve_family(get_config(name)).name == want, name
+        assert resolve_family(smoke_config(get_config(name))).name == want
 
 
 @pytest.mark.parametrize("arch", ARCHS)
