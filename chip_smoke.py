@@ -2,6 +2,7 @@
 """On-card proof that the PyTorch/CUDA port builds, is right and serves.
 
     python3 chip_smoke.py            # needs one CUDA card; a few minutes
+    python3 chip_smoke.py --only pd  # phases 1 and 5 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -59,6 +60,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                 decoder + 2 encoder layers; non-zero gates, seeded
                 modality inputs) are held instead against the greedy
                 oracle of the port's teacher-forced ``forward``.
+  5. PD       — PD disaggregation through the entry points
+                (``FlowServe`` in modes prefill / decode, ``migrate_out``):
+                a prefill TE and a decode TE on one weights dict serve
+                qwen3-8b at full width (8 greedy + 2 sampled) and
+                rwkv6-1.6b (6 + 2), every request completing with valid
+                ids. Launch counts are zeroed before each pair runs and
+                read around each TE's own step: the qwen3 P-TE launches
+                only flash_prefill (36 per pass), its D-TE only
+                paged_attention (36 per iteration), a migration nothing;
+                both rwkv6 TEs launch only WKV6 (24 per dispatch / step).
+                One exported page run equals the D-TE's pool run bit for
+                bit after the import lands, and one migration's device
+                time is taken by CUDA events. Then Algorithm 1 (the
+                launcher's entry points) places 8 qwen3 requests over two
+                colocated TEs and a live PD pair on the card, every one
+                completing; and at 2 fp32 layers the PD pair gives the
+                colocated TE's greedy tokens (both on the kernels; the
+                smallest top-2 logit gap is printed).
 The last lines are the other paged archs' attention rows as JSON
 ({"arch_kernels": [...]}), the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -850,12 +869,12 @@ def modality(cfg, rs):
             for k, v in S.extra_inputs(cfg, 1, torch.float32, "cpu").items()}
 
 
-def _engine_config(cfg, dtype, kernel_impl="auto"):
+def _engine_config(cfg, dtype, kernel_impl="auto", mode="colocated"):
     """One EngineConfig for either family: the paged family reads the page
     fields, the slot family the slot fields."""
     from repro_torch.engine import EngineConfig
-    return EngineConfig(n_pages=2048, page_size=16, n_slots=8, max_len=2048,
-                        max_batch_tokens=512, chunk_size=256,
+    return EngineConfig(mode=mode, n_pages=2048, page_size=16, n_slots=8,
+                        max_len=2048, max_batch_tokens=512, chunk_size=256,
                         max_decode_batch=8, decode_horizon=8, dtype=dtype,
                         seed=0, kernel_impl=kernel_impl)
 
@@ -1191,11 +1210,369 @@ def oracle_parity(cfg, dev, n_layers, n_enc_layers=None):
     _release()
 
 
+# --------------------------------------------------------------------------
+# phase 5: PD disaggregation and Algorithm 1
+# --------------------------------------------------------------------------
+
+# the kernel each TE of a PD pair must launch: the P-TE's per prefill pass
+# (paged) or dispatch (slot), the D-TE's per decode iteration / step
+PD_KERNELS = {"qwen3-8b": ("flash_prefill", "paged_attention"),
+              "rwkv6-1.6b": ("wkv6", "wkv6")}
+
+
+def _pd_pair(cfg, params, dev, dtype, impl="auto", tag="pd"):
+    """A P-TE and a D-TE on one weights dict, linked by DistFlow."""
+    from repro_torch.engine import FlowServe
+    pe, de = (FlowServe(cfg, params, _engine_config(cfg, dtype, impl, mode),
+                        name=f"{tag}-{mode}", device=dev)
+              for mode in ("prefill", "decode"))
+    pe.distflow.link_cluster([de.distflow])
+    return pe, de
+
+
+def _requests(cfg, n_greedy, n_sampled, seed=0, tag="r"):
+    """Prompts of 64-1024 random ids, 32 new tokens; greedy, then sampled
+    (T=0.8, top_p=0.9)."""
+    import numpy as np
+    from repro_torch.engine import Request, SamplingParams
+    rng = np.random.RandomState(seed)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=32,
+                            stop_on_eos=False)
+    sampled = SamplingParams(temperature=0.8, top_p=0.9, max_new_tokens=32,
+                             stop_on_eos=False)
+    return [Request(prompt_tokens=[int(t) for t in rng.randint(
+                3, cfg.vocab_size, int(rng.randint(64, 1025)))],
+                    sampling=greedy if i < n_greedy else sampled,
+                    req_id=f"{tag}{i}")
+            for i in range(n_greedy + n_sampled)]
+
+
+def _check_comps(comps, reqs, cfg):
+    assert len(comps) == len(reqs), f"{len(comps)} of {len(reqs)} completed"
+    for c in comps:
+        assert len(c.tokens) == 32, (c.req_id, len(c.tokens))
+        assert all(0 <= t < cfg.vocab_size for t in c.tokens), c.req_id
+
+
+def serve_pd(cfg, params, dev, n_greedy, n_sampled):
+    """A P-TE and a D-TE of ``cfg`` (full width, bf16, one weights dict)
+    serve ``n_greedy`` + ``n_sampled`` requests through the PD pump: the
+    P-TE steps, every finished prefill migrates over DistFlow (device to
+    device in 4 layer chunks, landed by the D-TE just before its first
+    decode), the D-TE steps. Launch counts are zeroed just before the
+    requests arrive and read around each TE's own step: the P-TE must
+    launch only its prefill kernel, the D-TE only its decode kernel, one
+    per layer per pass / step, and a migration none."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    pe, de = _pd_pair(cfg, params, dev, torch.bfloat16)
+    reqs = _requests(cfg, n_greedy, n_sampled)
+    zero = {k: 0 for k in ops.launch_counts()}
+    per = {"prefill": dict(zero), "migrate": dict(zero),
+           "decode": dict(zero)}
+    ops.reset_launches()                    # this path's run starts here
+    t0 = time.monotonic()
+    for r in reqs:
+        pe.add_request(r)
+    # per pump iteration: (P-TE passes, P step s, migrate s, D step s,
+    # D decode iterations, D tokens)
+    comps, its, migrated = [], [], 0
+    while pe.has_work() or de.has_work():
+        assert de.steps < 2000, "PD serving did not converge"
+        t = [time.monotonic()]
+        marks = [ops.launch_counts()]
+        passes, iters, tok0 = (pe.prefill_dispatches, de.decode_steps,
+                               de.decode_tokens)
+        if pe.has_work():
+            pe.step()
+        t.append(time.monotonic())
+        marks.append(ops.launch_counts())
+        for rid in pe.pop_migratable():
+            migrated += pe._seqs[rid].n_cached
+            pe.migrate_out(rid, de)
+        t.append(time.monotonic())
+        marks.append(ops.launch_counts())
+        if de.has_work():
+            comps += de.step()
+        t.append(time.monotonic())
+        marks.append(ops.launch_counts())
+        for phase, a, b in zip(per, marks, marks[1:]):
+            for k in b:
+                per[phase][k] += b[k] - a[k]
+        its.append((pe.prefill_dispatches - passes,
+                    *(b - a for a, b in zip(t, t[1:])),
+                    de.decode_steps - iters, de.decode_tokens - tok0))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    _check_comps(comps, reqs, cfg)
+    pk, dk = PD_KERNELS[cfg.name]
+    n_kind = sum(k.startswith("rwkv" if pk == "wkv6" else "attn")
+                 for k in cfg.layer_kinds())
+    assert per["prefill"] == {**zero, pk: n_kind * pe.prefill_dispatches}, \
+        (per["prefill"], pe.prefill_dispatches)
+    assert per["decode"] == {**zero, dk: n_kind * de.decode_steps}, \
+        (per["decode"], de.decode_steps)
+    assert per["migrate"] == zero, per["migrate"]
+    assert pe.decode_steps == 0 and de.prefill_dispatches == 0
+    ttft = sorted(c.ttft * 1e3 for c in comps)
+    tpot = [c.tpot * 1e3 for c in comps]
+    gen_tok = sum(len(c.tokens) for c in comps)
+    pf = [i for i in its if i[0]]          # iterations with a prefill pass
+    dec = [i for i in its if not i[0]]
+    out = dict(
+        model=cfg.name, requests=len(comps),
+        prompt_tokens=sum(c.n_prompt for c in comps),
+        generated_tokens=gen_tok, wall_s=wall,
+        prefill_passes=pe.prefill_dispatches,
+        decode_iterations=de.decode_steps,
+        ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
+        tpot_ms_mean=sum(tpot) / len(tpot),
+        output_tok_per_s=gen_tok / wall,
+        decode_tok_per_s=sum(i[5] for i in dec)
+        / max(sum(sum(i[1:4]) for i in dec), 1e-9),
+        # where a pump iteration's host time goes, with and without a
+        # prefill pass: the P-TE's step, the migrations, the D-TE's step
+        # (which waits for the horizon it commits) and its iterations
+        pump_iterations_with_prefill=len(pf),
+        prefill_te_step_ms_mean=1e3 * _mean([i[1] for i in pf]),
+        migrate_ms_mean=1e3 * _mean([i[2] for i in pf]),
+        decode_te_step_ms_mean_with_prefill=1e3 * _mean([i[3] for i in pf]),
+        decode_iterations_per_step_with_prefill=_mean([i[4] for i in pf]),
+        pump_iterations_decode_only=len(dec),
+        decode_te_step_ms_mean_decode_only=1e3 * _mean([i[3] for i in dec]),
+        decode_iterations_per_step_decode_only=_mean([i[4] for i in dec]),
+        migrations=len(pe.distflow.log), migrated_tokens=migrated,
+        kv_bytes_moved=pe.distflow.bytes_moved(),
+        distflow_sim_s=pe.distflow.sim_clock,
+        distflow_sim_s_decode_te=de.distflow.sim_clock,
+        launches_prefill_te=per["prefill"], launches_decode_te=per["decode"],
+        launches_migrations=per["migrate"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        card=card_line())
+    out[f"{pk}_per_prefill_pass"] = (per["prefill"][pk]
+                                     / max(pe.prefill_dispatches, 1))
+    out[f"{dk}_per_decode_iteration"] = (per["decode"][dk]
+                                         / max(de.decode_steps, 1))
+    if pe.pool is not None:
+        out.update(migration_check(cfg, pe, de, dev))
+    log("  pd serving: " + json.dumps(out))
+    del pe, de
+    _release()
+    return out
+
+
+def migration_check(cfg, pe, de, dev):
+    """One more greedy request through the pair's default path, after the
+    timed window: its page run, cloned on the P-TE before ``migrate_out``,
+    equals the D-TE's pool over the migrated tokens bit for bit after the
+    D-TE's step that lands it. Then the device time of one migration of
+    that run (the P-TE's gather, DistFlow's 4 chunks and events, the
+    scatter into pages of the D-TE), by CUDA events."""
+    import torch
+    from repro_torch.engine.distflow import DistFlow
+    (req,) = _requests(cfg, 1, 0, seed=11, tag="m")
+    pe.add_request(req)
+    while pe.has_work():
+        pe.step()
+    (rid,) = pe.pop_migratable()
+    seq = pe._seqs[rid]
+    pages, n = list(seq.pages), seq.n_cached
+    k_exp, v_exp = (t.clone() for t in pe.pool.gather_device(pages))
+    pe.migrate_out(rid, de)
+    dseq = de._seqs[rid]
+    assert dseq.kv_pending is not None
+    for _ in range(2):      # the first step may run the plan made before
+        de.step()           # the arrival; the next lands the run, decodes
+    assert dseq.kv_pending is None
+    run = dseq.pages[:len(pages)]
+
+    def toks(x):                            # (L, NP, P, ...) -> first n
+        return x.reshape(x.shape[0], -1, *x.shape[3:])[:, :n]
+    same = (torch.equal(toks(de.pool.k[:, run]), toks(k_exp))
+            and torch.equal(toks(de.pool.v[:, run]), toks(v_exp)))
+    assert same, "the D-TE's pool run differs from the exported run"
+    de.run_to_completion()
+    dst = de.pool.alloc(len(pages))
+    bench = DistFlow("bench")
+
+    def migrate():
+        k, v = pe.pool.gather_device(pages)
+        h = bench.transfer_sharded({"k": k, "v": v}, de.name, dst_device=dev,
+                                   layer_chunks=4)
+        for i in range(len(h.chunks)):
+            l0, kc, vc = h.wait_chunk(i)
+            de.pool.scatter_run(dst, kc, vc, layer_start=l0)
+    ms = time_ms(migrate, iters=10, warmup=2)
+    de.pool.release(dst)
+    run_bytes = k_exp.nbytes + v_exp.nbytes
+    return dict(check_run_tokens=n, check_run_pages=len(pages),
+                check_run_bit_identical=same,
+                kv_bytes_per_token=run_bytes // (len(pages)
+                                                 * de.pool.page_size),
+                migration_ms=ms, migration_run_bytes=run_bytes,
+                migration_gb_per_s=run_bytes / ms / 1e6,
+                migration_hbm_gb_per_s=4 * run_bytes / ms / 1e6)
+
+
+def pd_parity(cfg, dev, n_layers):
+    """Full width cut to ``n_layers`` layers, fp32, both on the kernels:
+    the PD pair gives the colocated TE's greedy tokens. The smallest top-2
+    logit gap over the generated positions comes from the port's
+    teacher-forced ``forward`` over prompt + tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import FlowServe, Request, SamplingParams
+    from repro_torch.models import transformer as T
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    params = T.init_params(cfg2, gen, torch.float32, dev)
+    rng = np.random.RandomState(5)
+    prompts = [[int(t) for t in rng.randint(3, cfg.vocab_size,
+                                            int(rng.randint(40, 600)))]
+               for _ in range(4)]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=16,
+                        stop_on_eos=False)
+
+    def reqs():
+        return [Request(prompt_tokens=p, sampling=sp, req_id=f"q{i}")
+                for i, p in enumerate(prompts)]
+    te = FlowServe(cfg2, params, _engine_config(cfg2, torch.float32),
+                   device=dev)
+    for r in reqs():
+        te.add_request(r)
+    colo = {c.req_id: c.tokens for c in te.run_to_completion()}
+    del te
+    pe, de = _pd_pair(cfg2, params, dev, torch.float32, tag="par")
+    for r in reqs():
+        pe.add_request(r)
+    pd = {}
+    while pe.has_work() or de.has_work():
+        pe.step()
+        for rid in pe.pop_migratable():
+            pe.migrate_out(rid, de)
+        pd.update({c.req_id: c.tokens for c in de.step()})
+    del pe, de
+    margin = float("inf")
+    for i, p in enumerate(prompts):
+        with torch.no_grad():
+            logits = T.forward(cfg2, params, torch.tensor(
+                [p + pd[f"q{i}"][:-1]], device=dev))
+        top2 = logits[0, len(p) - 1:, :cfg.vocab_size].topk(2, dim=-1).values
+        margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
+        del logits
+    same = len(pd) == len(colo) == 4 and pd == colo
+    log(f"  pd parity {cfg.name} x{n_layers} layers: PD pair "
+        f"{pd['q0'][:8]}... colocated {colo['q0'][:8]}... identical={same} "
+        f"(smallest top-2 logit gap {margin:.3e})")
+    assert same, "the PD pair and the colocated TE give different tokens"
+    del params
+    _release()
+    return margin
+
+
+def scheduled(cfg, params, dev, n_requests=8):
+    """Algorithm 1 through the launcher's entry points: two colocated TEs
+    and one live PD pair of ``cfg`` (full width, bf16, one weights dict)
+    on the card, placed from the PD heatmap of ``cfg`` on one H100's cost
+    model and a predictor trained on ``synth_trace(2000)``; every unit
+    stepped by the launcher's pump until every request completes."""
+    import torch
+    from repro_torch.core import (DecodeLengthPredictor,
+                                  DistributedScheduler, HeatmapStudy,
+                                  PredictorConfig, SchedRequest, TEHandle,
+                                  synth_trace, train_predictor)
+    from repro_torch.launch.serve import build_te, pd_pair, run_units
+    torch.cuda.reset_peak_memory_stats()
+    hs = HeatmapStudy(cfg)
+    pcfg = PredictorConfig()
+    xs, ys, _ = synth_trace(2000, pcfg)
+    pparams, acc = train_predictor(pcfg, xs, ys)
+    bf16 = torch.bfloat16
+    handles = [TEHandle(n, "colocated",
+                        engine=build_te(cfg, params, "colocated", n, dev,
+                                        bf16)) for n in ("te-c0", "te-c1")]
+    handles.append(pd_pair(cfg, params, "te-pd0", dev, bf16))
+    ds = DistributedScheduler(handles, hs.combined(), hs.prefill_lens,
+                              hs.decode_ratios,
+                              predictor=DecodeLengthPredictor(pcfg, pparams))
+    reqs = _requests(cfg, n_requests - 2, 2, seed=3, tag="s")
+    placed = {}
+    t0 = time.monotonic()
+    for r in reqs:
+        sreq = SchedRequest(tokens=r.prompt_tokens)
+        h = ds.dist_sched(sreq)
+        ds.commit(sreq, h)
+        h.engine.add_request(r)
+        placed[r.req_id] = h.te_id
+    comps = run_units(handles)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    _check_comps(comps, reqs, cfg)
+    pair = handles[-1]
+    out = dict(model=cfg.name, requests=len(comps), wall_s=wall,
+               decisions=ds.decisions, placed=placed,
+               to_pd_pair=sum(v == "te-pd0" for v in placed.values()),
+               predictor_accuracy=acc,
+               pd_migrations=len(pair.engine.distflow.log),
+               ttft_ms_max=max(c.ttft for c in comps) * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("  scheduled: " + json.dumps(out))
+    del handles, pair, ds
+    _release()
+    return out
+
+
+def phase5(dev):
+    """PD disaggregation at full width (qwen3-8b on the paged path,
+    rwkv6-1.6b on the slot path), PD-vs-colocated parity at 2 fp32
+    layers, and a short Algorithm-1 run over two colocated TEs and a live
+    PD pair. Returns each kernel's launches on the PD path, per (arch,
+    kernel), both TEs summed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    qwen, rwkv = get_config("qwen3-8b"), get_config("rwkv6-1.6b")
+    launches = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(qwen, gen, torch.bfloat16, dev)
+    log(f"phase 5: PD-disaggregated serving ({qwen.name}, {qwen.n_layers} "
+        f"layers, bf16) [{time.monotonic() - T0:.1f} s]")
+    out = serve_pd(qwen, params, dev, 8, 2)
+    launches["qwen3-8b", "flash_prefill"] = \
+        out["launches_prefill_te"]["flash_prefill"]
+    launches["qwen3-8b", "paged_attention"] = \
+        out["launches_decode_te"]["paged_attention"]
+    log(f"phase 5: Algorithm 1 over 2 colocated TEs + 1 PD pair "
+        f"({qwen.name}, bf16) [{time.monotonic() - T0:.1f} s]")
+    scheduled(qwen, params, dev)
+    del params
+    _release()
+    log(f"phase 5: PD-disaggregated serving ({rwkv.name}, {rwkv.n_layers} "
+        f"layers, bf16) [{time.monotonic() - T0:.1f} s]")
+    gen.manual_seed(0)
+    params = T.init_params(rwkv, gen, torch.bfloat16, dev)
+    out = serve_pd(rwkv, params, dev, 6, 2)
+    launches["rwkv6-1.6b", "wkv6"] = (out["launches_prefill_te"]["wkv6"]
+                                      + out["launches_decode_te"]["wkv6"])
+    del params
+    _release()
+    log(f"phase 5: PD pair vs colocated TE ({qwen.name}, 2 layers, fp32) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    pd_parity(qwen, dev, 2)
+    # recurrentgemma's RG-LRU is not on this slice's PD path
+    launches["recurrentgemma-2b", "rglru"] = None
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["all", "kernels"], default="all",
+    ap.add_argument("--only", choices=["all", "kernels", "pd"],
+                    default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
-                         "new kernel)")
+                         "new kernel); 'pd' runs phases 1 and 5 alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1217,6 +1594,11 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
+
+    if args.only == "pd":
+        phase5(dev)
+        log(card)
+        return 0
 
     log(f"phase 2: kernels vs plain versions [{time.monotonic() - T0:.1f} s]")
     gen = torch.Generator(device=dev)
@@ -1270,6 +1652,10 @@ def main() -> int:
         log(f"phase 4: engine vs teacher-forced greedy oracle ({cfg.name}, "
             f"{n_layers} layers, fp32) [{time.monotonic() - T0:.1f} s]")
         oracle_parity(cfg, dev, n_layers, n_enc)
+
+    pd = phase5(dev)
+    for r in rows:
+        r["launches_pd"] = pd[r["arch"], r["name"]]
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
     log(json.dumps({"arch_kernels": arch}))

@@ -17,8 +17,16 @@ plane.
     reuse restores a state checkpoint taken when an earlier request
     released its slot.
 
-PD disaggregation, migration, fork, the warm pool, fault injection and
-tensor parallelism arrive with later slices.
+Modes (§4.5): "colocated" (chunked prefill and decode in one TE),
+"prefill" (a P-TE: prefill only; a finished prompt waits in
+``pop_migratable`` for ``migrate_out``) and "decode" (a D-TE: decode only,
+over sequences that ``import_request`` admits). A migration moves a
+paged sequence's page run over DistFlow, device to device and in layer
+chunks that the D-TE scatters behind their CUDA events just before the
+sequence's first decode; a slot sequence moves as its slot snapshot.
+
+Fork, the warm pool, fault injection, the executor lock and tensor
+parallelism arrive with later slices.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.engine.distflow import (BufferInfo, DistFlow, TransferFault,
+                                         _nbytes)
 from repro_torch.engine.hotloop import (DecodeHotState, pow2_bucket, pow2s,
                                         to_device)
 from repro_torch.engine.kv_cache import (OutOfPagesError, PagedKVPool,
@@ -81,6 +91,7 @@ class Completion:
 
 @dataclass
 class EngineConfig:
+    mode: str = "colocated"             # colocated | prefill | decode
     n_pages: int = 256                  # paged family: pool pages
     page_size: int = 16
     n_slots: int = 8                    # slot family: slots
@@ -121,6 +132,7 @@ class FlowServe:
         self.name = name
         self.family = resolve_family(cfg)
         self.tokenizer = ByteTokenizer(max(cfg.vocab_size, 259))
+        self.distflow = DistFlow(owner=name)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(ecfg.seed)
 
@@ -144,12 +156,14 @@ class FlowServe:
         scfg = SchedulerConfig(max_batch_tokens=ecfg.max_batch_tokens,
                                max_decode_batch=ecfg.max_decode_batch,
                                chunk_size=ecfg.chunk_size,
-                               max_prefill_seqs=ecfg.max_prefill_seqs)
+                               max_prefill_seqs=ecfg.max_prefill_seqs,
+                               mode=ecfg.mode)
         self.scheduler = Scheduler(scfg, self.rtc)
         self._seqs: Dict[str, SequenceState] = {}
         self._requests: Dict[str, Request] = {}
         self._ttft: Dict[str, float] = {}
         self._next_plan = None
+        self._prefill_done_buffer: List[str] = []  # P-TE: ready to migrate
         self.steps = 0
         self.decode_steps = 0            # decode iterations executed (B-wide)
         self.decode_tokens = 0           # tokens sampled by decode (B x K)
@@ -221,6 +235,7 @@ class FlowServe:
         if plan.decode and not self.family.uses_pages:
             live = self._refilter(plan.decode)
             if live:
+                self._land_imports(live)
                 self._decode_slot(live)
         elif plan.decode:
             live = self._refilter(plan.decode)
@@ -237,6 +252,7 @@ class FlowServe:
                 # freed pages may already belong to another sequence
                 live = [s for s in live if s in self.scheduler.running]
             if not fused and live:
+                self._land_imports(live)
                 logits = self.runner.decode(live)
                 self.decode_steps += 1
                 self.decode_tokens += len(live)
@@ -273,11 +289,13 @@ class FlowServe:
                 continue  # stale plan entry (seq preempted/finished)
             if not chunk:
                 # single-token prompt or fully prefix-cached: prefill is
-                # vacuously done
-                self.scheduler.on_prefill_progress(
-                    seq, seq.n_cached >= len(seq.tokens) - 1)
+                # vacuously done; run the done-transition
+                self._prefill_progress(seq)
                 continue
-            ext = (len(seq.tokens) == seq.n_prompt
+            # a P-TE leaves the last prompt token to the D-TE, whose first
+            # decode step writes its KV and samples the first token
+            ext = (self.ecfg.mode != "prefill"
+                   and len(seq.tokens) == seq.n_prompt
                    and start + len(chunk) == seq.n_prompt - 1)
             todo.append((seq, start, list(chunk), ext))
         if not todo:
@@ -347,8 +365,7 @@ class FlowServe:
         for i, (seq, start, chunk, ext) in enumerate(packed):
             seq.n_cached = start + len(chunk) + (1 if ext else 0)
             if not ext:
-                self.scheduler.on_prefill_progress(
-                    seq, seq.n_cached >= len(seq.tokens) - 1)
+                self._prefill_progress(seq)
                 continue
             self.scheduler.on_prefill_progress(seq, True)
             self._commit_sampled([seq], [int(toks[i])])
@@ -373,8 +390,25 @@ class FlowServe:
             if chunk:
                 self.runner.prefill_chunk(seq, chunk)
                 self.prefill_dispatches += 1
-            self.scheduler.on_prefill_progress(
-                seq, seq.n_cached >= len(seq.tokens) - 1)
+            self._prefill_progress(seq)
+
+    def _prefill_progress(self, seq: SequenceState) -> None:
+        """Queue transition after a chunk without an extension row: done
+        once every token but the last is cached."""
+        done = seq.n_cached >= len(seq.tokens) - 1
+        if done:
+            self._on_prefill_done(seq)
+        self.scheduler.on_prefill_progress(seq, done)
+
+    def _on_prefill_done(self, seq: SequenceState) -> None:
+        """Prefill covered tokens [0, n_prompt - 1); the last prompt token
+        goes through the decode path (its KV write and the first token's
+        logits), here (colocated) or on the D-TE (a P-TE buffers the
+        sequence for migration and stamps its TTFT now)."""
+        if self.ecfg.mode == "prefill":
+            self._prefill_done_buffer.append(seq.seq_id)
+            self._ttft[seq.seq_id] = \
+                time.monotonic() - self._requests[seq.seq_id].arrival
 
     def _try_state_reuse(self, seq: SequenceState) -> None:
         """Slot-family prefix cache: the longest state checkpoint whose
@@ -516,6 +550,7 @@ class FlowServe:
                 self._drain_inflight()
                 live = self._refilter(live)
                 continue
+            self._land_imports(live)
             self.host_dispatches += hot.sync(
                 [(s.seq_id, s.pages, len(s.tokens),
                   s.tokens[-1] if s.tokens else 0,
@@ -655,6 +690,9 @@ class FlowServe:
         if shared:
             self.pool.release(shared, keep_cached=True)
         seq.reused_pages = 0
+        # an import not yet landed is void: its pages were just released,
+        # and the requeued sequence prefills from scratch
+        seq.kv_pending = None
         self.scheduler.requeue(seq)
 
     def release_request(self, req_id: str, keep_prefix: bool = True) -> None:
@@ -684,6 +722,190 @@ class FlowServe:
             if shared:
                 self.pool.release(shared, keep_cached=True)
         self._requests.pop(req_id, None)
+
+    # ---------------------------------------------------------------- PD
+    def _land_imports(self, live: List[SequenceState]) -> None:
+        """Scatter the in-flight imports of the sequences about to decode,
+        enqueued ahead of the step that reads their pages."""
+        for s in live:
+            handle, s.kv_pending = s.kv_pending, None
+            if handle is not None:   # the first decode of a migrated seq
+                self._import_layerwise(handle, s)
+
+    def _import_layerwise(self, handle, seq: SequenceState) -> None:
+        """Scatter each layer chunk behind its own event: the stream waits
+        for chunk i alone before chunk i's scatter, and the host never
+        waits."""
+        for i in range(len(handle.chunks)):
+            self.runner.import_kv({"chunks": [handle.wait_chunk(i)]},
+                                  seq.pages)
+
+    def pop_migratable(self) -> List[str]:
+        """P-TE: request ids whose prefill finished, ready to migrate."""
+        out, self._prefill_done_buffer = self._prefill_done_buffer, []
+        return out
+
+    def migratable_running(self) -> List[str]:
+        """Request ids in the decode set whose state can move now: fully
+        prefilled and not still waiting on an import of their own."""
+        return [s.seq_id for s in self.scheduler.running
+                if s.kv_pending is None]
+
+    def export_kv(self, req_id: str, host_gather: bool = False):
+        """The migration payload of ``req_id``: the KV of its first
+        ``n_cached`` tokens (a P-TE: the prompt but its last token) and
+        what the D-TE needs to carry on. In-flight horizons are committed
+        first, so the run covers every sampled token."""
+        self._drain_inflight()
+        seq = self._seqs[req_id]
+        payload = self.runner.export_kv(seq, host_gather=host_gather) \
+            if self.family.uses_pages else self.runner.export_kv(seq)
+        payload["req_id"] = req_id
+        payload["sampling"] = self.sample_params[req_id]
+        payload["arrival"] = self._requests[req_id].arrival
+        # a mid-decode sequence already produced its first token here
+        payload["ttft"] = self._ttft.get(req_id, 0.0)
+        return payload
+
+    def migrate_out(self, req_id: str, dst: "FlowServe", overlap: bool = True,
+                    layer_chunks: int = 4, host_gather: bool = False,
+                    keep_prefix: bool = True) -> str:
+        """Move a request's KV or slot state to the D-TE ``dst`` over
+        DistFlow and release it here (by-request PD migration, §4.5).
+
+        Paged path: the page run goes device to device in ``layer_chunks``
+        chunks. With ``overlap`` the D-TE keeps stepping and scatters the
+        chunks just before the sequence's first decode; without it they
+        are scattered now. ``host_gather`` takes the v1 host round trip,
+        as the slot family always does (a snapshot is small). On a
+        ``TransferFault`` or ``OutOfPagesError`` the D-TE is left
+        untouched, the sequence is restored here and the error re-raised."""
+        # committing in-flight horizons may finish the candidate
+        self._drain_inflight()
+        if req_id not in self._seqs:
+            return req_id
+        seq = self._seqs[req_id]
+        was_running = seq in self.scheduler.running
+        self.scheduler.remove(seq)
+        payload = self.export_kv(req_id, host_gather=host_gather)
+        try:
+            if not self.family.uses_pages or host_gather:
+                if host_gather and self.family.uses_pages:
+                    # price the host round trip both ways, as the reference
+                    n_kv = _nbytes([payload["k"], payload["v"]])
+                    self.distflow.charge(n_kv, "pcie_dram")
+                self.distflow.transfer(
+                    BufferInfo(owner=self.name, tier="npu", payload=payload),
+                    BufferInfo(owner=dst.name, tier="npu",
+                               deliver=dst.import_request))
+                if host_gather and self.family.uses_pages:
+                    dst.distflow.charge(n_kv, "pcie_dram")
+            else:
+                kv = {"k": payload.pop("k"), "v": payload.pop("v")}
+                payload["kv_handle"] = self.distflow.transfer_sharded(
+                    kv, dst.name, dst_device=dst.pool.run_sharding(),
+                    layer_chunks=layer_chunks)
+                dst.import_request(payload)
+                if not overlap:
+                    dst.finish_pending_imports()
+        except (TransferFault, OutOfPagesError):
+            if was_running and req_id in self._seqs:
+                self.scheduler.admit_running(seq)
+            raise
+        self.release_request(req_id, keep_prefix=keep_prefix)
+        return req_id
+
+    def finish_pending_imports(self) -> None:
+        """D-TE: scatter every import still in flight now (the eager
+        complement of the lazy scatter at the first decode)."""
+        self._land_imports(list(self._seqs.values()))
+
+    def import_request(self, payload) -> str:
+        """D-TE: admit a migrated, prefilled request. Its next decode step
+        processes its last prompt token. A mid-decode arrival keeps the
+        TTFT its source stamped. Pages come through the RTC; when they run
+        out, everything allocated is given back and ``OutOfPagesError``
+        raised before any state is committed (a slot TE raises the same
+        when no slot is free)."""
+        req = Request(prompt_tokens=payload["tokens"][:payload["n_prompt"]],
+                      sampling=payload["sampling"], req_id=payload["req_id"])
+        req.arrival = payload["arrival"]
+        seq = SequenceState(seq_id=req.req_id,
+                            tokens=list(payload["tokens"]),
+                            n_prompt=payload["n_prompt"],
+                            n_cached=payload["n_cached"])
+        if self.family.uses_pages:
+            try:
+                for _ in range(payload["n_pages"]):
+                    seq.pages.append(self.rtc.append_block())
+            except OutOfPagesError:
+                self.pool.release(seq.pages)
+                raise
+        elif not self.runner.alloc_slot(seq):
+            raise OutOfPagesError(
+                f"decode TE {self.name} has no free slot for migrated "
+                f"request {req.req_id}")
+        self._seqs[req.req_id] = seq
+        self._requests[req.req_id] = req
+        self.sample_params[req.req_id] = req.sampling
+        self._sp_cache = (None, None, None)   # same aliasing rule as add
+        self._ttft.pop(req.req_id, None)
+        if (payload.get("ttft", 0.0) > 0.0
+                and len(payload["tokens"]) > payload["n_prompt"]):
+            self._ttft[req.req_id] = payload["ttft"]
+        handle = payload.get("kv_handle")
+        if handle is not None:
+            seq.kv_pending = handle        # scattered at its first decode
+        elif self.family.uses_pages:
+            self.runner.import_kv(payload, seq.pages)
+        else:
+            self.runner.import_kv(payload, seq)
+        self.scheduler.admit_running(seq)
+        return req.req_id
+
+    def load_metrics(self) -> Dict[str, float]:
+        """The TE's live load signals for the JE's ``TEHandle.refresh``:
+
+        * ``queued_prefill_tokens`` — prefill tokens owed to queued
+          sequences;
+        * ``inflight_decode_tokens`` — the remaining ``max_new_tokens`` of
+          every sequence resident here (in-flight horizons counted through
+          ``_pending``; a PD pair's sequence lives in one TE at a time);
+        * ``horizon_headroom`` — the fused horizon the scheduler can prove
+          now (a TE decoding K steps per dispatch serves decode cheaper);
+        * ``n_queued`` / ``n_running`` / ``occupancy`` /
+          ``free_page_frac`` — queue depth and capacity."""
+        sch = self.scheduler
+        decode_toks = 0
+        running_rem = []
+        running = set(id(s) for s in sch.running)
+        for seq in self._seqs.values():
+            sp = self.sample_params.get(seq.seq_id)
+            if sp is None:
+                continue
+            produced = (max(0, len(seq.tokens) - seq.n_prompt)
+                        + self._pending.get(seq.seq_id, 0))
+            rem = max(0, sp.max_new_tokens - produced)
+            decode_toks += rem
+            if id(seq) in running:
+                running_rem.append(rem)
+        headroom = 1
+        if self.family.uses_pages and self.ecfg.fused_decode and running_rem:
+            # the fused path's own proof; its budget term is the batch's
+            # least remaining max_new_tokens
+            headroom = sch.safe_horizon(list(sch.running),
+                                        self.ecfg.decode_horizon,
+                                        max(1, min(running_rem)))
+        return {
+            "queued_prefill_tokens": float(sch.queued_prefill_tokens()),
+            "inflight_decode_tokens": float(decode_toks),
+            "horizon_headroom": float(max(1, headroom)),
+            "n_queued": sch.queue_depth(),
+            "n_running": len(sch.running),
+            "occupancy": sch.occupancy(),
+            "free_page_frac": (self.pool.free_page_count() / self.pool.n_pages
+                               if self.pool is not None else 1.0),
+        }
 
     # ---------------------------------------------------------------- legacy
     def _commit_tokens(self, seqs: List[SequenceState], logits) -> None:

@@ -6,17 +6,20 @@ The device tier is a global page pool: k/v tensors of shape
 writes it IN PLACE (``index_put_``) where the JAX package donates the pool
 to each jit and gets a new one back. The DRAM tier holds swapped-out page
 runs as pinned host tensors (plain host tensors when the pool lives on the
-CPU). The DistFlow/PD page-run paths (``gather_device``, ``scatter_run``,
-``write_run``) arrive with the PD slice.
+CPU). Page runs (``gather``, ``gather_device``, ``scatter_run``) carry a
+sequence's KV between TEs for PD disaggregation: a run has the pool's
+rank, (L, NP_run, P, Hkv, hd), and stays on the device end to end.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.engine.hotloop import to_device
 
 
 class OutOfPagesError(RuntimeError):
@@ -105,6 +108,43 @@ class PagedKVPool:
 
     def reclaimable(self) -> List[int]:
         return [p for p, r in self._refs.items() if r.cached and r.ref_count == 0]
+
+    # ------------------------------------------------------------- runs
+    def _run_index(self, pages: List[int]) -> torch.Tensor:
+        """A page list as a device index, uploaded without draining the
+        stream."""
+        return to_device(np.asarray(pages, np.int64), self.device)
+
+    def gather(self, pages: List[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The page run of ``pages`` copied to host memory (the v1 host
+        round trip of a migration)."""
+        k, v = self.gather_device(pages)
+        return k.cpu(), v.cpu()
+
+    def gather_device(self, pages: List[int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The page run of ``pages`` as new device tensors (L, NP_run, P,
+        Hkv, hd): one ``index_select`` per pool, enqueued on the current
+        stream, so a later write to those pages (their next owner's) runs
+        after the gather has read them."""
+        idx = self._run_index(pages)
+        return self.k.index_select(1, idx), self.v.index_select(1, idx)
+
+    def scatter_run(self, pages: List[int], k_run: torch.Tensor,
+                    v_run: torch.Tensor, layer_start: int = 0) -> None:
+        """Write a page run into ``pages`` in place: layers [layer_start,
+        layer_start + L_run) of the pool (a layer chunk of a migration)."""
+        if not pages:
+            return
+        idx = self._run_index(pages)
+        l1 = layer_start + k_run.shape[0]
+        self.k[layer_start:l1].index_copy_(1, idx, k_run.to(self.k.dtype))
+        self.v[layer_start:l1].index_copy_(1, idx, v_run.to(self.v.dtype))
+
+    def run_sharding(self) -> torch.device:
+        """Where a page run bound for this pool must land: the pool's
+        device (one device per TE, so a run carries no sharding)."""
+        return self.device
 
     # ------------------------------------------------------------- tiers
     def _index(self, pages: List[int]) -> torch.Tensor:

@@ -25,6 +25,10 @@ class SequenceState:
     # modality inputs the model reads (host arrays, (1, P, D)): only what
     # the runner passes to the model; the host's own keys live apart
     extra: Dict[str, Any] = field(default_factory=dict)
+    # a migrated sequence's KV import still in flight (DistFlow's
+    # MigrationHandle), scattered before its first decode step; the
+    # reference keeps it in ``extra["_kv_pending"]``
+    kv_pending: Any = None
 
 
 @dataclass(frozen=True)

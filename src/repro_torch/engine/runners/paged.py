@@ -74,6 +74,37 @@ class PagedRunner:
     def warmup_ragged(self, token_buckets, page_buckets, n_rows: int) -> int:
         return self.prefill.warmup_ragged(token_buckets, page_buckets, n_rows)
 
+    # ------------------------------------------------------------ PD export
+    def export_kv(self, seq: SequenceState, host_gather: bool = False):
+        """The PD migration payload: the sequence's page run and its
+        metadata. By default the run stays on the device (one gather per
+        pool, no host copy) and DistFlow moves it device to device;
+        ``host_gather=True`` keeps the v1 host round trip (host tensors)."""
+        meta = {"tokens": list(seq.tokens), "n_prompt": seq.n_prompt,
+                "n_cached": seq.n_cached, "n_pages": len(seq.pages)}
+        if host_gather:
+            k, v = self.pool.gather(seq.pages)
+            return {"k": k, "v": v, "host_gather": True, **meta}
+        k, v = self.pool.gather_device(seq.pages)
+        return {"k": k, "v": v, **meta}
+
+    def import_kv(self, payload, pages: List[int]) -> None:
+        """Install a migrated page run in place: a whole run (``k``/``v``,
+        device or host) or the layer chunks of a ``MigrationHandle``
+        (``{"chunks": [(layer_start, k, v), ...]}``)."""
+        chunks = payload.get("chunks")
+        if chunks is None:
+            chunks = [(0, payload["k"], payload["v"])]
+        # the run covers the pages allocated at import time; a lazy import
+        # may land after _ensure_pages appended the next decode page
+        pages = pages[:chunks[0][1].shape[1]]
+        dev = self.pool.run_sharding()
+        for l0, k_run, v_run in chunks:
+            # a no-op for a run DistFlow already put on this device; a
+            # host run (v1) is uploaded here
+            self.pool.scatter_run(pages, k_run.to(dev), v_run.to(dev),
+                                  layer_start=l0)
+
 
 # ===========================================================================
 # Prefill phase

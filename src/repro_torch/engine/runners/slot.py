@@ -102,6 +102,17 @@ class SlotRunner:
             v.copy_(snap[k])
         seq.n_cached = int(snap["length"][0])
 
+    # PD migration: the slot snapshot is the whole payload (the v1 path)
+    def export_kv(self, seq: SequenceState):
+        return {"state": self.snapshot_state(seq), "tokens": list(seq.tokens),
+                "n_prompt": seq.n_prompt, "n_cached": seq.n_cached}
+
+    def import_kv(self, payload, seq: SequenceState) -> None:
+        """Restore a migrated slot snapshot into ``seq``'s slot. Reading
+        its length back is a host sync: this runs at admission, off the
+        decode step."""
+        self.restore_state(seq, payload["state"])
+
 
 # ===========================================================================
 # Prefill phase

@@ -1,7 +1,11 @@
 """FLOWSERVE's centralized master scheduler (§4.2) — the port's own copy
-of ``repro/engine/scheduler.py``, trimmed to the colocated path. The slot
-family runs it without an RTC (``rtc=None``): requests go straight to the
-ready queue, and prefix reuse is the engine's state checkpoints.
+of ``repro/engine/scheduler.py``. The slot family runs it without an RTC
+(``rtc=None``): requests go straight to the ready queue, and prefix reuse
+is the engine's state checkpoints. ``SchedulerConfig.mode`` serves the
+three TE kinds of §4.5: a colocated TE plans prefill and decode, a
+prefill TE (PD-disaggregated) plans only prefill and hands finished
+sequences to its engine, a decode TE plans only decode over sequences
+admitted by ``admit_running``.
 
 Continuous batching with chunked prefill (Sarathi-style token budget per
 step), preemption under page pressure, and the paper's two asynchrony
@@ -39,6 +43,7 @@ class SchedulerConfig:
     max_decode_batch: int = 8
     chunk_size: int = 16                # prefill chunk granularity
     max_prefill_seqs: int = 8           # concurrent mid-prefill sequences
+    mode: str = "colocated"             # colocated | prefill | decode
 
 
 class Scheduler:
@@ -113,8 +118,12 @@ class Scheduler:
         budget goes to prefill chunks."""
         t0 = time.monotonic()
         plan = StepPlan()
-        plan.decode = list(self.running[: self.cfg.max_decode_batch])
+        if self.cfg.mode != "prefill":
+            plan.decode = list(self.running[: self.cfg.max_decode_batch])
         budget = self.cfg.max_batch_tokens - len(plan.decode)
+        if self.cfg.mode == "decode":
+            self.sched_time += time.monotonic() - t0
+            return plan
         # continue in-flight prefills first, then admit from ready
         candidates = list(self.prefilling)
         while self.ready and len(candidates) < self.cfg.max_prefill_seqs:
@@ -165,15 +174,64 @@ class Scheduler:
             return 1
         return min(k_target, budget)
 
+    # ------------------------------------------------------------ metrics
+    def queued_seqs(self) -> List[SequenceState]:
+        """Every sequence admitted but not yet fully prefilled."""
+        return (list(self.waiting) + list(self.ready)
+                + [s for s, _ in self.prefetching] + list(self.prefilling))
+
+    def queued_prefill_tokens(self) -> int:
+        """Prefill tokens still owed to queued sequences (the prefill half
+        of the JE's live load signal)."""
+        return sum(max(0, len(s.tokens) - 1 - s.n_cached)
+                   for s in self.queued_seqs())
+
+    def queue_depth(self) -> int:
+        return (len(self.waiting) + len(self.ready) + len(self.prefetching)
+                + len(self.prefilling))
+
+    def occupancy(self) -> float:
+        """Fraction of the decode batch in use (0 idle, >= 1 saturated:
+        running may exceed the per-step batch; plans slice it)."""
+        return len(self.running) / max(1, self.cfg.max_decode_batch)
+
+    # ------------------------------------------------------------ commits
+    def admit_running(self, seq: SequenceState) -> None:
+        """Decode-TE admission of a migrated sequence: it arrives fully
+        prefilled (its KV may still be in flight) and joins the decode set
+        directly, past the prefill queues."""
+        self.running.append(seq)
+
     def on_prefill_progress(self, seq: SequenceState, done: bool) -> None:
         if done:
             if seq in self.prefilling:
                 self.prefilling.remove(seq)
+            if self.cfg.mode == "prefill":
+                return  # the engine hands the seq to a decode TE
             self.running.append(seq)
 
     def on_finished(self, seq: SequenceState) -> None:
         if seq in self.running:
             self.running.remove(seq)
+
+    def remove(self, seq: SequenceState) -> None:
+        """Forget a sequence that leaves this engine without finishing
+        here (a migration): a zombie left in a queue would keep
+        ``has_work`` true forever."""
+        if seq in self.running:
+            self.running.remove(seq)
+        if seq in self.prefilling:
+            self.prefilling.remove(seq)
+        try:
+            self.ready.remove(seq)
+        except ValueError:
+            pass
+        try:
+            self.waiting.remove(seq)
+        except ValueError:
+            pass
+        self.prefetching = [(s, t) for s, t in self.prefetching
+                            if s is not seq]
 
     def requeue(self, seq: SequenceState) -> None:
         if seq in self.running:

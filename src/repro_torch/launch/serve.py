@@ -1,8 +1,26 @@
-"""Serving launcher of the port: one colocated FLOWSERVE TE on one device.
+"""Serving launcher of the port: FLOWSERVE TEs on one device, in one of
+three modes.
+
+  * ``colocated`` — one TE runs prefill and decode.
+  * ``pd``        — a prefill TE hands each prefilled request to a decode
+                    TE over DistFlow (PD disaggregation, §4.5): the pump
+                    steps the P-TE, migrates what it finished, steps the
+                    D-TE.
+  * ``scheduled`` — Algorithm 1 (§5) places each request on one of two
+                    colocated TEs or a live PD pair, from the PD heatmap
+                    of the full config on one H100's cost model and a
+                    decode-length predictor trained on a synthetic trace;
+                    every unit is then stepped by the same pump.
+
+Every TE of a run shares one weights dict.
 
     # full-width qwen3-8b, random bf16 weights, on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --requests 8 --max-new 32
+
+    # PD-disaggregated, and Algorithm 1 over 2 colocated TEs + 1 PD pair
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode pd
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode scheduled
 
     # the slot family: rwkv6-1.6b or recurrentgemma-2b at full width
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
@@ -20,27 +38,98 @@
 
     # a smoke config on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
-        --smoke --device cpu --requests 4 --max-new 8
+        --smoke --device cpu --requests 4 --max-new 8 --mode pd
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import List
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, list_configs, smoke_config
-from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
+from repro_torch.core import (DecodeLengthPredictor, DistributedScheduler,
+                              HeatmapStudy, PredictorConfig, SchedRequest,
+                              TEHandle, synth_trace, train_predictor)
+from repro_torch.engine import (Completion, EngineConfig, FlowServe, Request,
+                                SamplingParams)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+
+
+def build_te(cfg, params, mode: str, name: str, device, dtype,
+             smoke: bool = False, seed: int = 0) -> FlowServe:
+    ecfg = EngineConfig(mode=mode, n_pages=2048 if not smoke else 256,
+                        page_size=16, n_slots=8, max_len=2048,
+                        max_batch_tokens=512, chunk_size=256,
+                        max_decode_batch=8, decode_horizon=8, dtype=dtype,
+                        seed=seed)
+    return FlowServe(cfg, params, ecfg, name=name, device=device)
+
+
+def step_unit(handle: TEHandle) -> List[Completion]:
+    """One step of a placement unit. A PD pair pumps its hand-off: its
+    prefill members step, each finished prefill migrates to the
+    least-loaded decode member, its decode members step. A colocated TE
+    steps."""
+    out: List[Completion] = []
+    if handle.te_type != "pd_pair":
+        if handle.engine.has_work():
+            out.extend(handle.engine.step())
+        return out
+    for pe in handle.prefill_members():
+        if pe.has_work():
+            pe.step()
+        for rid in pe.pop_migratable():
+            pe.migrate_out(rid, handle.pick_decode_member())
+    for de in handle.decode_members():
+        if de.has_work():
+            out.extend(de.step())
+    return out
+
+
+def run_units(handles: List[TEHandle], max_steps: int = 100000
+              ) -> List[Completion]:
+    """Step every unit in turn until no engine has work left."""
+    out: List[Completion] = []
+    for _ in range(max_steps):
+        if not any(e.has_work() for h in handles
+                   for e in (*h.prefill_members(), *h.decode_members())):
+            return out
+        for h in handles:
+            out.extend(step_unit(h))
+    raise RuntimeError(f"serving did not finish in {max_steps} steps")
+
+
+def pd_pair(cfg, params, name: str, device, dtype, smoke: bool = False,
+            seed: int = 0) -> TEHandle:
+    """A live PD pair: a P-TE and a D-TE linked by DistFlow."""
+    pe = build_te(cfg, params, "prefill", f"{name}-p", device, dtype, smoke,
+                  seed)
+    de = build_te(cfg, params, "decode", f"{name}-d", device, dtype, smoke,
+                  seed)
+    pe.distflow.link_cluster([de.distflow])
+    return TEHandle(name, "pd_pair", engine=pe, decode_engine=de)
+
+
+def _report(comps: List[Completion], wall: float) -> None:
+    n_tok = sum(len(c.tokens) for c in comps)
+    for c in sorted(comps, key=lambda c: c.req_id):
+        print(f"{c.req_id}: prompt {c.n_prompt} -> {len(c.tokens)} tokens, "
+              f"ttft {c.ttft * 1e3:.1f} ms, tpot {c.tpot * 1e3:.2f} ms")
+    print(f"{len(comps)} requests, {n_tok} tokens in {wall:.2f} s; kernel "
+          f"launches {ops.launch_counts()}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b", choices=list_configs())
+    ap.add_argument("--mode", default="colocated",
+                    choices=["colocated", "pd", "scheduled"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--smoke", action="store_true",
@@ -52,9 +141,8 @@ def main() -> None:
     args = ap.parse_args()
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = smoke_config(cfg)
+    full = get_config(args.arch)
+    cfg = smoke_config(full) if args.smoke else full
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
@@ -62,37 +150,73 @@ def main() -> None:
     gen.manual_seed(args.seed)
     t0 = time.monotonic()
     params = T.init_params(cfg, gen, dtype, dev)
-    ecfg = EngineConfig(n_pages=2048 if not args.smoke else 256,
-                        page_size=16, n_slots=8, max_len=2048,
-                        max_batch_tokens=512, chunk_size=256,
-                        max_decode_batch=8, decode_horizon=8, dtype=dtype,
-                        seed=args.seed)
-    te = FlowServe(cfg, params, ecfg, device=dev)
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{dtype}, on {dev} (init {time.monotonic() - t0:.2f} s)")
+          f"{dtype}, on {dev}, mode {args.mode} "
+          f"(init {time.monotonic() - t0:.2f} s)")
 
-    rng = np.random.RandomState(args.seed)
-    sp = SamplingParams(temperature=0.0, max_new_tokens=args.max_new,
-                        stop_on_eos=False)
-    for i in range(args.requests):
-        n = int(rng.randint(16, 257))
-        te.add_request(Request(
-            prompt_tokens=[int(t) for t in rng.randint(3, cfg.vocab_size, n)],
-            sampling=sp, req_id=f"r{i}"))
+    def requests() -> List[Request]:
+        """The run's requests, made (and so timed from) once every TE is
+        up."""
+        rng = np.random.RandomState(args.seed)
+        sp = SamplingParams(temperature=0.0, max_new_tokens=args.max_new,
+                            stop_on_eos=False)
+        return [Request(prompt_tokens=[int(t) for t in rng.randint(
+                    3, cfg.vocab_size, int(rng.randint(16, 257)))],
+                        sampling=sp, req_id=f"r{i}")
+                for i in range(args.requests)]
+
+    def te(mode, name):
+        return build_te(cfg, params, mode, name, dev, dtype, args.smoke,
+                        args.seed)
+
+    if args.mode == "colocated":
+        handles = [TEHandle("te-0", "colocated", engine=te("colocated",
+                                                            "te-0"))]
+        for r in requests():
+            handles[0].engine.add_request(r)
+    elif args.mode == "pd":
+        handles = [pd_pair(cfg, params, "te-pd0", dev, dtype, args.smoke,
+                           args.seed)]
+        for r in requests():
+            handles[0].engine.add_request(r)
+    else:
+        # the heatmap of the full config on one H100's cost model, the
+        # predictor trained on a synthetic trace (both on the host)
+        hs = HeatmapStudy(full)
+        pcfg = PredictorConfig()
+        xs, ys, _ = synth_trace(2000, pcfg)
+        pparams, acc = train_predictor(pcfg, xs, ys)
+        handles = [TEHandle("te-c0", "colocated",
+                            engine=te("colocated", "te-c0")),
+                   TEHandle("te-c1", "colocated",
+                            engine=te("colocated", "te-c1")),
+                   pd_pair(cfg, params, "te-pd0", dev, dtype, args.smoke,
+                           args.seed)]
+        ds = DistributedScheduler(handles, hs.combined(), hs.prefill_lens,
+                                  hs.decode_ratios,
+                                  predictor=DecodeLengthPredictor(pcfg,
+                                                                  pparams))
+        for r in requests():
+            sreq = SchedRequest(tokens=r.prompt_tokens)
+            h = ds.dist_sched(sreq)
+            ds.commit(sreq, h)
+            h.engine.add_request(r)
+            print(f"{r.req_id} ({len(r.prompt_tokens)} tokens) -> {h.te_id}")
+        print(f"predictor held-out accuracy {acc:.3f}; "
+              f"decisions {ds.decisions}")
+
     ops.reset_launches()
     t0 = time.monotonic()
-    comps = te.run_to_completion()
+    comps = run_units(handles)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    wall = time.monotonic() - t0
-    n_tok = sum(len(c.tokens) for c in comps)
-    for c in sorted(comps, key=lambda c: c.req_id):
-        print(f"{c.req_id}: prompt {c.n_prompt} -> {len(c.tokens)} tokens, "
-              f"ttft {c.ttft * 1e3:.1f} ms, tpot {c.tpot * 1e3:.2f} ms")
-    print(f"{len(comps)} requests, {n_tok} tokens in {wall:.2f} s; "
-          f"steps {te.steps}, prefill passes {te.prefill_dispatches}, "
-          f"decode iterations {te.decode_steps}; kernel launches "
-          f"{ops.launch_counts()}")
+    _report(comps, time.monotonic() - t0)
+    for h in handles:
+        if h.te_type == "pd_pair":
+            df = h.engine.distflow
+            print(f"{h.te_id}: {len(df.log)} migrations, KV moved "
+                  f"{df.bytes_moved() / 1e6:.2f} MB, DistFlow simulated "
+                  f"{df.sim_clock * 1e3:.3f} ms")
 
 
 if __name__ == "__main__":

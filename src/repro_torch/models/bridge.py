@@ -68,3 +68,11 @@ def params_from_numpy(cfg: ModelConfig, tree: Any, device="cuda",
         return _leaf(t, dev, dtype, keep_fp32)
 
     return conv(tree)
+
+
+def predictor_params_from_numpy(tree) -> dict:
+    """The JAX decode-length predictor's weights (a dict of numpy arrays)
+    as the port's predictor parameters: fp32 host tensors, the predictor
+    running on the host."""
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in tree.items()}

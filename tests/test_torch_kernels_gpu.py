@@ -591,3 +591,102 @@ def test_cross_attn_prefill_and_decode_never_sync(cuda, arch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert toks.shape == (4,) and int(toks.max()) < cfg.vocab_size
+
+
+# ---------------------------------------------------------------------------
+# PD migration on the card: device to device, no host sync on the D-TE
+# ---------------------------------------------------------------------------
+
+def _pd_pair(cuda):
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.engine import EngineConfig, FlowServe
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(get_config("qwen3-8b"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = T.init_params(cfg, gen, torch.float32, cuda)
+    pe, de = (FlowServe(cfg, params, EngineConfig(mode=m, n_pages=64,
+                                                  page_size=16),
+                        name=m, device=cuda) for m in ("prefill", "decode"))
+    pe.distflow.link_cluster([de.distflow])
+    return pe, de
+
+
+def _pd_prefill(pe, rid, prompt, max_new=24):
+    from repro_torch.engine import Request, SamplingParams
+    pe.add_request(Request(prompt_tokens=prompt, req_id=rid,
+                           sampling=SamplingParams(
+                               temperature=0.0, max_new_tokens=max_new,
+                               stop_on_eos=False)))
+    while pe.has_work():
+        pe.step()
+    assert pe.pop_migratable() == [rid]
+
+
+@pytest.mark.gpu
+def test_pd_migrate_and_decode_with_pending_import_never_sync(cuda):
+    """With a decode horizon in flight on the D-TE, ``migrate_out`` of a
+    prefilled paged sequence (the P-TE's gather, DistFlow's layer chunks
+    and events, the D-TE's admission) and then the D-TE's ``step()``s up
+    to the one that scatters the pending 2-chunk import behind its events
+    before the horizon that reads it, make no blocking device call
+    (sync-debug "error"). The stream is synchronized before each, as in
+    ``test_steady_decode_step_never_syncs``. Every request then completes
+    with valid ids."""
+    pe, de = _pd_pair(cuda)
+    _pd_prefill(pe, "warm", list(range(3, 30)), max_new=4)  # builds kernels
+    pe.migrate_out("warm", de)
+    de.run_to_completion()
+    _pd_prefill(pe, "a", list(range(3, 40)))
+    pe.migrate_out("a", de)
+    while not de._inflight:
+        de.step()
+    _pd_prefill(pe, "b", list(range(5, 33)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pe.migrate_out("b", de, layer_chunks=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    handle = de._seqs["b"].kv_pending
+    assert handle is not None and len(handle.chunks) == 2
+    assert all(ev is not None for ev in handle.events)
+    steps = de.decode_steps
+    # the first step may run the plan made before "b" arrived (the engine
+    # plans each step while the device runs the previous one); the next
+    # lands the import and decodes it
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            de.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if de._seqs["b"].kv_pending is None:
+            break
+    assert de._seqs["b"].kv_pending is None and handle.xfer.done
+    assert de.decode_steps > steps
+    comps = {c.req_id: c.tokens for c in de.run_to_completion()}
+    assert sorted(comps) == ["a", "b"]
+    vocab = pe.cfg.vocab_size
+    assert all(len(t) == 24 and all(0 <= x < vocab for x in t)
+               for t in comps.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer_chunks", [1, 3])
+def test_pd_pool_run_bit_identical_after_import(cuda, layer_chunks):
+    """The run the D-TE's pool holds after the import equals the run the
+    P-TE exported, bit for bit, though the P-TE has written another prompt
+    into the released pages before the D-TE scattered it."""
+    pe, de = _pd_pair(cuda)
+    _pd_prefill(pe, "a", list(range(3, 60)))
+    pages = list(pe._seqs["a"].pages)
+    k_exp, v_exp = (t.clone() for t in pe.pool.gather_device(pages))
+    pe.migrate_out("a", de, layer_chunks=layer_chunks, keep_prefix=False)
+    _pd_prefill(pe, "b", list(range(100, 156)))
+    assert set(pe._seqs["b"].pages) == set(pages)
+    de.finish_pending_imports()
+    run = de._seqs["a"].pages[:len(pages)]
+    assert torch.equal(de.pool.k[:, run], k_exp)
+    assert torch.equal(de.pool.v[:, run], v_exp)
+    assert not torch.equal(pe.pool.k[:, pages], k_exp)
