@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port builds, is right and serves.
 
-    python3 chip_smoke.py            # needs one CUDA card; a few minutes
-    python3 chip_smoke.py --only pd  # phases 1 and 5 alone
+    python3 chip_smoke.py               # needs one CUDA card; a few minutes
+    python3 chip_smoke.py --only pd     # phases 1 and 5 alone
+    python3 chip_smoke.py --only fleet  # phases 1 and 6 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -78,6 +79,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                 completing; and at 2 fp32 layers the PD pair gives the
                 colocated TE's greedy tokens (both on the kernels; the
                 smallest top-2 logit gap is printed).
+  6. fleet    — the fleet control plane through ``ServingJobEngine``
+                (each fleet sized from ``mem_get_info`` first): qwen3-8b
+                ``pd=1,colo=1`` (full width, bf16, one weights tree)
+                serves the phase-3 requests under Algorithm 1 and
+                round-robin, each TE launching only its kernels (read on
+                its own stepping thread; the P-TE's migrations counted),
+                then three executor threads
+                against serial stepping in turns, two runs a side; the
+                cold-start ladder: ``scale_to(3)`` by two forks (device
+                time by CUDA events, weights bit-equal in new storage),
+                both forks drained and released (the first into the
+                warm pool: pin, D2H), ``scale_to(3)`` again by a fork and
+                a warm upload, a warm upload alone (H2D), a cold start
+                from zero; a seeded kill of one of three TEs (12
+                requests, FaultPlan seed 7 at step 3: all complete once,
+                the victim's pool returned within 64 MiB, repaired by
+                ``scale_to(3)``) and a drain under load (decodes migrate,
+                queued prefills restart, the pool returned); the
+                rwkv6-1.6b fork tree 1 -> 8 in rounds of 1, 2 and 4, a
+                request served on each TE; then at 2 fp32 layers the
+                threaded plane gives the serial plane's tokens and
+                decisions, the killed and drained runs the undisturbed
+                runs' tokens up to near-ties (a top-2 gap below 1e-4,
+                both runs greedy against the teacher-forced forward, at
+                most one near-tie taken in a run). Every plane checks
+                that no unit failed (the plane quarantines a unit that
+                raises, so only its scale events would show it) but the
+                planned victim, and that its TEs are the ones expected.
 The last lines are the other paged archs' attention rows as JSON
 ({"arch_kernels": [...]}), the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -1567,12 +1596,635 @@ def phase5(dev):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 6: the fleet control plane
+# --------------------------------------------------------------------------
+
+# short prompts (nearer 128 tokens) to the PD pair, long ones (nearer 768)
+# to the colocated TE: both units busy under Algorithm 1
+MIXED_HEAT = ([[1.0, 1.0], [-1.0, -1.0]], [128, 768], [0.05, 0.5])
+MiB = 2 ** 20
+PD_COLO = ["te-pd0-p", "te-pd0-d", "te-colo0"]    # pd=1,colo=1's TEs
+
+
+def _pool_bytes(cfg, dtype_size):
+    """One paged TE's KV pool (K and V) at ``_engine_config``'s shape."""
+    return 2 * cfg.n_layers * 2048 * 16 * cfg.n_kv_heads * cfg.head_dim \
+        * dtype_size
+
+
+def _fits(need, what):
+    """Size a fleet from the card's free memory before bring-up: ``need``
+    is what it will allocate beyond what is resident now."""
+    import torch
+    _release()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  {what}: needs ~{need / 2**30:.1f} GiB; {free / 2**30:.1f} of "
+        f"{total / 2**30:.1f} GiB free")
+    assert need <= free, f"{what} does not fit the card"
+
+
+def _heat(cfg, mixed=False):
+    """The plane's heatmap: the full config's on one H100's cost model
+    (every qwen3-8b cell is positive: all to the PD pair), or the mixed
+    one that splits short and long prompts."""
+    from repro_torch.core import HeatmapStudy
+    if mixed:
+        import numpy as np
+        return np.asarray(MIXED_HEAT[0]), MIXED_HEAT[1], MIXED_HEAT[2]
+    hs = HeatmapStudy(cfg)
+    return hs.combined(), hs.prefill_lens, hs.decode_ratios
+
+
+def _plane(cfg, params, dev, topo, dtype, heat, **kw):
+    from repro_torch.core import ServingJobEngine, TopologySpec
+    je = ServingJobEngine(cfg, params, TopologySpec.parse(topo),
+                          heatmap=heat[0], prefill_lens=heat[1],
+                          decode_ratios=heat[2],
+                          ecfg=_engine_config(cfg, dtype), device=dev, **kw)
+    import torch
+    torch.cuda.synchronize()
+    return je
+
+
+def _check_plane(je, names, victim=None, plans=()):
+    """No unit of ``je`` failed, and no bring-up of ``plans``: the plane
+    quarantines a unit that raises (a kernel that fails on the card
+    included) and restarts its requests on the units left, so the error
+    shows only in its scale events. With ``victim``, exactly that unit
+    failed, once, by the injected crash. The plane's engines are
+    ``names``."""
+    fails = [(e["te_id"], e["error"]) for e in je.scale_events
+             if e["kind"] == "te_failure"]
+    if victim is None:
+        assert not fails, f"a fleet unit failed: {fails}"
+    else:
+        assert len(fails) == 1 and fails[0][0] == victim \
+            and "injected crash" in fails[0][1], fails
+    forks = [e for e in je.scale_events if e["kind"] == "fork_failed"]
+    assert not forks, f"a bring-up failed: {forks}"
+    for plan in plans:
+        bad = [r["failed"] for r in plan["rounds"] if r["failed"]]
+        assert not bad, f"scale_to bring-ups failed: {bad}"
+    got = sorted(e.name for e in je.engines)
+    assert got == sorted(names), (got, sorted(names))
+
+
+def _scaled(plan):
+    """The TEs a ``scale_to`` plan brought up, in order."""
+    return [te for r in plan["rounds"] for te in r["tes"]]
+
+
+def _allocated():
+    """Live device bytes once every dropped object is collected."""
+    import torch
+    _release()
+    return torch.cuda.memory_allocated()
+
+
+def _ev_ms(ev):
+    return ev[0].elapsed_time(ev[1])
+
+
+def _submit_all(je, reqs):
+    return [je.submit(r.prompt_tokens, sampling=r.sampling) for r in reqs]
+
+
+def _tokens(je, rids):
+    got = {}
+    for c in je.completions:
+        assert c.req_id not in got, f"{c.req_id} completed twice"
+        got[c.req_id] = c.tokens
+    assert sorted(got) == sorted(rids), \
+        f"{len(got)} of {len(rids)} requests completed"
+    return [got[r] for r in rids]
+
+
+def _check_launches(je, cfg):
+    """Each TE's own launches (read on its stepping thread around its
+    step): a P-TE only flash_prefill, a D-TE only paged_attention, a
+    colocated TE both, one per layer per prefill pass / decode iteration;
+    a slot TE WKV6 per dispatch and step. Returns them by TE."""
+    from repro_torch.kernels import counts
+    out = {}
+    for eng in je.engines:
+        n = eng.kernel_launches
+        out[eng.name] = {k: v for k, v in n.items() if v}
+        if cfg.attn_kind == "rwkv":
+            assert n == {**dict.fromkeys(counts.NAMES, 0),
+                         "wkv6": cfg.n_layers * (eng.prefill_dispatches
+                                                 + eng.decode_steps)}, \
+                (eng.name, n)
+            continue
+        want = dict.fromkeys(counts.NAMES, 0)
+        want["flash_prefill"] = cfg.n_layers * eng.prefill_dispatches
+        want["paged_attention"] = cfg.n_layers * eng.decode_steps
+        assert n == want, (eng.name, n, want)
+        if eng.ecfg.mode == "prefill":
+            assert eng.decode_steps == 0, eng.name
+        if eng.ecfg.mode == "decode":
+            assert eng.prefill_dispatches == 0, eng.name
+    return out
+
+
+def fleet_serve(cfg, params, dev, policy, threads, reqs, heat):
+    """A pd=1,colo=1 plane of ``cfg`` (bf16, full width, the initial TEs on
+    one weights tree) serves ``reqs`` through ``submit`` and
+    ``run_to_completion``. Every request completes with valid ids; each
+    TE launches only its kernels. Returns the run's metrics."""
+    import torch
+    from repro_torch.kernels import ops
+    je = _plane(cfg, params, dev, "pd=1,colo=1", torch.bfloat16, heat,
+                policy=policy, fleet_threads=threads)
+    try:
+        ops.reset_launches()
+        t0 = time.monotonic()
+        rids = _submit_all(je, reqs)
+        je.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        total = ops.launch_counts()
+        _tokens(je, rids)
+        _check_comps(je.completions, reqs, cfg)
+        per_te = _check_launches(je, cfg)
+        summed = {k: sum(e.kernel_launches[k] for e in je.engines)
+                  for k in total}
+        assert summed == total, (summed, total)
+        _check_plane(je, PD_COLO)
+        decisions = dict(je.scheduler.decisions)
+        migrations = len(je.handles[0].engine.distflow.log)
+        # each TE launched its role's kernels and no others; Algorithm 1
+        # on this heatmap may send every request to the PD pair
+        want = {"te-pd0-p": {"flash_prefill"},
+                "te-pd0-d": {"paged_attention"},
+                "te-colo0": {"flash_prefill", "paged_attention"}}
+        if policy == "dist_sched":
+            assert migrations == decisions["pd_disagg"] > 0, \
+                (migrations, decisions)
+            if not decisions["pd_colo"]:
+                want["te-colo0"] = set()
+        assert migrations > 0
+        assert {k: set(v) for k, v in per_te.items()} == want, per_te
+        comps = je.completions
+        ttft = sorted(c.ttft * 1e3 for c in comps)
+        out = dict(policy=policy, fleet_threads=threads,
+                   requests=len(comps), wall_s=wall,
+                   output_tok_per_s=sum(len(c.tokens) for c in comps) / wall,
+                   ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
+                   tpot_ms_mean=_mean([c.tpot * 1e3 for c in comps]),
+                   decisions=decisions, migrations=migrations,
+                   plane_steps=je.steps, launches=total,
+                   launches_by_te=per_te)
+        log("  fleet: " + json.dumps(out))
+        return out
+    finally:
+        je.close()
+        del je
+        _release()
+
+
+def fleet_ladder(cfg, params, dev, weights_s):
+    """The cold-start ladder on qwen3-8b: scale_to(3) from one SERVING TE
+    by fork (each fork's device time and bytes; its weights equal the
+    source's bit for bit, in new storage); both forks drained and
+    released (the first into the warm pool: pin, D2H); scale_to(3) again
+    (one fork + one warm upload: H2D); three requests, one per TE. Then a
+    cold start: a one-TE plane without a warm pool drained to zero and
+    scaled back to one (construction on the plane's resident weights;
+    the weights' seeded init took ``weights_s``)."""
+    import torch
+    from repro_torch.core import WarmPool
+    from repro_torch.engine import FlowServe
+    from repro_torch.engine.distflow import _nbytes, tree_leaves
+    bf16 = torch.bfloat16
+    w = _nbytes(params)
+    pool = _pool_bytes(cfg, 2)
+    _fits(2 * w + 3 * pool + 2 * 2**30, "ladder (3 TEs, 2 forked copies)")
+    warm = WarmPool(capacity_bytes=64e9)
+    je = _plane(cfg, params, dev, "colo=1", bf16, _heat(cfg, mixed=True),
+                policy="round_robin", warm_pool=warm)
+    out = {"weights_bytes": w, "pool_bytes": pool}
+    try:
+        plan = je.scale_to(3)
+        torch.cuda.synchronize()
+        out["fork_plan"] = dict(
+            rounds=[(r["tes"], r["sources"], r["wall_s"])
+                    for r in plan["rounds"]], tiers=plan["tiers"])
+        assert plan["tiers"] == {"fork": 2, "warm": 0, "cold": 0}, plan
+        forked = _scaled(plan)
+        _check_plane(je, ["te-colo0"] + forked, plans=[plan])
+        src = je.engines[0]
+        forks = []
+        for eng in je.engines[1:]:
+            a = tree_leaves(src.runner.params)
+            b = tree_leaves(eng.runner.params)
+            assert len(a) == len(b) and all(
+                torch.equal(x, y) and x.data_ptr() != y.data_ptr()
+                for x, y in zip(a, b)), f"{eng.name}: fork is not a copy"
+            ms = _ev_ms(eng.transfer_timing["fork"])
+            forks.append(dict(te=eng.name, device_ms=ms,
+                              gb_per_s=w / ms / 1e6,
+                              bound_ms=2 * w / HBM_BYTES_PER_S * 1e3))
+        out["forks"] = forks
+        out["fork_bit_equal_new_storage"] = True
+        del src, eng, a, b
+        # scale-in: both forked TEs drain and release; the first one's
+        # weights go to the warm pool
+        m0 = _allocated()
+        first = je.engines[1]
+        for te_id in forked:
+            je.drain(te_id)
+        while any(h.state.value == "draining" for h in je.handles):
+            je.step()
+        _check_plane(je, ["te-colo0"])
+        t = first.transfer_timing
+        out["release"] = dict(pin_ms=t["pin_s"] * 1e3,
+                              d2h_ms=_ev_ms(t["d2h"]),
+                              d2h_gb_per_s=w / _ev_ms(t["d2h"]) / 1e6)
+        del first
+        returned = m0 - _allocated()
+        out["release"]["returned_bytes"] = returned
+        assert abs(returned - 2 * (w + pool)) <= 64 * MiB, \
+            (returned, 2 * (w + pool))
+        assert warm.hit(je._asset_name())
+        plan = je.scale_to(3)
+        torch.cuda.synchronize()
+        assert plan["tiers"] == {"fork": 1, "warm": 1, "cold": 0}, plan
+        names = ["te-colo0"] + _scaled(plan)
+        _check_plane(je, names, plans=[plan])
+        # the round's fork and upload ran on two threads, both on the
+        # default stream, so this event pair may hold some fork copies
+        h2d = _ev_ms(next(e.transfer_timing["h2d"] for e in je.engines
+                          if "h2d" in e.transfer_timing))
+        out["warm_plan"] = dict(
+            rounds=[(r["tes"], r["sources"], r["wall_s"])
+                    for r in plan["rounds"]], tiers=plan["tiers"],
+            h2d_ms_in_round=h2d)
+        reqs = _requests(cfg, 3, 0, seed=21, tag="l")
+        rids = _submit_all(je, reqs)
+        je.run_to_completion()
+        _tokens(je, rids)
+        _check_plane(je, names)
+        assert all(e.decode_steps > 0 for e in je.engines)
+        _check_launches(je, cfg)
+        entry = warm.get(je._asset_name())
+    finally:
+        je.close()
+        del je
+        _release()
+    # the warm upload alone: one TE from the pool's pinned entry
+    te = FlowServe.from_warm(cfg, entry, _engine_config(cfg, bf16),
+                             name="te-warm", device=dev)
+    torch.cuda.synchronize()
+    h2d = _ev_ms(te.transfer_timing["h2d"])
+    out["warm_alone"] = dict(h2d_ms=h2d, h2d_gb_per_s=w / h2d / 1e6,
+                             bound_ms_pcie5=w / 64e9 * 1e3)
+    del te, entry, warm
+    _release()
+    je = _plane(cfg, params, dev, "colo=1", bf16, _heat(cfg, mixed=True),
+                policy="round_robin")
+    try:
+        je.drain("te-colo0")
+        je.step()
+        assert je.n_serving() == 0
+        plan = je.scale_to(1)
+        assert plan["tiers"] == {"fork": 0, "warm": 0, "cold": 1}, plan
+        _check_plane(je, _scaled(plan), plans=[plan])
+        out["cold"] = dict(construct_ms=plan["rounds"][0]["wall_s"] * 1e3,
+                           weights_seeded_init_ms=weights_s * 1e3)
+        rids = _submit_all(je, _requests(cfg, 1, 0, seed=22, tag="c"))
+        je.run_to_completion()
+        _tokens(je, rids)
+        _check_plane(je, _scaled(plan))
+        assert je.engines[0].decode_steps > 0
+    finally:
+        je.close()
+        del je
+        _release()
+    log("  ladder: " + json.dumps(out))
+    return out
+
+
+def fleet_fork_tree(cfg, dev):
+    """rwkv6-1.6b: scale_to(8) from one TE in fork rounds of 1, 2 and 4
+    (each round's wall, each fork's device time); then 8 requests,
+    round-robin, one per TE. Returns the run and its WKV6 launches."""
+    import torch
+    from repro_torch.engine.distflow import _nbytes
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(cfg, gen, torch.bfloat16, dev)
+    w = _nbytes(params)
+    _fits(7 * w + 8 * 2**30, "rwkv6 fork tree (8 TEs, 7 forked copies)")
+    je = _plane(cfg, params, dev, "colo=1", torch.bfloat16,
+                _heat(cfg, mixed=True), policy="round_robin")
+    try:
+        plan = je.scale_to(8)
+        torch.cuda.synchronize()
+        assert [len(r["tes"]) for r in plan["rounds"]] == [1, 2, 4], plan
+        assert plan["tiers"]["fork"] == 7
+        names = ["te-colo0"] + _scaled(plan)
+        _check_plane(je, names, plans=[plan])
+        forks = [_ev_ms(e.transfer_timing["fork"]) for e in je.engines[1:]]
+        reqs = _requests(cfg, 6, 2, seed=23, tag="t")
+        ops.reset_launches()
+        rids = _submit_all(je, reqs)
+        je.run_to_completion()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        _tokens(je, rids)
+        _check_comps(je.completions, reqs, cfg)
+        assert all(e.decode_steps > 0 for e in je.engines), \
+            "a forked TE served nothing"
+        _check_plane(je, names)
+        per_te = _check_launches(je, cfg)
+        assert all(v["wkv6"] > 0 for v in per_te.values()), per_te
+        out = dict(model=cfg.name, weights_bytes=w,
+                   rounds=[dict(tes=r["tes"], sources=r["sources"],
+                                wall_ms=r["wall_s"] * 1e3)
+                           for r in plan["rounds"]],
+                   fork_device_ms=forks,
+                   fork_gb_per_s=[w / ms / 1e6 for ms in forks],
+                   fork_bound_ms=2 * w / HBM_BYTES_PER_S * 1e3,
+                   launches=launches, launches_by_te=per_te)
+        log("  fork tree: " + json.dumps(out))
+        return out
+    finally:
+        je.close()
+        del je, params
+        _release()
+
+
+def fleet_kill(cfg, params, dev, dtype, reqs, fault=True):
+    """A colo=3 plane (round-robin) serves ``reqs``; with ``fault`` the
+    FaultPlan(seed=7) victim crashes at its step 3, its memory returns
+    (the plane drops it, measured right after the failing step), and the
+    fleet is repaired by scale_to(3) from a survivor before the burst
+    finishes. Returns (tokens in submission order, run record)."""
+    import torch
+    from repro_torch.core import FaultPlan, FaultSpec
+    fp, victim = None, None
+    if fault:
+        fp = FaultPlan(seed=7)
+        victim = fp.choose_victim([f"te-colo{i}" for i in range(3)])
+        fp.add(FaultSpec("te_crash", te=victim, at_step=3))
+    je = _plane(cfg, params, dev, "colo=3", dtype, _heat(cfg, mixed=True),
+                policy="round_robin", fault_plan=fp)
+    out = {}
+    names = [f"te-colo{i}" for i in range(3)]
+    try:
+        pool = je.engines[0].pool
+        pool_bytes = pool.k.nbytes + pool.v.nbytes
+        del pool
+        m0 = _allocated()
+        rids = _submit_all(je, reqs)
+        while je.has_work():
+            je.step()
+            assert je.steps < 3000, "the burst did not finish"
+            if fault and "returned_bytes" not in out and any(
+                    e["kind"] == "te_failure" for e in je.scale_events):
+                out["returned_bytes"] = m0 - _allocated()
+                out["pool_bytes"] = pool_bytes
+                assert abs(out["returned_bytes"] - pool_bytes) \
+                    <= 64 * MiB, out
+                plan = je.scale_to(3)
+                assert plan["tiers"]["fork"] == 1, plan
+                names = [n for n in names if n != victim] + _scaled(plan)
+                _check_plane(je, names, victim=victim, plans=[plan])
+                out["repair"] = dict(tiers=plan["tiers"],
+                                     sources=plan["rounds"][0]["sources"])
+        toks = _tokens(je, rids)
+        _check_plane(je, names, victim=victim)
+        if fault:
+            assert fp.fired("te_crash") == 1 and je.n_serving() == 3
+            restarts = je.restart_counts()
+            out.update(victim=victim, completed=len(toks), lost=0,
+                       duplicated=len(je.completions) - len(toks),
+                       restart_counts=[restarts.get(r, 0) for r in rids],
+                       failure=[e for e in je.scale_events
+                                if e["kind"] == "te_failure"][0]["error"])
+        return toks, out
+    finally:
+        je.close()
+        del je
+        _release()
+
+
+def fleet_drain(cfg, params, dev, dtype, reqs, drain=True):
+    """A colo=2 plane (round-robin) serves ``reqs``; with ``drain`` te-colo1
+    drains at the first plane step where it holds decodes in flight (they
+    migrate out) and prefills queued (they restart on te-colo0), reaches
+    RELEASED and returns its pool. Returns (tokens, run record)."""
+    import torch
+    je = _plane(cfg, params, dev, "colo=2", dtype, _heat(cfg, mixed=True),
+                policy="round_robin")
+    out = {}
+    try:
+        pool = je.engines[1].pool
+        out["pool_bytes"] = pool.k.nbytes + pool.v.nbytes
+        del pool
+        m0 = _allocated()
+        rids = _submit_all(je, reqs)
+        if drain:
+            victim = je.handles[1]
+            eng = victim.engine
+            # drain once the victim holds both decodes and queued prefills
+            while not (eng.migratable_running()
+                       and eng.scheduler.queued_seqs()):
+                je.step()
+                assert je.steps < 40, "no step with decodes and prefills"
+            out["drain_at_step"] = je.steps
+            out["decoding_at_drain"] = len(eng.migratable_running())
+            out["queued_at_drain"] = len(eng.scheduler.queued_seqs())
+            je.drain(victim.te_id)
+        je.run_to_completion()
+        toks = _tokens(je, rids)
+        _check_plane(je, ["te-colo0"] if drain else ["te-colo0", "te-colo1"])
+        if drain:
+            assert victim.state.value == "released"
+            out["migrations"] = len(eng.distflow.log)
+            out["migrated_bytes"] = eng.distflow.bytes_moved()
+            out["resubmits"] = len(je.resubmits)
+            assert out["migrations"] and out["resubmits"], out
+            del eng
+            out["returned_bytes"] = m0 - _allocated()
+            assert abs(out["returned_bytes"] - out["pool_bytes"]) \
+                <= 64 * MiB, out
+        return toks, out
+    finally:
+        je.close()
+        del je
+        _release()
+
+
+# fp32 products of other shapes round differently (~1e-6 of a logit):
+# two runs that batch a request with other requests may take either token
+# of a top-2 pair closer than this
+NEAR_TIE = 1e-4
+
+
+def _greedy_gaps(cfg, params, dev, prompt, toks):
+    """Teacher-forced ``forward`` over prompt + toks: per generated
+    position, the argmax, the top-2 tokens and their logit gap."""
+    import torch
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        lg = T.forward(cfg, params, torch.tensor([prompt + toks[:-1]],
+                                                 device=dev))
+    top2 = lg[0, len(prompt) - 1:, :cfg.vocab_size].topk(2, dim=-1)
+    return (top2.indices.tolist(),
+            (top2.values[:, 0] - top2.values[:, 1]).tolist())
+
+
+def _same_tokens(cfg, params, dev, reqs, a, b, what):
+    """Runs ``a`` and ``b`` (tokens per request) give the same greedy
+    tokens, except where a request's first difference falls on a near-tie
+    (a top-2 gap below ``NEAR_TIE`` in the teacher-forced forward); such a
+    request's tokens must then be the forward's greedy choice in both runs
+    (each token the argmax after its own prefix, or the other half of a
+    near-tie). Returns the near-ties taken, each logged."""
+    ties = []
+    for i, (r, x, y) in enumerate(zip(reqs, a, b)):
+        if x == y:
+            continue
+        j = next(k for k in range(len(x)) if x[k] != y[k])
+        for run in (x, y):
+            top2, gaps = _greedy_gaps(cfg, params, dev, r.prompt_tokens, run)
+            for k, tok in enumerate(run):
+                assert tok == top2[k][0] or (
+                    tok in top2[k] and gaps[k] < NEAR_TIE), \
+                    (what, i, k, tok, top2[k], gaps[k])
+            # at most one near-tie taken in a run
+            taken = [k for k, tok in enumerate(run) if tok != top2[k][0]]
+            assert len(taken) <= 1, (what, i, taken)
+        ties.append(dict(request=i, token=j, tokens=(x[j], y[j]),
+                         gap=_greedy_gaps(cfg, params, dev, r.prompt_tokens,
+                                          x[:j + 1])[1][j]))
+        log(f"  {what} parity: request {i} takes the other token of a "
+            f"near-tie at token {j}: {x[j]} vs {y[j]}, top-2 gap "
+            f"{ties[-1]['gap']:.3e} (< {NEAR_TIE:g})")
+        assert ties[-1]["gap"] < NEAR_TIE, ties[-1]
+    return ties
+
+
+def fleet_parity(cfg, dev):
+    """Full width cut to 2 layers, fp32, on the kernels: the threaded plane
+    gives the serial plane's tokens and decisions exactly (the same
+    batches); the seed-7 kill gives the no-fault run's tokens and the
+    drained run the undrained run's, both up to near-ties (restarted and
+    migrated requests run in other batches; ``_same_tokens``)."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    params = T.init_params(cfg2, gen, torch.float32, dev)
+    f32 = torch.float32
+    runs = {}
+    for threads in (0, 3):
+        je = _plane(cfg2, params, dev, "pd=1,colo=1", f32,
+                    _heat(cfg, mixed=True), fleet_threads=threads)
+        try:
+            rids = _submit_all(je, _requests(cfg2, 8, 0, seed=31, tag="x"))
+            je.run_to_completion()
+            _check_plane(je, PD_COLO)
+            runs[threads] = (_tokens(je, rids), dict(je.scheduler.decisions))
+        finally:
+            je.close()
+            del je
+    assert runs[0] == runs[3], "threads changed tokens or decisions"
+    assert runs[0][1]["pd_disagg"] and runs[0][1]["pd_colo"], runs[0][1]
+    reqs = _requests(cfg2, 12, 0, seed=32, tag="k")
+    clean, _ = fleet_kill(cfg2, params, dev, f32, reqs, fault=False)
+    killed, kill = fleet_kill(cfg2, params, dev, f32, reqs)
+    kill_ties = _same_tokens(cfg2, params, dev, reqs, clean, killed, "kill")
+    reqs = _requests(cfg2, 12, 0, seed=33, tag="d")
+    plain, _ = fleet_drain(cfg2, params, dev, f32, reqs, drain=False)
+    drained, _ = fleet_drain(cfg2, params, dev, f32, reqs)
+    drain_ties = _same_tokens(cfg2, params, dev, reqs, plain, drained,
+                              "drain")
+    log(f"  fleet parity {cfg.name} x2 layers fp32: threads {runs[0][1]} "
+        f"identical; kill ({kill['victim']}, restarts "
+        f"{sum(kill['restart_counts'])}): {12 - len(kill_ties)} of 12 "
+        f"requests identical, near-ties {kill_ties}; drain: "
+        f"{12 - len(drain_ties)} of 12 identical, near-ties {drain_ties}")
+    del params
+    _release()
+
+
+def phase6(dev):
+    """The fleet control plane on the card: serving through the plane
+    (qwen3-8b pd=1,colo=1 under Algorithm 1 and round-robin, then three
+    executor threads against serial stepping, in turns), the cold-start
+    ladder (fork, warm, cold) and the rwkv6-1.6b fork tree, a seeded kill
+    with recovery and a drain under load, then 2-layer fp32 parity for
+    threads, kill and drain. Returns each kernel's launches on the fleet
+    path, per (arch, kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine.distflow import _nbytes
+    from repro_torch.models import transformer as T
+    qwen, rwkv = get_config("qwen3-8b"), get_config("rwkv6-1.6b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    params = T.init_params(qwen, gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    weights_s = time.monotonic() - t0
+    w, pool = _nbytes(params), _pool_bytes(qwen, 2)
+    heat = _heat(qwen)
+    launches = {}
+    log(f"phase 6: fleet serving ({qwen.name}, pd=1,colo=1, bf16) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    _fits(3 * pool + 2 * 2**30, "pd=1,colo=1 fleet on one weights tree")
+    reqs = _requests(qwen, 8, 2, seed=0, tag="f")
+    runs = [fleet_serve(qwen, params, dev, "dist_sched", 0, reqs, heat)]
+    for threads in (0, 3, 3, 0):
+        runs.append(fleet_serve(qwen, params, dev, "round_robin", threads,
+                                reqs, heat))
+    for name in ("flash_prefill", "paged_attention"):
+        launches["qwen3-8b", name] = sum(r["launches"][name] for r in runs)
+    log("  threads vs serial (round_robin, in turns): " + json.dumps(
+        [dict(fleet_threads=r["fleet_threads"],
+              output_tok_per_s=r["output_tok_per_s"],
+              tpot_ms_mean=r["tpot_ms_mean"],
+              ttft_ms_p50=r["ttft_ms_p50"]) for r in runs[1:]]))
+    log(f"phase 6: cold-start ladder ({qwen.name}) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    fleet_ladder(qwen, params, dev, weights_s)
+    log(f"phase 6: seeded kill and recovery ({qwen.name}, colo=3) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    _fits(w + 4 * pool + 2 * 2**30, "colo=3 fleet and its repair fork")
+    greedy = _requests(qwen, 12, 0, seed=24, tag="k")
+    _, kill = fleet_kill(qwen, params, dev, torch.bfloat16, greedy)
+    log("  kill: " + json.dumps(kill))
+    log(f"phase 6: drain under load ({qwen.name}, colo=2) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    _, drain = fleet_drain(qwen, params, dev, torch.bfloat16,
+                           _requests(qwen, 12, 0, seed=25, tag="d"))
+    log("  drain: " + json.dumps(drain))
+    del params
+    _release()
+    log(f"phase 6: fork tree ({rwkv.name}, 1 -> 8) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    tree = fleet_fork_tree(rwkv, dev)
+    launches["rwkv6-1.6b", "wkv6"] = tree["launches"]["wkv6"]
+    log(f"phase 6: fleet parity ({qwen.name}, 2 layers, fp32) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    fleet_parity(qwen, dev)
+    launches["recurrentgemma-2b", "rglru"] = None
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["all", "kernels", "pd"],
+    ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet"],
                     default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
-                         "new kernel); 'pd' runs phases 1 and 5 alone")
+                         "new kernel); 'pd' runs phases 1 and 5 alone, "
+                         "'fleet' phases 1 and 6")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1595,8 +2247,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
 
-    if args.only == "pd":
-        phase5(dev)
+    if args.only in ("pd", "fleet"):
+        (phase5 if args.only == "pd" else phase6)(dev)
         log(card)
         return 0
 
@@ -1654,8 +2306,10 @@ def main() -> int:
         oracle_parity(cfg, dev, n_layers, n_enc)
 
     pd = phase5(dev)
+    fleet = phase6(dev)
     for r in rows:
         r["launches_pd"] = pd[r["arch"], r["name"]]
+        r["launches_fleet"] = fleet[r["arch"], r["name"]]
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
     log(json.dumps({"arch_kernels": arch}))

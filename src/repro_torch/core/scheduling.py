@@ -72,6 +72,14 @@ class TEHandle:
             return list(self.decode_engines)
         return [self.decode_engine] if self.decode_engine is not None else []
 
+    def grow_decode(self, engine: object) -> None:
+        """§4.6 M:N scale-out: add a decode member to this PD group."""
+        if self.decode_engines is None:
+            self.decode_engines = self.decode_members()
+        self.decode_engines.append(engine)
+        if self.decode_engine is None:
+            self.decode_engine = engine
+
     def pick_decode_member(self) -> object:
         """The least-loaded decode member takes the next prefilled request
         (§4.6); load is the ``refresh`` signal, read per member."""

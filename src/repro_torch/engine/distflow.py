@@ -141,6 +141,23 @@ def _nbytes(x) -> int:
     return int(nb) if nb is not None else int(np.asarray(x).nbytes)
 
 
+def tree_map(fn, tree):
+    """``fn`` over every leaf of a weights tree (nested dicts and lists,
+    tensors at the leaves), keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a weights tree, in ``tree_map``'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
 def _fanout_penalty(n_dsts: int) -> float:
     """Tree-broadcast depth penalty."""
     return 1.0 + 0.1 * max(0, math.ceil(math.log2(max(n_dsts, 1))))

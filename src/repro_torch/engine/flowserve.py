@@ -25,16 +25,28 @@ paged sequence's page run over DistFlow, device to device and in layer
 chunks that the D-TE scatters behind their CUDA events just before the
 sequence's first decode; a slot sequence moves as its slot snapshot.
 
-Fork, the warm pool, fault injection, the executor lock and tensor
-parallelism arrive with later slices.
+The fleet runtime (``core/serving_plane.py``) steps TEs from per-unit
+worker threads while its JE thread migrates, forks and reads loads,
+so every public entry point holds the engine's ``RLock``
+(``_executor_safe``) and ``migrate_out`` takes both endpoints' locks in
+name order. A TE comes up three ways: built on a weights tree it is
+given (the fleet's TEs share one), forked from a live TE (``fork_from``:
+every parameter copied device to device into the new TE's own storage)
+or uploaded from a ``WarmPool`` entry (``from_warm``); ``release_params``
+drains a TE's weights to pinned host memory for that pool. A
+``FaultPlan`` (``core/faults.py``) hooks ``step``, ``migrate_out`` and
+``fork_from``; ``void_pending_imports`` and ``cancel_queued`` let the
+plane recover and drain. Tensor parallelism waits for its slice.
 """
 from __future__ import annotations
 
+import functools
 import itertools
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -42,7 +54,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.distflow import (BufferInfo, DistFlow, TransferFault,
-                                         _nbytes)
+                                         _nbytes, tree_leaves, tree_map)
 from repro_torch.engine.hotloop import (DecodeHotState, pow2_bucket, pow2s,
                                         to_device)
 from repro_torch.engine.kv_cache import (OutOfPagesError, PagedKVPool,
@@ -52,8 +64,10 @@ from repro_torch.engine.runners import SequenceState, resolve_family
 from repro_torch.engine.sampling import SamplingParams, sample_batch
 from repro_torch.engine.scheduler import Scheduler, SchedulerConfig
 from repro_torch.engine.tokenizer import EOS_ID, ByteTokenizer
+from repro_torch.kernels import counts
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.models import serving as S
+from repro_torch.models import transformer as T
 
 _req_ids = itertools.count()
 
@@ -123,9 +137,33 @@ def _upload_i32(device, *arrays) -> List[torch.Tensor]:
     return out
 
 
+def _executor_safe(fn):
+    """Serialize an engine entry point on the per-engine RLock: fleet
+    worker threads step TEs while the JE's own thread runs cross-unit
+    actions (drain migration, fork, load reads). The RLock keeps internal
+    reentrancy (step -> export -> release) free."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
+def _shapes(tree):
+    """A weights tree's structure and leaf shapes, comparable across
+    trees (dict keys in sorted order, as a JAX tree structure keeps
+    them)."""
+    if isinstance(tree, dict):
+        return tuple((k, _shapes(tree[k])) for k in sorted(tree))
+    if isinstance(tree, list):
+        return ("list", tuple(_shapes(v) for v in tree))
+    return tuple(np.shape(tree))
+
+
 class FlowServe:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  name: str = "te-0", device="cuda"):
+        self._lock = threading.RLock()   # executor safety (DESIGN.md §9)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -133,10 +171,18 @@ class FlowServe:
         self.family = resolve_family(cfg)
         self.tokenizer = ByteTokenizer(max(cfg.vocab_size, 259))
         self.distflow = DistFlow(owner=name)
+        self.fault_plan = None           # set by FaultPlan.attach (§11)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(ecfg.seed)
+        # CUDA event pairs (and the pinning's host seconds) of this TE's
+        # weight copies: "fork", "h2d" (from_warm), "pin_s" / "d2h"
+        # (release_params); read by whoever times them
+        self.transfer_timing: Dict[str, Any] = {}
+        # this TE's own kernel launches, read around each step on the
+        # stepping thread (counts.thread_tally), exact under fleet threads
+        self.kernel_launches: Dict[str, int] = dict.fromkeys(counts.NAMES, 0)
 
-        params = _to_device(params, self.device)
+        params = tree_map(lambda t: t.to(self.device), params)
         if self.family.uses_pages:
             self.pool = PagedKVPool(cfg, ecfg.n_pages, ecfg.page_size,
                                     ecfg.dtype, self.device)
@@ -182,7 +228,114 @@ class FlowServe:
         self._completed_buf: List[Completion] = []
         self._sp_cache: tuple = (None, None, None)  # batch-keyed temps/top_ps
 
+    # ---------------------------------------------------------------- scaling
+    @classmethod
+    def fork_from(cls, source: "FlowServe", ecfg: EngineConfig,
+                  name: str = "te-fork", link: str = "ici",
+                  device=None) -> "FlowServe":
+        """NPU-fork (§6.3): bring up a new TE from a live TE's resident
+        weights instead of re-initializing them. Every parameter is copied
+        into new storage on ``device`` (default: the source's), device to
+        device on the stream the fleet steps on (``npu_fork_live``); the
+        source's DistFlow prices the transfer as the reference does and the
+        new TE's clock observes it too. The new TE joins the source's peer
+        group. Holds the source's lock, so a fleet worker stepping the
+        source waits."""
+        from repro_torch.core.scaling import npu_fork_live
+        if source.fault_plan is not None:
+            source.fault_plan.on_fork(source)
+        dev = source.device if device is None else resolve_device(device)
+        with source._lock:
+            params, lr = npu_fork_live(
+                source.runner.params, source.cfg, None,
+                source=source.distflow, link=link, dst_device=dev)
+            te = cls(source.cfg, params, ecfg, name=name, device=dev)
+            source.distflow.link_cluster([te.distflow])
+        te.distflow.sim_clock += lr.seconds   # the fork target observed it
+        te.transfer_timing["fork"] = lr.events
+        return te
+
+    @classmethod
+    def from_warm(cls, cfg: ModelConfig, host_params, ecfg: EngineConfig,
+                  name: str = "te-warm", device="cuda") -> "FlowServe":
+        """DRAM-warm bring-up (DESIGN.md §10): a TE built from a
+        ``WarmPool`` entry's host weights, uploaded to ``device`` with
+        ``non_blocking=True`` copies (from pinned memory on a card) in
+        place of model re-init. The entry is only read, so any number of
+        TEs can come up from it.
+
+        Entry integrity (DESIGN.md §11): the entry's tree structure and
+        leaf shapes are checked against ``cfg`` (built on the meta device,
+        no memory) before any device memory is committed; a mismatch
+        raises ``WarmPoolMismatchError``."""
+        from repro_torch.core.scaling import (WarmPoolMismatchError,
+                                              copy_to_device)
+        expected = T.init_params(cfg, torch.Generator(), torch.float32,
+                                 "meta")
+        if _shapes(host_params) != _shapes(expected):
+            raise WarmPoolMismatchError(
+                f"warm-pool entry does not match model "
+                f"{getattr(cfg, 'name', '?')!r} for TE {name}: tree/shape "
+                f"mismatch (expected {len(tree_leaves(expected))} leaves, "
+                f"got {len(tree_leaves(host_params))})")
+        dev = resolve_device(device)
+        params, ev = copy_to_device(host_params, dev)
+        te = cls(cfg, params, ecfg, name=name, device=dev)
+        te.transfer_timing["h2d"] = ev
+        return te
+
+    @property
+    def fork_ready(self) -> bool:
+        """True while this TE's weights are device-resident, i.e. it can be
+        a fork source (a TE that drained its weights back to the warm pool
+        on release is not)."""
+        return getattr(self.runner, "params", None) is not None
+
+    @_executor_safe
+    def release_params(self, to_host: bool = True):
+        """Drain this TE's weights to host memory (the RELEASED -> WarmPool
+        leg of the cold-start ladder): pinned buffers allocated, then
+        non-blocking copies from the card, waited for (``transfer_timing``
+        gets "pin_s" and "d2h"). Returns the host tree (``to_host=True``)
+        or None; either way the TE drops its device references and stops
+        being a fork source (the memory returns once no other TE shares
+        the tree). Call only after the TE is empty: it cannot serve
+        afterwards."""
+        from repro_torch.core.scaling import copy_to_host
+        params = getattr(self.runner, "params", None)
+        if params is None:
+            return None
+        host = None
+        if to_host:
+            host, pin_s, ev = copy_to_host(params)
+            self.transfer_timing.update(pin_s=pin_s, d2h=ev)
+        self.runner.params = None
+        if self.family.uses_pages:
+            self.runner.layers = None       # views of the stacked weights
+        return host
+
+    @_executor_safe
+    def cancel_queued(self) -> List[Request]:
+        """Pull every not-yet-fully-prefilled sequence out of this engine
+        (drain support, DESIGN.md §10): mid-PREFILL work on a draining TE
+        is re-submitted elsewhere as a token-level restart instead of
+        finishing prefill here. Returns the original ``Request`` objects
+        (req_id + arrival preserved, so latency accounting spans the
+        restart); their pages/slots here are freed without preserving
+        prefixes."""
+        out: List[Request] = []
+        for seq in list(self.scheduler.queued_seqs()):
+            req = self._requests.get(seq.seq_id)
+            if req is None:
+                continue
+            self.scheduler.remove(seq)
+            seq.kv_pending = None
+            self.release_request(seq.seq_id, keep_prefix=False)
+            out.append(req)
+        return out
+
     # ---------------------------------------------------------------- API
+    @_executor_safe
     def add_request(self, req: Request) -> str:
         seq = SequenceState(seq_id=req.req_id, tokens=list(req.prompt_tokens),
                             n_prompt=len(req.prompt_tokens),
@@ -207,14 +360,26 @@ class FlowServe:
         self.scheduler.admit(seq)
         return req.req_id
 
+    @_executor_safe
     def has_work(self) -> bool:
         return bool(self._inflight or self._completed_buf) \
             or self.scheduler.has_work()
 
+    @_executor_safe
     def step(self) -> List[Completion]:
         """One engine iteration: plan -> ragged prefill -> decode (a fused
         K-step horizon, or the legacy single step under page pressure) ->
-        commit -> prepare the next plan."""
+        commit -> prepare the next plan. The kernels launched in it are
+        added to ``kernel_launches``."""
+        if self.fault_plan is not None:
+            self.fault_plan.on_step(self)
+        before = counts.thread_tally()
+        out = self._step()
+        for name, n in counts.thread_tally().items():
+            self.kernel_launches[name] += n - before[name]
+        return out
+
+    def _step(self) -> List[Completion]:
         self.scheduler.resolve_prefix()
         self.scheduler.pump_prefetch()
         # the next plan is prepared while the device runs this step (§4.2)
@@ -695,6 +860,7 @@ class FlowServe:
         seq.kv_pending = None
         self.scheduler.requeue(seq)
 
+    @_executor_safe
     def release_request(self, req_id: str, keep_prefix: bool = True) -> None:
         seq = self._seqs.pop(req_id, None)
         self._pending.pop(req_id, None)
@@ -740,17 +906,20 @@ class FlowServe:
             self.runner.import_kv({"chunks": [handle.wait_chunk(i)]},
                                   seq.pages)
 
+    @_executor_safe
     def pop_migratable(self) -> List[str]:
         """P-TE: request ids whose prefill finished, ready to migrate."""
         out, self._prefill_done_buffer = self._prefill_done_buffer, []
         return out
 
+    @_executor_safe
     def migratable_running(self) -> List[str]:
         """Request ids in the decode set whose state can move now: fully
         prefilled and not still waiting on an import of their own."""
         return [s.seq_id for s in self.scheduler.running
                 if s.kv_pending is None]
 
+    @_executor_safe
     def export_kv(self, req_id: str, host_gather: bool = False):
         """The migration payload of ``req_id``: the KV of its first
         ``n_cached`` tokens (a P-TE: the prompt but its last token) and
@@ -779,7 +948,21 @@ class FlowServe:
         are scattered now. ``host_gather`` takes the v1 host round trip,
         as the slot family always does (a snapshot is small). On a
         ``TransferFault`` or ``OutOfPagesError`` the D-TE is left
-        untouched, the sequence is restored here and the error re-raised."""
+        untouched, the sequence is restored here and the error re-raised.
+
+        Executor safety: both endpoints' locks are taken up front in name
+        order, so a drain migrating A -> B while the fleet steps B cannot
+        deadlock against a B -> A hand-off."""
+        first, second = ((self, dst) if self.name <= dst.name
+                         else (dst, self))
+        with first._lock, second._lock:
+            return self._migrate_out_locked(req_id, dst, overlap,
+                                            layer_chunks, host_gather,
+                                            keep_prefix)
+
+    def _migrate_out_locked(self, req_id: str, dst: "FlowServe",
+                            overlap: bool, layer_chunks: int,
+                            host_gather: bool, keep_prefix: bool) -> str:
         # committing in-flight horizons may finish the candidate
         self._drain_inflight()
         if req_id not in self._seqs:
@@ -812,14 +995,43 @@ class FlowServe:
             if was_running and req_id in self._seqs:
                 self.scheduler.admit_running(seq)
             raise
+        # injected source crash mid-migration: the destination already
+        # imported (the sequence continues there), but this TE dies before
+        # cleaning up; recovery dedupes against the survivor
+        if self.fault_plan is not None:
+            self.fault_plan.on_migration(self, dst.name)
         self.release_request(req_id, keep_prefix=keep_prefix)
         return req_id
 
+    @_executor_safe
     def finish_pending_imports(self) -> None:
         """D-TE: scatter every import still in flight now (the eager
         complement of the lazy scatter at the first decode)."""
         self._land_imports(list(self._seqs.values()))
 
+    @_executor_safe
+    def void_pending_imports(self, dead_owners) -> List[Request]:
+        """Recovery (DESIGN.md §11): void every in-flight KV import whose
+        SOURCE TE died. Its chunks came from the dead TE, so they are never
+        scattered: the sequence's local state is released and its original
+        ``Request`` returned for a prompt-level restart on a survivor.
+        Idempotent per sequence (the handle is dropped), which is what
+        makes recovery dedupe-safe."""
+        out: List[Request] = []
+        for seq in list(self._seqs.values()):
+            handle = seq.kv_pending
+            if handle is None \
+                    or getattr(handle, "src_owner", None) not in dead_owners:
+                continue
+            seq.kv_pending = None
+            req = self._requests.get(seq.seq_id)
+            self.scheduler.remove(seq)
+            self.release_request(seq.seq_id, keep_prefix=False)
+            if req is not None:
+                out.append(req)
+        return out
+
+    @_executor_safe
     def import_request(self, payload) -> str:
         """D-TE: admit a migrated, prefilled request. Its next decode step
         processes its last prompt token. A mid-decode arrival keeps the
@@ -863,6 +1075,7 @@ class FlowServe:
         self.scheduler.admit_running(seq)
         return req.req_id
 
+    @_executor_safe
     def load_metrics(self) -> Dict[str, float]:
         """The TE's live load signals for the JE's ``TEHandle.refresh``:
 
@@ -941,10 +1154,3 @@ class FlowServe:
             if (sp.stop_on_eos and tok == EOS_ID) or n_new >= sp.max_new_tokens:
                 self._finish(seq)
 
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)

@@ -23,11 +23,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, tma
+from repro_torch.kernels import _build, counts, tma
 
 BLOCK_Q = 32        # tokens per query tile; equals BQ in flash_prefill.cu
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-launches = 0        # kernel launches since the last reset (main-path proof)
 
 
 def max_tiles(n_tokens: int, n_entries: int) -> int:
@@ -77,7 +76,6 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     (NP, P, Hkv, hd); cu_tokens (Sb+1,), entry_bt (Sb, Pb), entry_start
     (Sb,), tiles (n_tiles, 3) from ``build_tiles`` — all int32 on q's
     device. Returns (Tb, H, hd) in q's dtype (padding rows zero)."""
-    global launches
     tb, h, hd = q.shape
     _, p, hkv, hd2 = k_pages.shape
     dev = q.device
@@ -126,7 +124,7 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                 DTYPES[q.dtype], float(softcap or 0.0), int(window or 0),
                 stream)
     _build.check(rc, "flash_prefill")
-    launches += 1
+    counts.add("flash_prefill")
     return out
 
 

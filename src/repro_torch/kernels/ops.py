@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import counts
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import ref as R
@@ -86,12 +87,9 @@ def rglru(a, b, h0, impl: str = "auto"):
 def reset_launches() -> None:
     """Zero every kernel's launch count (chip_smoke does this just before
     it drives a main path)."""
-    PA.launches = 0
-    FP.launches = 0
-    WKV.launches = 0
-    RG.launches = 0
+    counts.reset()
 
 
 def launch_counts() -> dict:
-    return {"paged_attention": PA.launches, "flash_prefill": FP.launches,
-            "wkv6": WKV.launches, "rglru": RG.launches}
+    """Every kernel's launches since the last reset, all threads."""
+    return counts.totals()

@@ -17,12 +17,11 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import _build, tma
+from repro_torch.kernels import _build, counts, tma
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VEC = {torch.float32: 4, torch.bfloat16: 8}    # elements per 16-byte load
 MAX_SPLITS = 32
-launches = 0        # kernel launches since the last reset (main-path proof)
 _sm_count: Dict[int, int] = {}
 
 
@@ -67,7 +66,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     lengths (B,) int32. ``splits`` overrides ``n_splits`` (tests hold each
     split count against the plain version). Returns (B, H, hd) in q's
     dtype."""
-    global launches
     b, h, hd = q.shape
     _, p, hkv, hd2 = k_pages.shape
     dev = q.device
@@ -116,5 +114,5 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             ws.data_ptr(), b, h, hkv, hd, p, maxp, s, DTYPES[q.dtype],
             float(softcap or 0.0), int(window or 0), stream)
     _build.check(rc, "paged_attention")
-    launches += 1
+    counts.add("paged_attention")
     return out

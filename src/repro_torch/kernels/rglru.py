@@ -14,13 +14,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, tma
+from repro_torch.kernels import _build, counts, tma
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STREAM_MIN_T = 16       # shorter calls (decode) take the per-thread body
 CHANNELS = 16           # channels per block of the streamed body
 STEPS = 64              # steps per TMA tile of the streamed body
-launches = 0            # kernel launches since the last reset (main-path proof)
 
 
 def plan(t: int, w: int, elem_bytes: int, aligned: bool = True) -> dict:
@@ -73,7 +72,6 @@ def _launch(a, b, h0, channels: int):
     ``CHANNELS``: streamed) on arguments ``rglru`` has checked; ``rglru``
     passes what ``plan`` picks (a same-call timing of the other body
     passes the other)."""
-    global launches
     bsz, t, w = a.shape
     dev = a.device
     h = torch.empty_like(a)           # the allocator aligns it to 512 bytes
@@ -87,5 +85,5 @@ def _launch(a, b, h0, channels: int):
                 h_last.data_ptr(), bsz, t, w, DTYPES[a.dtype], channels,
                 *maps, stream)
     _build.check(rc, "rglru")
-    launches += 1
+    counts.add("rglru")
     return h, h_last

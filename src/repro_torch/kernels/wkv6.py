@@ -13,14 +13,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counts
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 CHUNK = 16          # tokens per chunk (one step of the kernel's chain)
 SUB = 4             # tokens per sub-chunk (where cross-pair decays meet)
 V_COLS = 16         # v-columns per block of the chunked body
-launches = 0        # kernel launches since the last reset (main-path proof)
 
 
 def plan(t: int, hd: int) -> dict:
@@ -80,7 +79,6 @@ def _launch(r, k, v, w, u, state, splits: int):
     chunked) on arguments ``wkv6`` has checked; ``wkv6`` passes what
     ``plan`` picks (a same-call timing of the other body passes the
     other)."""
-    global launches
     b, t, h, hd = r.shape
     dev = r.device
     y = torch.empty_like(r)
@@ -91,5 +89,5 @@ def _launch(r, k, v, w, u, state, splits: int):
                 u.data_ptr(), state.data_ptr(), y.data_ptr(), b, t, h, hd,
                 DTYPES[r.dtype], splits, stream)
     _build.check(rc, "wkv6")
-    launches += 1
+    counts.add("wkv6")
     return y, state

@@ -1,5 +1,5 @@
 """Serving launcher of the port: FLOWSERVE TEs on one device, in one of
-three modes.
+three modes, or a live fleet under the serving plane (``--topology``).
 
   * ``colocated`` — one TE runs prefill and decode.
   * ``pd``        — a prefill TE hands each prefilled request to a decode
@@ -12,7 +12,19 @@ three modes.
                     decode-length predictor trained on a synthetic trace;
                     every unit is then stepped by the same pump.
 
-Every TE of a run shares one weights dict.
+  * ``--topology pd=N,colo=N`` (or ``pd=NpXd`` for an M:N group) — the
+                    serving plane (``core/serving_plane.py``): a JE over a
+                    live fleet, Algorithm 1 (``--policy dist_sched``) or
+                    round-robin placement, optionally a mass scale-out
+                    through the cold-start ladder first (``--scale-to N``:
+                    fork rounds, then the warm pool, then cold), and the
+                    fleet's units stepped on executor threads
+                    (``--fleet-threads N``, N > 1). Prints completions,
+                    decisions, scale events, the fleet's metrics and the
+                    scale-out plan's rounds and tiers.
+
+Every TE of a run (the initial fleet's, under the plane) shares one
+weights dict; a forked TE owns its copy.
 
     # full-width qwen3-8b, random bf16 weights, on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
@@ -36,6 +48,11 @@ Every TE of a run shares one weights dict.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --layers 16
 
+    # the serving plane: a PD pair and a colocated TE, scaled out to 3
+    # serving units by fork first, stepped on 3 executor threads
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --topology pd=1,colo=1 --scale-to 3 --fleet-threads 3
+
     # a smoke config on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --device cpu --requests 4 --max-new 8 --mode pd
@@ -53,22 +70,30 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, list_configs, smoke_config
 from repro_torch.core import (DecodeLengthPredictor, DistributedScheduler,
-                              HeatmapStudy, PredictorConfig, SchedRequest,
-                              TEHandle, synth_trace, train_predictor)
+                              DRAMPageCache, DrainTrigger, FastScaler,
+                              HeatmapStudy, LoadSpreadTrigger,
+                              PredictorConfig, SchedRequest, ServingJobEngine,
+                              TEHandle, TopologySpec, WarmPool, synth_trace,
+                              train_predictor)
 from repro_torch.engine import (Completion, EngineConfig, FlowServe, Request,
                                 SamplingParams)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
 
-def build_te(cfg, params, mode: str, name: str, device, dtype,
-             smoke: bool = False, seed: int = 0) -> FlowServe:
-    ecfg = EngineConfig(mode=mode, n_pages=2048 if not smoke else 256,
+def engine_config(mode: str, dtype, smoke: bool = False,
+                  seed: int = 0) -> EngineConfig:
+    return EngineConfig(mode=mode, n_pages=2048 if not smoke else 256,
                         page_size=16, n_slots=8, max_len=2048,
                         max_batch_tokens=512, chunk_size=256,
                         max_decode_batch=8, decode_horizon=8, dtype=dtype,
                         seed=seed)
-    return FlowServe(cfg, params, ecfg, name=name, device=device)
+
+
+def build_te(cfg, params, mode: str, name: str, device, dtype,
+             smoke: bool = False, seed: int = 0) -> FlowServe:
+    return FlowServe(cfg, params, engine_config(mode, dtype, smoke, seed),
+                     name=name, device=device)
 
 
 def step_unit(handle: TEHandle) -> List[Completion]:
@@ -138,6 +163,19 @@ def main() -> None:
                     help="cut the depth to this many layers (0 = all)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--topology", default=None,
+                    help="serve through the serving plane over this fleet: "
+                         "'pd=N,colo=N' (N PD pairs and N colocated TEs) or "
+                         "'pd=NpXd,colo=N' (an M:N group); overrides --mode")
+    ap.add_argument("--policy", default="dist_sched",
+                    choices=["dist_sched", "round_robin"],
+                    help="the plane's placement: Algorithm 1 or round-robin")
+    ap.add_argument("--scale-to", type=int, default=0,
+                    help="with --topology: scale out to N serving units "
+                         "before serving (fork rounds, warm pool, cold)")
+    ap.add_argument("--fleet-threads", type=int, default=0,
+                    help="with --topology: step the fleet's units on this "
+                         "many executor threads (> 1); 0 or 1 = serially")
     args = ap.parse_args()
 
     dev = resolve_device(args.device)
@@ -169,6 +207,9 @@ def main() -> None:
         return build_te(cfg, params, mode, name, dev, dtype, args.smoke,
                         args.seed)
 
+    if args.topology:
+        serve_plane(args, cfg, full, params, dev, dtype, requests)
+        return
     if args.mode == "colocated":
         handles = [TEHandle("te-0", "colocated", engine=te("colocated",
                                                             "te-0"))]
@@ -217,6 +258,53 @@ def main() -> None:
             print(f"{h.te_id}: {len(df.log)} migrations, KV moved "
                   f"{df.bytes_moved() / 1e6:.2f} MB, DistFlow simulated "
                   f"{df.sim_clock * 1e3:.3f} ms")
+
+
+def serve_plane(args, cfg, full, params, dev, dtype, requests) -> None:
+    """The serving plane over ``--topology``: a JE with a warm pool, the
+    scale-out and drain triggers and the heatmap of the full config on
+    one H100's cost model; optionally ``scale_to`` first; then every
+    request through ``submit`` and ``run_to_completion``."""
+    hs = HeatmapStudy(full)
+    warm = WarmPool()
+    je = ServingJobEngine(
+        cfg, params, TopologySpec.parse(args.topology),
+        heatmap=hs.combined(), prefill_lens=hs.prefill_lens,
+        decode_ratios=hs.decode_ratios, policy=args.policy,
+        ecfg=engine_config("colocated", dtype, args.smoke, args.seed),
+        scaler=FastScaler(DRAMPageCache(), warm=warm),
+        trigger=LoadSpreadTrigger(), drain_trigger=DrainTrigger(),
+        warm_pool=warm, fleet_threads=args.fleet_threads, device=dev)
+    try:
+        if args.scale_to > je.n_serving():
+            plan = je.scale_to(args.scale_to)
+            print(f"scale_to({args.scale_to}): {len(plan['rounds'])} rounds "
+                  f"in {plan['wall_s']:.2f} s, tiers {plan['tiers']}, "
+                  f"serving {plan['n_serving']}")
+            for r in plan["rounds"]:
+                print(f"  round {r['round']}: {r['tes']} from "
+                      f"{r['sources'] or ['-']} ({r['wall_s']:.3f} s)")
+        ops.reset_launches()
+        t0 = time.monotonic()
+        for r in requests():
+            je.submit(r.prompt_tokens, sampling=r.sampling)
+        comps = je.run_to_completion()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _report(comps, time.monotonic() - t0)
+        print(f"serving plane [{args.policy}] {args.topology}, "
+              f"fleet_threads={args.fleet_threads}: decisions "
+              f"{je.scheduler.decisions}")
+        for e in je.scale_events:
+            print(f"  scale event: {e['kind']} {e['te_id']} at step "
+                  f"{e['step']}" + (f" from {e['source']}"
+                                    if e.get("source") else ""))
+        for te_id, m in je.fleet_metrics().items():
+            print(f"  {te_id}: {m}")
+        for eng in je.engines:
+            print(f"  {eng.name} launches {eng.kernel_launches}")
+    finally:
+        je.close()
 
 
 if __name__ == "__main__":

@@ -35,9 +35,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     at a time, so a full-width model never holds an fp32 copy or a second
     copy of its stacked layers. Norm scales and the VLM cross blocks'
     gates are fp32 (rmsnorm zeros in the ``(1 + w)`` form; layernorm ones
-    and zero bias; gates zero, as the reference inits them)."""
+    and zero bias; gates zero, as the reference inits them). On the
+    ``meta`` device (any generator) it allocates nothing: the tree's
+    structure and shapes alone."""
     dev = resolve_device(device)
-    if gen.device.type != dev.type:
+    if dev.type != "meta" and gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, params on {dev}")
     if cfg.attn_kind not in ("global", "swa", "local_global", "rwkv",
                              "hybrid_rglru"):
@@ -90,6 +92,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
 
 def _normal(gen, shape, std, dtype, dev) -> torch.Tensor:
+    if dev.type == "meta":          # shapes only: nothing to draw
+        return torch.empty(shape, dtype=dtype, device=dev)
     return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
 

@@ -239,12 +239,17 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20     # the whole slice was imported
+    mods = set(out.stdout.split())
+    assert len(mods) >= 20                   # the whole port was imported
+    # the fleet control plane's modules among them
+    assert {f"repro_torch.core.{m}" for m in (
+        "abstractions", "cluster", "faults", "fleet", "scaling",
+        "serving_plane")} <= mods
 
 
 def test_port_source_has_no_reference_imports():
@@ -252,5 +257,6 @@ def test_port_source_has_no_reference_imports():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert ROOT / "src" / "repro_torch" / "core" / "serving_plane.py" in files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders

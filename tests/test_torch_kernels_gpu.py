@@ -6,8 +6,11 @@ with a state carried in and out, the split-K decode at forced split
 counts, the decode at the other paged archs' shapes (G 2-6, hd 120 and
 256, softcap 50 with a window), and the bf16 tensor-core prefill at G =
 1-8 and hd 64-256 (hd 120 padded to 128); the hot loop under sync-debug
-"error", the cross-attention towers' prefill chunk and decode included.
-Every test is marked ``gpu`` and skips without a CUDA card (the kernels
+"error", the cross-attention towers' prefill chunk and decode included;
+and the fleet control plane: a fork's weights bit-equal in new storage, a
+warm upload from a pinned pool entry, the device memory a killed and a
+released TE give back, a steady plane step with no sync, and threaded
+stepping giving the serial plane's tokens. Every test is marked ``gpu`` and skips without a CUDA card (the kernels
 have no CPU mode). This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -690,3 +693,227 @@ def test_pd_pool_run_bit_identical_after_import(cuda, layer_chunks):
     assert torch.equal(de.pool.k[:, run], k_exp)
     assert torch.equal(de.pool.v[:, run], v_exp)
     assert not torch.equal(pe.pool.k[:, pages], k_exp)
+
+
+# ---------------------------------------------------------------------------
+# the fleet control plane on the card
+# ---------------------------------------------------------------------------
+
+def _fleet(cuda, topo, n_layers=None, dtype=torch.float32, **kw):
+    """A serving plane of qwen3-8b on the card: smoke, or full width cut to
+    ``n_layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import ServingJobEngine, TopologySpec
+    from repro_torch.engine import EngineConfig
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen3-8b")
+    cfg = smoke_config(cfg) if n_layers is None \
+        else dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = T.init_params(cfg, gen, dtype, cuda)
+    heat = np.array([[1.0, 1.0], [-1.0, -1.0]])
+    return ServingJobEngine(cfg, params, TopologySpec.parse(topo),
+                            heatmap=heat, prefill_lens=[16, 64],
+                            decode_ratios=[0.25, 1.0],
+                            ecfg=EngineConfig(n_pages=256, page_size=16,
+                                              dtype=dtype),
+                            device=cuda, **kw)
+
+
+def _fleet_prompts(n, seed=0):
+    rs = np.random.RandomState(seed)
+    return [[int(t) for t in rs.randint(3, 200, int(rs.choice([14, 60])))]
+            for _ in range(n)]
+
+
+def _failures(je):
+    """The plane's quarantined units (a unit that raised is retired and its
+    requests restarted, so only its scale event shows the error)."""
+    return [(e["te_id"], e["error"]) for e in je.scale_events
+            if e["kind"] == "te_failure"]
+
+
+def _greedy(max_new=12):
+    from repro_torch.engine import SamplingParams
+    return SamplingParams(temperature=0.0, max_new_tokens=max_new,
+                          stop_on_eos=False)
+
+
+def _live_bytes():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _pool_bytes(eng):
+    return eng.pool.k.nbytes + eng.pool.v.nbytes
+
+
+@pytest.mark.gpu
+def test_fork_copies_params_bit_equal_in_new_storage(cuda):
+    from repro_torch.engine.distflow import tree_leaves
+    je = _fleet(cuda, "colo=1")
+    try:
+        plan = je.scale_to(2)
+        assert plan["tiers"]["fork"] == 1
+        src, fork = je.engines
+        a = tree_leaves(src.runner.params)
+        b = tree_leaves(fork.runner.params)
+        assert len(a) == len(b) > 0
+        for x, y in zip(a, b):
+            assert x.is_cuda and y.is_cuda
+            assert torch.equal(x, y) and x.data_ptr() != y.data_ptr()
+        ev = fork.transfer_timing["fork"]
+        torch.cuda.synchronize()
+        assert ev[0].elapsed_time(ev[1]) > 0
+    finally:
+        je.close()
+
+
+@pytest.mark.gpu
+def test_from_warm_uploads_a_pinned_entry(cuda):
+    from repro_torch.core import WarmPool
+    from repro_torch.engine import EngineConfig, FlowServe
+    from repro_torch.engine.distflow import tree_leaves
+    warm = WarmPool()
+    je = _fleet(cuda, "colo=1", warm_pool=warm)
+    try:
+        je.scale_to(2)
+        fork = je.engines[1]
+        ref = [t.clone() for t in tree_leaves(fork.runner.params)]
+        je.drain(fork.name)
+        je.step()                         # empty: released into the pool
+        assert not _failures(je) and je.n_serving() == 1
+        entry = warm.get(je._asset_name())
+        host = tree_leaves(entry)
+        assert all(t.is_pinned() and not t.is_cuda for t in host)
+        assert fork.transfer_timing["pin_s"] >= 0
+        te = FlowServe.from_warm(je.cfg, entry, EngineConfig(n_pages=16),
+                                 name="te-w", device=cuda)
+        got = tree_leaves(te.runner.params)
+        assert len(got) == len(ref)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+        ev = te.transfer_timing["h2d"]
+        torch.cuda.synchronize()
+        assert ev[0].elapsed_time(ev[1]) > 0
+    finally:
+        je.close()
+
+
+@pytest.mark.gpu
+def test_memory_returns_after_a_kill(cuda):
+    from repro_torch.core import FaultPlan, FaultSpec
+    fp = FaultPlan(specs=[FaultSpec("te_crash", te="te-colo1", at_step=2)])
+    je = _fleet(cuda, "colo=2", policy="round_robin", fault_plan=fp)
+    try:
+        pool = _pool_bytes(je.engines[1])
+        for p in _fleet_prompts(6):
+            je.submit(p, _greedy())
+        before = None
+        while not fp.fired("te_crash"):
+            before = _live_bytes()
+            je.step()
+        returned = before - _live_bytes()
+        assert abs(returned - pool) <= 2 * 2**20, (returned, pool)
+        je.run_to_completion()
+        assert len(je.completions) == 6
+        fails = _failures(je)
+        assert len(fails) == 1 and fails[0][0] == "te-colo1", fails
+        assert "injected crash" in fails[0][1], fails
+    finally:
+        je.close()
+
+
+@pytest.mark.gpu
+def test_memory_returns_after_a_release(cuda):
+    """A drained forked TE gives back its pool and its own weights."""
+    from repro_torch.engine.distflow import _nbytes
+    je = _fleet(cuda, "colo=1")
+    try:
+        je.scale_to(2)
+        fork = je.engines[1]
+        owned = _pool_bytes(fork) + _nbytes(fork.runner.params)
+        del fork
+        before = _live_bytes()
+        je.drain("te-scale0")
+        je.step()
+        assert je.n_serving() == 1 and not _failures(je)
+        returned = before - _live_bytes()
+        assert abs(returned - owned) <= 2 * 2**20, (returned, owned)
+    finally:
+        je.close()
+
+
+@pytest.mark.gpu
+def test_steady_plane_step_never_syncs(cuda):
+    """A steady plane step over a colocated unit (its TE in steady decode,
+    the scale triggers fed from host counters) makes no blocking device
+    call."""
+    from repro_torch.core import DrainTrigger, LoadSpreadTrigger
+    from repro_torch.engine import SamplingParams
+    from repro_torch.engine.kv_cache import pages_needed
+    je = _fleet(cuda, "colo=1", trigger=LoadSpreadTrigger(),
+                drain_trigger=DrainTrigger())
+    try:
+        sp = SamplingParams(temperature=0.8, max_new_tokens=40,
+                            stop_on_eos=False)
+        for i in range(3):
+            je.submit(list(range(3, 10 + i)), sp)
+        te = je.engines[0]
+
+        def quiet():
+            live = list(te.scheduler.running)
+            return (te._inflight and not te.scheduler.prefilling
+                    and len(live) == 3 and all(
+                        pages_needed(len(s.tokens)
+                                     + te._pending.get(s.seq_id, 0) + 1, 16)
+                        <= len(s.pages) for s in live))
+        for _ in range(30):
+            if quiet():
+                break
+            je.step()
+        assert quiet(), "no steady decode step within 30 plane steps"
+        torch.cuda.synchronize()
+        syncs, steps = te.host_syncs, te.steps
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            je.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # a sync raises inside the TE's step, which the plane quarantines:
+        # the unit must still serve, having stepped once, with no failure
+        assert not _failures(je), _failures(je)
+        assert je.n_serving() == 1 and je.engines == [te]
+        assert te.steps == steps + 1
+        assert te.host_syncs == syncs
+    finally:
+        je.close()
+
+
+@pytest.mark.gpu
+def test_threaded_plane_gives_the_serial_tokens(cuda):
+    """Full width cut to 2 fp32 layers, on the kernels: three executor
+    threads give the serial plane's greedy tokens and decisions, and each
+    TE's launches sum to the totals."""
+    from repro_torch.kernels import ops
+    runs = []
+    for threads in (0, 3):
+        je = _fleet(cuda, "pd=1,colo=1", n_layers=2, fleet_threads=threads)
+        try:
+            ops.reset_launches()
+            rids = [je.submit(p, _greedy(16)) for p in _fleet_prompts(8, 3)]
+            je.run_to_completion()
+            total = ops.launch_counts()
+            assert total == {k: sum(e.kernel_launches[k] for e in je.engines)
+                             for k in total}
+            assert total["flash_prefill"] and total["paged_attention"]
+            assert not _failures(je), _failures(je)
+            assert je.n_serving() == 2 and len(je.engines) == 3
+            toks = {c.req_id: c.tokens for c in je.completions}
+            runs.append(([toks[r] for r in rids],
+                         dict(je.scheduler.decisions)))
+        finally:
+            je.close()
+    assert runs[0] == runs[1]
