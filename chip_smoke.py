@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # needs one CUDA card; a few minutes
     python3 chip_smoke.py --only pd     # phases 1 and 5 alone
     python3 chip_smoke.py --only fleet  # phases 1 and 6 alone
+    python3 chip_smoke.py --only tp     # phases 1 and 7 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -107,9 +108,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                 that no unit failed (the plane quarantines a unit that
                 raises, so only its scale events would show it) but the
                 planned victim, and that its TEs are the ones expected.
-The last lines are the other paged archs' attention rows as JSON
-({"arch_kernels": [...]}), the kernel table as JSON, the card's name and
-power limit, and {"ok": true, "device": {...}}.
+  7. tp       — tensor parallelism of the paged family (every rank on
+                the one card): both attention kernels at one rank's
+                shape (qwen3-8b at tp 2: H 16 / Hkv 4; granite-moe-3b-
+                a800m at tp 4: H 6 / Hkv 2), timed as phase 2 times them;
+                both archs serving the phase-3 requests at full width
+                (each decode iteration and prefill pass launching each
+                kernel n_layers x tp times; TTFT, TPOT, launches per step
+                and each rank's pool bytes printed); at 2 fp32 layers the
+                tp-2 TE on the kernels gives its plain versions' tokens
+                exactly, and the tp-2 and tp-16 TEs (tp 16: Hkv 8 does not
+                split, so attention and the pool replicate) give the tp-1
+                TE's up to near-ties, the largest logit difference
+                printed; a qwen3-8b P-TE at tp 4 hands off to a D-TE at
+                tp 2 at full width (the KV heads re-split in flight; the
+                migrated run bit-identical, one migration's device time)
+                and, at 2 fp32 layers, gives a colocated tp-2 TE's tokens
+                up to near-ties; a fork of a tp-2 TE onto a new tp-2 TE
+                (every shard bit-equal in new storage, its device time by
+                CUDA events); the serving plane at pd=1,colo=1,tp=2, sized
+                from ``mem_get_info`` (a depth cut, if any, printed),
+                every request served.
+The last lines are the per-rank attention rows ({"tp_kernels": [...]}),
+the other paged archs' attention rows as JSON ({"arch_kernels": [...]}),
+the kernel table as JSON, the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -898,18 +921,21 @@ def modality(cfg, rs):
             for k, v in S.extra_inputs(cfg, 1, torch.float32, "cpu").items()}
 
 
-def _engine_config(cfg, dtype, kernel_impl="auto", mode="colocated"):
+def _engine_config(cfg, dtype, kernel_impl="auto", mode="colocated",
+                   tp=1):
     """One EngineConfig for either family: the paged family reads the page
     fields, the slot family the slot fields."""
     from repro_torch.engine import EngineConfig
-    return EngineConfig(mode=mode, n_pages=2048, page_size=16, n_slots=8,
+    return EngineConfig(mode=mode, tp=tp, n_pages=2048, page_size=16,
+                        n_slots=8,
                         max_len=2048, max_batch_tokens=512, chunk_size=256,
                         max_decode_batch=8, decode_horizon=8, dtype=dtype,
                         seed=0, kernel_impl=kernel_impl)
 
 
-def serve(cfg, dev, n_greedy, n_sampled):
-    """A full-width TE of ``cfg`` (random bf16 weights from a seed) serves
+def serve(cfg, dev, n_greedy, n_sampled, tp=1):
+    """A full-width TE of ``cfg`` (random bf16 weights from a seed; at
+    ``tp`` > 1 a tensor-parallel TE whose ranks share the card) serves
     ``n_greedy`` greedy + ``n_sampled`` sampled (T=0.8, top_p=0.9)
     requests, prompts of 64-1024 random ids, 32 new tokens each, each with
     its own seeded modality inputs where the model takes them. Launch
@@ -925,9 +951,10 @@ def serve(cfg, dev, n_greedy, n_sampled):
     t0 = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
     params = T.init_params(cfg, gen, torch.bfloat16, dev)
-    te = FlowServe(cfg, params, _engine_config(cfg, torch.bfloat16),
+    te = FlowServe(cfg, params, _engine_config(cfg, torch.bfloat16, tp=tp),
                    device=dev)
     torch.cuda.synchronize()
+    log(f"  TE mesh: tp={tp}, ranks on {[str(d) for d in te.mesh.devices]}")
     log(f"  TE up: {cfg.name}, {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, bf16, {torch.cuda.memory_allocated() / 2**30:.2f} "
         f"GiB allocated ({time.monotonic() - t0:.2f} s)")
@@ -1016,16 +1043,23 @@ def serve(cfg, dev, n_greedy, n_sampled):
                     lambda: T.encode(cfg, params, frames), iters=5,
                     warmup=1)
     elif PATH_KERNELS[cfg.name] == PAGED:
-        # one launch of each attention kernel per layer: per decode
-        # iteration, and per prefill pass
+        # one launch of each attention kernel per layer and attention rank
+        # (tp of them when attention splits): per decode iteration, and
+        # per prefill pass
+        ranks = _ranks(te)
+        out.update(tp=tp, attention_ranks=ranks, pool_bytes_per_rank=[
+            te.pool.k[r].nbytes + te.pool.v[r].nbytes
+            for r in range(tp)])
         out["paged_attention_per_decode_iteration"] = (
             launches["paged_attention"] / max(te.decode_steps, 1))
         out["flash_prefill_per_prefill_pass"] = (
             launches["flash_prefill"] / max(te.prefill_dispatches, 1))
-        assert launches["paged_attention"] == cfg.n_layers * te.decode_steps \
+        assert launches["paged_attention"] == \
+            cfg.n_layers * ranks * te.decode_steps \
             and launches["flash_prefill"] == \
-            cfg.n_layers * te.prefill_dispatches, \
-            (launches, cfg.n_layers, te.decode_steps, te.prefill_dispatches)
+            cfg.n_layers * ranks * te.prefill_dispatches, \
+            (launches, cfg.n_layers, ranks, te.decode_steps,
+             te.prefill_dispatches)
     else:
         # one launch per recurrent layer for every prefill dispatch and
         # every decode step: read both from the steps that ran only one
@@ -1067,11 +1101,11 @@ def moe_census(te, cfg, rng, n=8):
     n_real = []                     # the pass's real rows (device scalar)
     orig, orig_pf = M.moe_apply, PagedPrefillRunner.prefill_ragged
 
-    def counted(p, x, mcfg, act, groups=1):
+    def counted(ps, x, mcfg, act, mesh, groups=1):
         t = x.shape[0] * x.shape[1]
         tg = t // groups
         w_te, _, sel_tok, keep = M.moe_route(
-            p, x.reshape(groups, tg, -1), mcfg,
+            ps[0], x.reshape(groups, tg, -1), mcfg,
             min(M.moe_capacity(tg, mcfg), tg))
         real = n_real[-1] if n_real else t
         rows = torch.arange(tg, device=x.device)[None, :, None] \
@@ -1082,7 +1116,7 @@ def moe_census(te, cfg, rng, n=8):
         calls.append((t, routed.sum(), keep.sum(),
                       (routed & (rows < real)).sum(),
                       (keep & (sel < real)).sum(), torch.as_tensor(real)))
-        return orig(p, x, mcfg, act, groups)
+        return orig(ps, x, mcfg, act, mesh, groups)
 
     def prefill(self, tokens, positions, pages, slots, cu_tokens, *a, **kw):
         n_real.append(cu_tokens[-1])
@@ -1119,6 +1153,12 @@ def moe_census(te, cfg, rng, n=8):
             assignments_all=routed, dropped_all=routed - kept,
             dropped_share_all=(routed - kept) / max(routed, 1))
     return out
+
+
+def _ranks(te):
+    """The ranks of a paged TE that run attention: tp when it splits, one
+    when it replicates (rank 0 runs it)."""
+    return len(te.pool.ranks)
 
 
 def _release():
@@ -1249,12 +1289,14 @@ PD_KERNELS = {"qwen3-8b": ("flash_prefill", "paged_attention"),
               "rwkv6-1.6b": ("wkv6", "wkv6")}
 
 
-def _pd_pair(cfg, params, dev, dtype, impl="auto", tag="pd"):
-    """A P-TE and a D-TE on one weights dict, linked by DistFlow."""
+def _pd_pair(cfg, params, dev, dtype, impl="auto", tag="pd", tp=(1, 1)):
+    """A P-TE and a D-TE on one weights dict, linked by DistFlow; ``tp``
+    is (the P-TE's, the D-TE's) tensor-parallel width."""
     from repro_torch.engine import FlowServe
-    pe, de = (FlowServe(cfg, params, _engine_config(cfg, dtype, impl, mode),
+    pe, de = (FlowServe(cfg, params,
+                        _engine_config(cfg, dtype, impl, mode, tp=t),
                         name=f"{tag}-{mode}", device=dev)
-              for mode in ("prefill", "decode"))
+              for mode, t in zip(("prefill", "decode"), tp))
     pe.distflow.link_cluster([de.distflow])
     return pe, de
 
@@ -1283,7 +1325,7 @@ def _check_comps(comps, reqs, cfg):
         assert all(0 <= t < cfg.vocab_size for t in c.tokens), c.req_id
 
 
-def serve_pd(cfg, params, dev, n_greedy, n_sampled):
+def serve_pd(cfg, params, dev, n_greedy, n_sampled, tp=(1, 1)):
     """A P-TE and a D-TE of ``cfg`` (full width, bf16, one weights dict)
     serve ``n_greedy`` + ``n_sampled`` requests through the PD pump: the
     P-TE steps, every finished prefill migrates over DistFlow (device to
@@ -1295,7 +1337,7 @@ def serve_pd(cfg, params, dev, n_greedy, n_sampled):
     import torch
     from repro_torch.kernels import ops
     torch.cuda.reset_peak_memory_stats()
-    pe, de = _pd_pair(cfg, params, dev, torch.bfloat16)
+    pe, de = _pd_pair(cfg, params, dev, torch.bfloat16, tp=tp)
     reqs = _requests(cfg, n_greedy, n_sampled)
     zero = {k: 0 for k in ops.launch_counts()}
     per = {"prefill": dict(zero), "migrate": dict(zero),
@@ -1338,9 +1380,12 @@ def serve_pd(cfg, params, dev, n_greedy, n_sampled):
     pk, dk = PD_KERNELS[cfg.name]
     n_kind = sum(k.startswith("rwkv" if pk == "wkv6" else "attn")
                  for k in cfg.layer_kinds())
-    assert per["prefill"] == {**zero, pk: n_kind * pe.prefill_dispatches}, \
+    n_pe, n_de = (_ranks(t) if t.pool is not None else 1 for t in (pe, de))
+    assert per["prefill"] == {**zero, pk: n_kind * n_pe
+                              * pe.prefill_dispatches}, \
         (per["prefill"], pe.prefill_dispatches)
-    assert per["decode"] == {**zero, dk: n_kind * de.decode_steps}, \
+    assert per["decode"] == {**zero, dk: n_kind * n_de
+                             * de.decode_steps}, \
         (per["decode"], de.decode_steps)
     assert per["migrate"] == zero, per["migrate"]
     assert pe.decode_steps == 0 and de.prefill_dispatches == 0
@@ -1350,7 +1395,7 @@ def serve_pd(cfg, params, dev, n_greedy, n_sampled):
     pf = [i for i in its if i[0]]          # iterations with a prefill pass
     dec = [i for i in its if not i[0]]
     out = dict(
-        model=cfg.name, requests=len(comps),
+        model=cfg.name, tp=list(tp), requests=len(comps),
         prompt_tokens=sum(c.n_prompt for c in comps),
         generated_tokens=gen_tok, wall_s=wall,
         prefill_passes=pe.prefill_dispatches,
@@ -1391,6 +1436,13 @@ def serve_pd(cfg, params, dev, n_greedy, n_sampled):
     return out
 
 
+def _heads(runs, dim):
+    """Per-rank pools or runs joined on their head split (the one tensor
+    of a replicated or tp-1 pool or run)."""
+    import torch
+    return torch.cat(runs, dim) if dim is not None else runs[0]
+
+
 def migration_check(cfg, pe, de, dev):
     """One more greedy request through the pair's default path, after the
     timed window: its page run, cloned on the P-TE before ``migrate_out``,
@@ -1407,7 +1459,8 @@ def migration_check(cfg, pe, de, dev):
     (rid,) = pe.pop_migratable()
     seq = pe._seqs[rid]
     pages, n = list(seq.pages), seq.n_cached
-    k_exp, v_exp = (t.clone() for t in pe.pool.gather_device(pages))
+    k_exp, v_exp = (_heads([t.clone() for t in run], pe.pool.spec)
+                    for run in pe.pool.gather_device(pages))
     pe.migrate_out(rid, de)
     dseq = de._seqs[rid]
     assert dseq.kv_pending is not None
@@ -1418,8 +1471,10 @@ def migration_check(cfg, pe, de, dev):
 
     def toks(x):                            # (L, NP, P, ...) -> first n
         return x.reshape(x.shape[0], -1, *x.shape[3:])[:, :n]
-    same = (torch.equal(toks(de.pool.k[:, run]), toks(k_exp))
-            and torch.equal(toks(de.pool.v[:, run]), toks(v_exp)))
+    got_k, got_v = (_heads([t[:, run] for t in pool], de.pool.spec)
+                    for pool in (de.pool.k, de.pool.v))
+    same = (torch.equal(toks(got_k), toks(k_exp))
+            and torch.equal(toks(got_v), toks(v_exp)))
     assert same, "the D-TE's pool run differs from the exported run"
     de.run_to_completion()
     dst = de.pool.alloc(len(pages))
@@ -1427,7 +1482,10 @@ def migration_check(cfg, pe, de, dev):
 
     def migrate():
         k, v = pe.pool.gather_device(pages)
-        h = bench.transfer_sharded({"k": k, "v": v}, de.name, dst_device=dev,
+        h = bench.transfer_sharded({"k": k, "v": v}, de.name,
+                                   src_dim=pe.pool.spec,
+                                   dst=de.pool.run_sharding(),
+                                   src_tp=pe.ecfg.tp, dst_tp=de.ecfg.tp,
                                    layer_chunks=4)
         for i in range(len(h.chunks)):
             l0, kc, vc = h.wait_chunk(i)
@@ -1444,11 +1502,14 @@ def migration_check(cfg, pe, de, dev):
                 migration_hbm_gb_per_s=4 * run_bytes / ms / 1e6)
 
 
-def pd_parity(cfg, dev, n_layers):
+def pd_parity(cfg, dev, n_layers, tp=(1, 1)):
     """Full width cut to ``n_layers`` layers, fp32, both on the kernels:
-    the PD pair gives the colocated TE's greedy tokens. The smallest top-2
-    logit gap over the generated positions comes from the port's
-    teacher-forced ``forward`` over prompt + tokens."""
+    the PD pair (widths ``tp``) gives the colocated TE's (the D-TE's
+    width) greedy tokens: exactly when the two widths agree; across widths
+    up to near-ties (``_same_tokens``), since the P-TE's projections then
+    run at other shapes. The smallest top-2 logit gap over the generated
+    positions comes from the port's teacher-forced ``forward`` over
+    prompt + tokens."""
     import numpy as np
     import torch
     from repro_torch.engine import FlowServe, Request, SamplingParams
@@ -1467,13 +1528,13 @@ def pd_parity(cfg, dev, n_layers):
     def reqs():
         return [Request(prompt_tokens=p, sampling=sp, req_id=f"q{i}")
                 for i, p in enumerate(prompts)]
-    te = FlowServe(cfg2, params, _engine_config(cfg2, torch.float32),
-                   device=dev)
+    te = FlowServe(cfg2, params, _engine_config(cfg2, torch.float32,
+                                                tp=tp[1]), device=dev)
     for r in reqs():
         te.add_request(r)
     colo = {c.req_id: c.tokens for c in te.run_to_completion()}
     del te
-    pe, de = _pd_pair(cfg2, params, dev, torch.float32, tag="par")
+    pe, de = _pd_pair(cfg2, params, dev, torch.float32, tag="par", tp=tp)
     for r in reqs():
         pe.add_request(r)
     pd = {}
@@ -1492,10 +1553,17 @@ def pd_parity(cfg, dev, n_layers):
         margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
         del logits
     same = len(pd) == len(colo) == 4 and pd == colo
-    log(f"  pd parity {cfg.name} x{n_layers} layers: PD pair "
-        f"{pd['q0'][:8]}... colocated {colo['q0'][:8]}... identical={same} "
-        f"(smallest top-2 logit gap {margin:.3e})")
-    assert same, "the PD pair and the colocated TE give different tokens"
+    log(f"  pd parity {cfg.name} x{n_layers} layers, tp {tp[0]} -> "
+        f"{tp[1]}: PD pair {pd['q0'][:8]}... colocated {colo['q0'][:8]}... "
+        f"identical={same} (smallest top-2 logit gap {margin:.3e})")
+    if tp[0] == tp[1]:
+        assert same, "the PD pair and the colocated TE give different tokens"
+    else:
+        # the P-TE's projections run at another width: up to near-ties
+        assert len(pd) == len(colo) == 4
+        ids = [f"q{i}" for i in range(4)]
+        _same_tokens(cfg2, params, dev, reqs(), [pd[i] for i in ids],
+                     [colo[i] for i in ids], f"pd tp {tp[0]}->{tp[1]}")
     del params
     _release()
     return margin
@@ -1717,8 +1785,10 @@ def _check_launches(je, cfg):
                 (eng.name, n)
             continue
         want = dict.fromkeys(counts.NAMES, 0)
-        want["flash_prefill"] = cfg.n_layers * eng.prefill_dispatches
-        want["paged_attention"] = cfg.n_layers * eng.decode_steps
+        want["flash_prefill"] = cfg.n_layers * _ranks(eng) \
+            * eng.prefill_dispatches
+        want["paged_attention"] = cfg.n_layers * _ranks(eng) \
+            * eng.decode_steps
         assert n == want, (eng.name, n, want)
         if eng.ecfg.mode == "prefill":
             assert eng.decode_steps == 0, eng.name
@@ -1727,14 +1797,15 @@ def _check_launches(je, cfg):
     return out
 
 
-def fleet_serve(cfg, params, dev, policy, threads, reqs, heat):
+def fleet_serve(cfg, params, dev, policy, threads, reqs, heat,
+                topo="pd=1,colo=1"):
     """A pd=1,colo=1 plane of ``cfg`` (bf16, full width, the initial TEs on
     one weights tree) serves ``reqs`` through ``submit`` and
     ``run_to_completion``. Every request completes with valid ids; each
     TE launches only its kernels. Returns the run's metrics."""
     import torch
     from repro_torch.kernels import ops
-    je = _plane(cfg, params, dev, "pd=1,colo=1", torch.bfloat16, heat,
+    je = _plane(cfg, params, dev, topo, torch.bfloat16, heat,
                 policy=policy, fleet_threads=threads)
     try:
         ops.reset_launches()
@@ -1767,7 +1838,7 @@ def fleet_serve(cfg, params, dev, policy, threads, reqs, heat):
         assert {k: set(v) for k, v in per_te.items()} == want, per_te
         comps = je.completions
         ttft = sorted(c.ttft * 1e3 for c in comps)
-        out = dict(policy=policy, fleet_threads=threads,
+        out = dict(policy=policy, fleet_threads=threads, topology=topo,
                    requests=len(comps), wall_s=wall,
                    output_tok_per_s=sum(len(c.tokens) for c in comps) / wall,
                    ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
@@ -1965,6 +2036,7 @@ def fleet_kill(cfg, params, dev, dtype, reqs, fault=True):
     finishes. Returns (tokens in submission order, run record)."""
     import torch
     from repro_torch.core import FaultPlan, FaultSpec
+    from repro_torch.engine.distflow import _nbytes
     fp, victim = None, None
     if fault:
         fp = FaultPlan(seed=7)
@@ -1976,7 +2048,7 @@ def fleet_kill(cfg, params, dev, dtype, reqs, fault=True):
     names = [f"te-colo{i}" for i in range(3)]
     try:
         pool = je.engines[0].pool
-        pool_bytes = pool.k.nbytes + pool.v.nbytes
+        pool_bytes = _nbytes([pool.k, pool.v])
         del pool
         m0 = _allocated()
         rids = _submit_all(je, reqs)
@@ -2018,12 +2090,13 @@ def fleet_drain(cfg, params, dev, dtype, reqs, drain=True):
     migrate out) and prefills queued (they restart on te-colo0), reaches
     RELEASED and returns its pool. Returns (tokens, run record)."""
     import torch
+    from repro_torch.engine.distflow import _nbytes
     je = _plane(cfg, params, dev, "colo=2", dtype, _heat(cfg, mixed=True),
                 policy="round_robin")
     out = {}
     try:
         pool = je.engines[1].pool
-        out["pool_bytes"] = pool.k.nbytes + pool.v.nbytes
+        out["pool_bytes"] = _nbytes([pool.k, pool.v])
         del pool
         m0 = _allocated()
         rids = _submit_all(je, reqs)
@@ -2218,13 +2291,238 @@ def phase6(dev):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 7: tensor parallelism (the paged family)
+# --------------------------------------------------------------------------
+
+# (arch, tp, greedy, sampled): qwen3-8b's attention and pool split at tp 2
+# (H 16 / Hkv 4 per rank); granite-moe-3b-a800m's at tp 4 (H 6 / Hkv 2,
+# G 3; d_expert 512 -> 128 per rank)
+TP_SERVED = (("qwen3-8b", 2, 8, 2), ("granite-moe-3b-a800m", 4, 6, 2))
+
+
+def rank_cfg(cfg, tp):
+    """One rank's attention shape of ``cfg`` at ``tp``."""
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads // tp)
+
+
+def tp_rows(dev):
+    """Both attention kernels at one rank's shape of each TP_SERVED arch,
+    timed as phase 2 times the main path; each row names its arch and
+    width."""
+    from repro_torch.configs import get_config
+    rows = []
+    for name, tp, _, _ in TP_SERVED:
+        cfg = rank_cfg(get_config(name), tp)
+        for r in (main_path_decode(cfg, dev, seed=14, arch_row=True),
+                  main_path_prefill(cfg, dev, seed=15, arch_row=True)):
+            r["arch"] = f"{name} tp{tp}"
+            rows.append(r)
+    return rows
+
+
+def _decode_logits(te, prompt):
+    """The logits of one decode pass per position of ``prompt`` through
+    ``te``'s runner, on pages taken and given back: the raw numbers the
+    engine samples from."""
+    import torch
+    from repro_torch.engine.kv_cache import pages_needed
+    pages = te.pool.alloc(pages_needed(len(prompt), te.pool.page_size))
+    bt = torch.tensor([pages], dtype=torch.int32, device=te.device)
+    out = []
+    with torch.no_grad():
+        for i, t in enumerate(prompt):
+            out.append(te.runner.decoder.body(
+                torch.tensor([t], dtype=torch.int32, device=te.device), bt,
+                torch.tensor([i + 1], dtype=torch.int32, device=te.device)))
+    te.pool.release(pages)
+    return torch.cat(out)
+
+
+def tp_parity(cfg, dev, n_layers=2):
+    """Full width cut to ``n_layers`` layers, fp32: the tp-2 TE on the
+    kernels gives the tp-2 TE on the plain versions' greedy tokens
+    exactly; the tp-2 TE and the tp-16 TE (Hkv 8 does not split 16 ways:
+    attention and the pool replicate, the FFN and the vocab still split)
+    give the tp-1 TE's tokens up to near-ties (``_same_tokens``). The
+    largest logit difference against tp 1 over one prompt's decode passes
+    is printed."""
+    import torch
+    from repro_torch.engine import FlowServe
+    from repro_torch.models import transformer as T
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    params = T.init_params(cfg2, gen, torch.float32, dev)
+    reqs = _requests(cfg2, 4, 0, seed=41, tag="t")
+    toks, logits = {}, {}
+    for tp, impl in ((1, "auto"), (2, "auto"), (2, "ref"), (16, "auto")):
+        te = FlowServe(cfg2, params, _engine_config(cfg2, torch.float32,
+                                                    impl, tp=tp), device=dev)
+        if impl == "auto":
+            logits[tp] = _decode_logits(te, reqs[0].prompt_tokens[:64])
+        for r in _requests(cfg2, 4, 0, seed=41, tag="t"):
+            te.add_request(r)
+        got = {c.req_id: c.tokens for c in te.run_to_completion()}
+        toks[tp, impl] = [got[r.req_id] for r in reqs]
+        del te
+        _release()
+    assert toks[2, "auto"] == toks[2, "ref"], \
+        "tp 2: the kernel and plain paths differ"
+    out = {"kernel_vs_plain_tp2_identical": True}
+    for tp in (2, 16):
+        d = float((logits[tp] - logits[1]).abs().max())
+        ties = _same_tokens(cfg2, params, dev, reqs, toks[1, "auto"],
+                            toks[tp, "auto"], f"tp {tp} vs tp 1")
+        out[f"tp{tp}_vs_tp1"] = dict(
+            identical=toks[tp, "auto"] == toks[1, "auto"],
+            near_ties=ties, max_logit_diff=d)
+    log(f"  tp parity {cfg.name} x{n_layers} layers fp32: " + json.dumps(out))
+    del params
+    _release()
+    return out
+
+
+def tp_fork(cfg, params, dev):
+    """``FlowServe.fork_from`` a tp-2 TE onto a new tp-2 TE: every shard
+    bit-equal to the source's, in new storage; the copies' device time by
+    CUDA events against 2 x bytes / HBM rate."""
+    import torch
+    from repro_torch.engine import FlowServe
+    from repro_torch.engine.distflow import _nbytes, tree_leaves
+    ecfg = _engine_config(cfg, torch.bfloat16, tp=2)
+    src = FlowServe(cfg, params, ecfg, name="tp-src", device=dev)
+    torch.cuda.synchronize()
+    fork = FlowServe.fork_from(src, ecfg, name="tp-fork")
+    torch.cuda.synchronize()
+    src_ptrs = {t.data_ptr() for t in tree_leaves(src.runner.params)}
+    for r in range(2):
+        a = tree_leaves(src.runner.params[r])
+        b = tree_leaves(fork.runner.params[r])
+        assert len(a) == len(b) and all(
+            torch.equal(x, y) and y.data_ptr() not in src_ptrs
+            for x, y in zip(a, b)), f"rank {r}'s forked shards differ"
+    nbytes = _nbytes(fork.runner.params)
+    ms = _ev_ms(fork.transfer_timing["fork"])
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(fork_ms=ms, fork_bytes=nbytes, fork_bound_ms=bound,
+               fork_gb_per_s=nbytes / ms / 1e6, bound_over_fork=bound / ms,
+               shards_bit_equal_new_storage=True, card=card_line())
+    log("  tp fork: " + json.dumps(out))
+    del src, fork
+    _release()
+    return out
+
+
+def tp_plane(cfg, dev):
+    """``ServingJobEngine`` over ``TopologySpec(pd=1, colo=1, tp=2)``: three
+    tp-2 TEs, whose shards are views of the plane's one weights tree,
+    sized from ``mem_get_info`` first (the depth cut, if the full model
+    does not fit, is printed), serve the phase-3 requests round-robin."""
+    import torch
+    from repro_torch.engine.distflow import _nbytes
+    from repro_torch.models import transformer as T
+    _release()
+    free, _ = torch.cuda.mem_get_info()
+    layers = cfg.n_layers
+    while True:
+        c = dataclasses.replace(cfg, n_layers=layers)
+        w = _nbytes(T.init_params(c, torch.Generator(), torch.bfloat16,
+                                  "meta"))
+        need = w + 3 * _pool_bytes(c, 2) + 4 * 2**30
+        if need <= free or layers == 1:
+            break
+        layers -= 1
+    cut = "" if layers == cfg.n_layers else \
+        f" (depth cut from {cfg.n_layers}: the fleet does not fit)"
+    log(f"  tp plane: {layers} layers{cut}; the weights tree and 3 tp-2 "
+        f"TEs' pools need ~{need / 2**30:.1f} GiB of {free / 2**30:.1f} "
+        f"free")
+    assert need <= free, "the tp-2 plane does not fit the card"
+    c = dataclasses.replace(cfg, n_layers=layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(c, gen, torch.bfloat16, dev)
+    out = fleet_serve(c, params, dev, "round_robin", 0,
+                      _requests(c, 8, 2, seed=0, tag="p"), _heat(cfg),
+                      topo="pd=1,colo=1,tp=2")
+    out["layers"], out["full_layers"] = layers, cfg.n_layers
+    del params
+    _release()
+    return out
+
+
+def phase7(dev):
+    """Tensor parallelism of the paged family on the card: the attention
+    kernels at one rank's shapes; qwen3-8b at tp 2 and granite-moe-3b-a800m
+    at tp 4 serving at full width (launches: n_layers x tp per decode
+    iteration and per prefill pass); fp32 parity at 2 layers (kernel vs
+    plain at tp 2 exactly; tp 2 and tp 16 vs tp 1 up to near-ties); a
+    qwen3-8b PD pair from tp 4 to tp 2 at full width (the migrated run
+    bit-identical after the import lands, one migration's device time)
+    and its 2-layer fp32 tokens against a colocated tp-2 TE; a fork onto
+    tp 2; the plane at tp 2. Returns the per-rank kernel rows and each
+    kernel's launches on this path, per (arch, kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    log(f"phase 7: attention kernels at one rank's shape "
+        f"[{time.monotonic() - T0:.1f} s]")
+    rows = tp_rows(dev)
+    launches = {}
+    for name, tp, n_greedy, n_sampled in TP_SERVED:
+        cfg = get_config(name)
+        log(f"phase 7: full-width serving ({name}, tp {tp}, {cfg.n_layers} "
+            f"layers, bf16) [{time.monotonic() - T0:.1f} s]")
+        out = serve(cfg, dev, n_greedy, n_sampled, tp=tp)
+        # at full width both archs' attention splits (granite: 24 / 8 heads)
+        assert out["attention_ranks"] == tp, out["attention_ranks"]
+        assert out["paged_attention_per_decode_iteration"] \
+            == out["flash_prefill_per_prefill_pass"] == cfg.n_layers * tp
+        for k in PAGED:
+            launches[name, k] = out["launches"][k]
+        for r in rows:
+            if r["arch"] == f"{name} tp{tp}":
+                r["launches"] = out["launches"][r["name"]]
+    qwen = get_config("qwen3-8b")
+    log(f"phase 7: tp parity ({qwen.name}, 2 layers, fp32) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    tp_parity(qwen, dev)
+    log(f"phase 7: PD tp 4 -> tp 2 ({qwen.name}, full width, bf16) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(qwen, gen, torch.bfloat16, dev)
+    pd = serve_pd(qwen, params, dev, 8, 2, tp=(4, 2))
+    assert pd["check_run_bit_identical"]
+    for k, te in (("flash_prefill", "launches_prefill_te"),
+                  ("paged_attention", "launches_decode_te")):
+        launches["qwen3-8b", k] += pd[te][k]
+    log(f"phase 7: fork onto tp 2 ({qwen.name}, full width, bf16) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    tp_fork(qwen, params, dev)
+    del params
+    _release()
+    log(f"phase 7: PD tp 4 -> tp 2 vs colocated tp 2 ({qwen.name}, 2 "
+        f"layers, fp32) [{time.monotonic() - T0:.1f} s]")
+    pd_parity(qwen, dev, 2, tp=(4, 2))
+    log(f"phase 7: serving plane pd=1,colo=1,tp=2 ({qwen.name}, bf16) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    plane = tp_plane(qwen, dev)
+    for k in PAGED:
+        launches["qwen3-8b", k] += plane["launches"][k]
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet"],
+    ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet",
+                                       "tp"],
                     default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
                          "new kernel); 'pd' runs phases 1 and 5 alone, "
-                         "'fleet' phases 1 and 6")
+                         "'fleet' phases 1 and 6, 'tp' phases 1 and 7")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2247,8 +2545,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
 
-    if args.only in ("pd", "fleet"):
-        (phase5 if args.only == "pd" else phase6)(dev)
+    if args.only in ("pd", "fleet", "tp"):
+        {"pd": phase5, "fleet": phase6, "tp": phase7}[args.only](dev)
         log(card)
         return 0
 
@@ -2307,11 +2605,14 @@ def main() -> int:
 
     pd = phase5(dev)
     fleet = phase6(dev)
+    tp_kernels, tp_launches = phase7(dev)
     for r in rows:
         r["launches_pd"] = pd[r["arch"], r["name"]]
         r["launches_fleet"] = fleet[r["arch"], r["name"]]
+        r["launches_tp"] = tp_launches.get((r["arch"], r["name"]))
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
+    log(json.dumps({"tp_kernels": tp_kernels}))
     log(json.dumps({"arch_kernels": arch}))
     log(json.dumps({"kernels": rows}))
     log(card)

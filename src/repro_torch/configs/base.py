@@ -175,6 +175,11 @@ class ModelConfig:
         return self.param_count() \
             - (e.n_experts - e.top_k) * per * self.n_layers
 
+    def tp_heads_ok(self, tp: int) -> bool:
+        """The query heads split evenly over ``tp`` ranks (the reference's
+        ``tp_heads_ok``, ``configs/base.py:205``)."""
+        return self.n_heads % tp == 0
+
 
 _REGISTRY: dict = {}
 

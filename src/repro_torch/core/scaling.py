@@ -12,8 +12,9 @@ Two kinds of thing live here.
   modelled clocks agree; none of their figures is a measurement of the
   card the port runs on.
 * **Real state.** ``WarmPool`` holds host copies of real weights (pinned
-  when they came from a card); ``npu_fork_live`` copies every parameter
-  tensor of a live TE into new storage on the destination device.
+  when they came from a card, one copy per distinct storage);
+  ``npu_fork_live`` copies every shard of a live TE into new storage on
+  the destination mesh, re-split when the two TEs' tp differ.
 
 One difference from the reference: on a single device, the reference's
 fork (``jax.device_put`` onto the device the params already live on)
@@ -32,8 +33,10 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.engine.distflow import (BACKENDS, BufferInfo, DistFlow,
-                                         _fanout_penalty, _nbytes, tree_leaves,
-                                         tree_map)
+                                         _fanout_penalty, _nbytes,
+                                         map_distinct, tree_leaves, tree_map)
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import EngineMesh
 
 
 @dataclass
@@ -94,17 +97,26 @@ def _first_device(tree) -> torch.device:
 
 
 def copy_to_host(tree):
-    """A host copy of a weights tree. From a card, the copy lands in ONE
-    pinned buffer allocated first (views of it, 256-byte aligned, keep the
-    tree's structure), filled by ``non_blocking=True`` copies behind one
-    CUDA event pair and waited for once at the end; CPU tensors are
+    """A host copy of a weights tree (a TE's list of rank trees), one copy
+    per distinct storage: leaves that share one (a replicated tensor the
+    ranks refer to) share their host copy. From a card, the copy lands in
+    ONE pinned buffer allocated first (views of it, 256-byte aligned, keep
+    the tree's structure), filled by ``non_blocking=True`` copies behind
+    one CUDA event pair and waited for once at the end; CPU tensors are
     cloned. Returns ``(host_tree, pin_s, events)``: the host seconds the
     pinned allocation took and the copies' event pair (0.0 and None off a
     card)."""
     dev = _first_device(tree)
+    leaves = tree_leaves(tree)
     if dev.type != "cuda":
-        return tree_map(lambda t: t.detach().clone(), tree), 0.0, None
-    srcs = tree_leaves(tree)
+        host = iter(map_distinct(lambda t: t.detach().clone(), leaves))
+        return tree_map(lambda _: next(host), tree), 0.0, None
+    srcs: list = []                # the distinct leaves, in order
+
+    def index(t):
+        srcs.append(t)
+        return len(srcs) - 1
+    which = map_distinct(index, leaves)
     offs, total = [], 0
     for t in srcs:
         offs.append(total)
@@ -112,33 +124,37 @@ def copy_to_host(tree):
     t0 = time.monotonic()
     buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
     pin_s = time.monotonic() - t0
-    views = iter(buf[o:o + t.nbytes].view(t.dtype).view(t.shape)
-                 for o, t in zip(offs, srcs))
-    host = tree_map(lambda _: next(views), tree)
+    dsts = [buf[o:o + t.nbytes].view(t.dtype).view(t.shape)
+            for o, t in zip(offs, srcs)]
+    host = iter([dsts[i] for i in which])
+    host_tree = tree_map(lambda _: next(host), tree)
     ev = _events(dev)
-    for dst, src in zip(tree_leaves(host), srcs):
+    for dst, src in zip(dsts, srcs):
         dst.copy_(src, non_blocking=True)
     ev[1].record(torch.cuda.current_stream(dev))
     ev[1].synchronize()         # the host copy is read by the pool's users
-    return host, pin_s, ev
+    return host_tree, pin_s, ev
 
 
-def copy_to_device(tree, device: torch.device):
-    """Every tensor of ``tree`` copied into new storage on ``device``, each
-    ``copy_`` enqueued with ``non_blocking=True`` on the device's current
-    stream (the stream the plane steps on; nothing waits). Device to
-    device for a fork, host to device (from pinned memory) for a warm
-    bring-up. Returns ``(new_tree, events)``: the copies' CUDA event pair
-    on a card, else None."""
-    ev = _events(device)
-
-    def copy(t):
-        dst = torch.empty(t.shape, dtype=t.dtype, device=device)
-        dst.copy_(t, non_blocking=True)
-        return dst
-    out = tree_map(copy, tree)
+def copy_to_device(rank_trees: list, mesh: EngineMesh):
+    """Rank r's tree copied into new storage on rank r's device, for every
+    rank of ``mesh``, each ``copy_`` enqueued with ``non_blocking=True`` on
+    the device's current stream (the stream the plane steps on; nothing
+    waits): a warm bring-up's host-to-device upload (from pinned memory).
+    A host tensor that several ranks on one device share is uploaded
+    once. Returns ``(new_rank_trees, events)``: the copies' CUDA event
+    pair on rank 0's card, else None."""
+    ev = _events(mesh.device)
+    out: list = [None] * mesh.tp
+    for dev in mesh.distinct:
+        rs = [r for r, d in enumerate(mesh.devices) if d == dev]
+        leaves = [t for r in rs for t in tree_leaves(rank_trees[r])]
+        new = iter(map_distinct(lambda t: SH.place(t, dev, copy=True),
+                                leaves))
+        for r in rs:
+            out[r] = tree_map(lambda _: next(new), rank_trees[r])
     if ev is not None:
-        ev[1].record(torch.cuda.current_stream(device))
+        ev[1].record(torch.cuda.current_stream(mesh.device))
     return out, ev
 
 
@@ -270,34 +286,32 @@ class LoadResult:
     events: Any = None                  # live fork on a card: its copies' CUDA event pair
 
 
-def npu_fork_live(params, cfg, dst_mesh, source: Optional[DistFlow] = None,
-                  link: str = "ici", dst_device=None,
+def npu_fork_live(params: list, cfg, dst_mesh: EngineMesh,
+                  source: Optional[DistFlow] = None, link: str = "ici",
                   target_owners=(), contention: float = 1.0):
     """NPU-fork (§6.3, DESIGN.md §7): bring a new TE's weights up from a
-    live TE's resident params instead of re-initializing them.
+    live TE's resident shards (``params``, one tree per source rank)
+    instead of re-initializing them.
 
-    At tp = 1 (``dst_mesh=None``) every parameter tensor is copied into
-    new storage on ``dst_device`` (default: where the params lie), device
-    to device, each ``copy_`` non-blocking on the stream the plane steps
-    on (the ``LoadResult``'s ``events`` is the copies' CUDA event pair on
-    a card).
-    The transfer is priced as the reference prices it: on ``source``'s
-    DistFlow clock and log when given (``link="dcn"`` prices the
-    scale-out fallback over one per-host link), so both packages'
-    simulated clocks stay twins. Returns ``(forked_params, LoadResult)``.
-    A sharded destination (``dst_mesh``) needs tensor parallelism, which
-    the port does not have yet."""
-    if dst_mesh is not None:
-        raise NotImplementedError(
-            "npu_fork_live onto a tp > 1 mesh needs tensor parallelism: "
-            "ROADMAP.md Queue 1 item 8")
-    dev = torch.device(dst_device) if dst_device is not None \
-        else _first_device(params)
-    forked, ev = copy_to_device(params, dev)
-    tp = 1
+    Every destination shard of ``dst_mesh`` is copied into new storage on
+    its rank's device, device to device, each ``copy_`` non-blocking on
+    the stream the plane steps on, and re-split by ``launch.sharding.
+    reshard`` when the source's tp and the destination's differ (the
+    ``LoadResult``'s ``events`` is the copies' CUDA event pair on a card).
+    The transfer is priced as the reference prices it: the whole model's
+    bytes (a replicated leaf once) over ``dst_mesh.tp`` parallel "ici"
+    links, on ``source``'s DistFlow clock and log when given
+    (``link="dcn"`` prices the scale-out fallback over one per-host link),
+    so both packages' simulated clocks stay twins. Returns
+    ``(forked_rank_trees, LoadResult)``."""
+    ev = _events(dst_mesh.device)
+    forked = SH.reshard_tree(params, SH.te_param_specs(cfg, len(params)),
+                             SH.te_param_specs(cfg, dst_mesh.tp), dst_mesh)
+    if ev is not None:
+        ev[1].record(torch.cuda.current_stream(dst_mesh.device))
     n = _nbytes(params)
     backend = "ici" if link == "ici" else "dcn"
-    links = tp if backend == "ici" else 1
+    links = dst_mesh.tp if backend == "ici" else 1
     if source is not None:
         # charge() advances the source clock AND every linked target's, and
         # the contention multiplier lands in the clock/log too, so the

@@ -30,13 +30,16 @@ The fleet is a runtime (``core/fleet.py``):
 * **fault recovery** (``core/faults.py``): a failed unit is quarantined
   and its requests restart once each on survivors.
 
-Device windows: a TE owns one device (``_device_count``: the visible
-cards of a CUDA plane, one for a CPU plane). On one card every TE after
-the first takes window 0 unowned, the reference's simulated co-residence
-branch; all of them then share the card. The initial fleet's TEs share
-the one weights tree the plane is given; a forked or warm TE owns its
-copy. Tensor parallelism (``TopologySpec.tp > 1``) waits for ROADMAP.md
-Queue 1 item 8.
+Device windows: a TE owns ``tp`` devices from its window's offset
+(``EngineConfig.device_offset``; ``_device_count``: the visible cards of
+a CUDA plane, one for a CPU plane). On one card every TE after the first
+takes window 0 unowned, the reference's simulated co-residence branch;
+all of them then share the card, and so do a TE's ranks. The initial
+fleet's TEs share the one weights tree the plane is given (each TE's
+shards are views of it on its device); a forked or warm TE owns its copy.
+``TopologySpec.tp`` and ``EngineConfig.tp`` are merged as the reference
+merges them; the paged family serves at tp > 1, the slot family refuses
+it (ROADMAP.md Queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -166,15 +169,23 @@ class ServingJobEngine:
                  device="cuda"):
         if policy not in ("dist_sched", "round_robin"):
             raise ValueError(f"unknown policy {policy!r}")
-        if topology.tp > 1:
-            raise NotImplementedError(
-                f"tp={topology.tp}: tensor parallelism is ROADMAP.md "
-                f"Queue 1 item 8")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.topology = topology
-        self._base_ecfg = ecfg if ecfg is not None else EngineConfig()
+        base = ecfg if ecfg is not None else EngineConfig()
+        # TopologySpec.tp and EngineConfig.tp describe the same thing;
+        # whichever side was set wins, conflicting non-defaults are an error
+        # (the reference's serving_plane.py:158-167)
+        if base.tp != topology.tp:
+            if base.tp == 1:
+                base = replace(base, tp=topology.tp)
+            elif topology.tp == 1:
+                topology.tp = base.tp
+            else:
+                raise ValueError(f"conflicting tp: EngineConfig.tp={base.tp} "
+                                 f"vs TopologySpec.tp={topology.tp}")
+        self._base_ecfg = base
         self._offset_cursor = 0
         self._free_windows: List[int] = []      # released device windows
         self._window_of: Dict[str, int] = {}    # engine name -> owned window
@@ -260,9 +271,9 @@ class ServingJobEngine:
         off, owned = self._alloc_window()
         te = None
         try:
-            ecfg = replace(self._base_ecfg, mode=mode)
+            ecfg = replace(self._base_ecfg, mode=mode, device_offset=off)
             te = FlowServe(self.cfg, self.params, ecfg, name=name,
-                           device=self._window_device(off))
+                           device=self.device)
             self._commit_window(name, off, owned)
         finally:
             if te is None:              # bring-up raised: free the window
@@ -278,13 +289,6 @@ class ServingJobEngine:
         WHOLE fleet, not just the seed TEs."""
         if self.fault_plan is not None:
             self.fault_plan.attach(te)
-
-    def _window_device(self, off: int) -> torch.device:
-        """The device of the window at ``off``: that card of a CUDA plane,
-        the CPU for a CPU plane."""
-        if self.device.type == "cuda":
-            return torch.device("cuda", off)
-        return self.device
 
     def _alloc_window(self) -> Tuple[int, bool]:
         """Disjoint per-TE device windows (DESIGN.md §7/§9) — width tp, or
@@ -948,15 +952,14 @@ class ServingJobEngine:
         off, owned = self._alloc_window()
         te = src_engine = None
         try:
-            ecfg = replace(self._base_ecfg, mode=mode)
+            ecfg = replace(self._base_ecfg, mode=mode, device_offset=off)
             for attempt in range(self.fork_max_attempts):
                 if not candidates:
                     break
                 src_engine = candidates[attempt % len(candidates)]
                 try:
-                    te = FlowServe.fork_from(
-                        src_engine, ecfg, name=name,
-                        device=self._window_device(off))
+                    te = FlowServe.fork_from(src_engine, ecfg, name=name,
+                                             device=self.device)
                     break
                 except ForkFault:
                     time.sleep(backoff_s(attempt))
@@ -1091,7 +1094,8 @@ class ServingJobEngine:
                 off, owned = self._alloc_window()
                 name = f"te-scale{self._scale_seq}"
                 self._scale_seq += 1
-                ecfg = replace(self._base_ecfg, mode="colocated")
+                ecfg = replace(self._base_ecfg, mode="colocated",
+                               device_offset=off)
                 if j < n_fork:
                     tier, src = "fork", sources[j]
                 elif warm_params is not None:
@@ -1101,7 +1105,7 @@ class ServingJobEngine:
                 pace_s = tier_seconds(pace, tier) if pace is not None else 0.0
                 jobs.append((name, off, owned, tier,
                              src.name if src is not None else None,
-                             self._job_bring_up(name, ecfg, off, tier, src,
+                             self._job_bring_up(name, ecfg, tier, src,
                                                 warm_params, warmup,
                                                 pace_s=pace_s)))
             t_round = time.monotonic()
@@ -1162,9 +1166,9 @@ class ServingJobEngine:
         plan["n_serving"] = self.n_serving()
         return plan
 
-    def _job_bring_up(self, name: str, ecfg: EngineConfig, off: int,
-                      tier: str, src: Optional[FlowServe], warm_params,
-                      warmup: bool, pace_s: float = 0.0):
+    def _job_bring_up(self, name: str, ecfg: EngineConfig, tier: str,
+                      src: Optional[FlowServe], warm_params, warmup: bool,
+                      pace_s: float = 0.0):
         """One bring-up closure, safe to run on an executor thread: builds
         the TE through its tier's path (fork: a copy of the source's
         weights; warm: an upload of the pool entry; cold: construction on
@@ -1174,7 +1178,7 @@ class ServingJobEngine:
         full-size tier cost (a sleep releases the GIL, so padded jobs in
         one round overlap as transfers on independent links would).
         Registration stays on the JE thread."""
-        dev = self._window_device(off)
+        dev = self.device
 
         def job():
             t0 = time.monotonic()
@@ -1186,8 +1190,8 @@ class ServingJobEngine:
             else:
                 te = FlowServe(self.cfg, self.params, ecfg, name=name,
                                device=dev)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            if te.device.type == "cuda":
+                torch.cuda.synchronize(te.device)
             if warmup:
                 te.warmup_decode(max_pages=2, horizons=[1])
             left = pace_s - (time.monotonic() - t0)

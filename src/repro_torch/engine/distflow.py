@@ -16,10 +16,12 @@ figure of the card the port runs on, and nothing here measures the card:
 the device time of a migration is read with CUDA events by whoever wants
 it (``chip_smoke.py`` phase 5).
 
-``transfer_sharded`` splits a run into layer chunks, copies each chunk to
-the destination device and records a CUDA event after it. On one card
-source and destination share the device, so the copy is a no-op and the
-gather that built the run was the move; across cards it is a peer copy.
+``transfer_sharded`` splits a run (one run per source rank) into layer
+chunks, puts each chunk in the destination pool's layout and records a
+CUDA event after it. On one card at one layout source and destination
+share the device, so the move is a no-op and the gather that built the
+run was the move; across cards it is a peer copy, and between two tp the
+KV heads are re-split in flight.
 Every engine enqueues on the default stream, and so does DistFlow: the
 gather is ordered before any later write to the source pages, and the
 importer's stream waits on each chunk's event (``wait_chunk``) with no
@@ -35,6 +37,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.launch.sharding import reshard
 
 BACKENDS = {
     "ici": {"bw": 50e9, "lat": 1e-6},
@@ -104,7 +108,8 @@ class MigrationHandle:
     def wait_chunk(self, i: int) -> Tuple[int, Any, Any]:
         ev = self.events[i]
         if ev is not None:
-            torch.cuda.current_stream(self.chunks[i][1].device).wait_event(ev)
+            for dev in {t.device for t in self.chunks[i][1]}:
+                torch.cuda.current_stream(dev).wait_event(ev)
         self._land(i)
         return self.chunks[i]
 
@@ -127,18 +132,59 @@ class MigrationHandle:
         return self.xfer.n_bytes
 
 
+def _storage_key(t: torch.Tensor):
+    """What makes two tensors the same bytes: device, first element's
+    address and size (a tensor without storage, on the meta device, is
+    only itself)."""
+    return (t.device, t.data_ptr() or id(t), t.nbytes)
+
+
+def map_distinct(fn, tensors: List[torch.Tensor]) -> list:
+    """``fn`` over each distinct storage among ``tensors`` once, in order;
+    entries that share a storage (a replicated tensor the ranks on one
+    device refer to) share the result. The one place the port decides
+    what counts once: DistFlow's byte counts, host copies of page runs,
+    the DRAM tier and the warm pool all go through it."""
+    done: Dict[Any, Any] = {}
+    out = []
+    for t in tensors:
+        key = _storage_key(t)
+        if key not in done:
+            done[key] = fn(t)
+        out.append(done[key])
+    return out
+
+
 def _nbytes(x) -> int:
     """Bytes of a payload, summed over its leaves (dict values, list and
     tuple items) as the reference sums a pytree's: a tensor's or array's
-    ``nbytes`` (no copy to the host), any other leaf's as a numpy scalar."""
+    ``nbytes`` (no copy to the host), any other leaf's as a numpy scalar.
+    A storage that several leaves refer to counts once, as the reference
+    counts a replicated global array once (``map_distinct``)."""
+    leaves: list = []
+    _leaves(x, leaves)
+    tensors = [t for t in leaves if torch.is_tensor(t)]
+    seen = {_storage_key(t): int(t.nbytes) for t in tensors}
+    return sum(seen.values()) + sum(_leaf_nbytes(v) for v in leaves
+                                    if not torch.is_tensor(v))
+
+
+def _leaf_nbytes(v) -> int:
+    nb = getattr(v, "nbytes", None)
+    return int(nb) if nb is not None else int(np.asarray(v).nbytes)
+
+
+def _leaves(x, out: list) -> None:
     if x is None:
-        return 0
+        return
     if isinstance(x, dict):
-        return sum(_nbytes(v) for v in x.values())
-    if isinstance(x, (list, tuple)):
-        return sum(_nbytes(v) for v in x)
-    nb = getattr(x, "nbytes", None)
-    return int(nb) if nb is not None else int(np.asarray(x).nbytes)
+        for v in x.values():
+            _leaves(v, out)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _leaves(v, out)
+    else:
+        out.append(x)
 
 
 def tree_map(fn, tree):
@@ -245,33 +291,38 @@ class DistFlow:
 
     # -------------------------------------------------------- data (v2)
     def transfer_sharded(self, kv: Dict[str, Any], dst_owner: str, *,
-                         dst_device: Any = None, src_tp: int = 1,
-                         dst_tp: int = 1, layer_chunks: int = 4,
+                         src_dim, dst, src_tp: int, dst_tp: int,
+                         layer_chunks: int = 4,
                          backend: Optional[str] = None) -> MigrationHandle:
         """Device-resident page-run transfer (DistFlow v2). ``kv`` holds
-        runs ``{"k", "v"}`` of shape (L, NP_run, P, Hkv, hd); they go in
-        ``layer_chunks`` layer-contiguous chunks to ``dst_device`` (None:
-        stay where they are), an event recorded after each chunk's copy.
-        Priced per parallel link: min(src_tp, dst_tp) "ici" links each
-        carry bytes/links. Returns the handle at once; nothing waits."""
+        runs ``{"k", "v"}``, one per source rank (L, NP_run, P, Hkv/tp,
+        hd), split on ``src_dim`` (None: one run the ranks share). They go
+        in ``layer_chunks`` layer-contiguous chunks onto ``dst`` = (mesh,
+        head split) of the destination pool (``run_sharding``), each chunk
+        re-split by ``launch.sharding.reshard`` when the layouts differ
+        (P at tp 4 -> D at tp 2 joins adjacent head shards pairwise) and
+        left as it is when it already lies where it must; an event is
+        recorded after each chunk. Priced per parallel link: min(src_tp,
+        dst_tp) "ici" links each carry bytes/links, a replicated run
+        counted once. Returns the handle at once; nothing waits."""
         backend = backend or self.default_backend
         if self.fault_hook is not None:
             self.fault_hook(self.owner, dst_owner, _nbytes([kv["k"], kv["v"]]))
         t0 = time.monotonic()
         k, v = kv["k"], kv["v"]
-        n_layers = int(k.shape[0])
+        dst_mesh, dst_dim = dst
+        n_layers = int(k[0].shape[0])
         step = max(1, -(-n_layers // max(1, layer_chunks)))
         chunks: List[Tuple[int, Any, Any]] = []
         events: List[Optional[Any]] = []
         for l0 in range(0, n_layers, step):
-            kc, vc = k[l0:l0 + step], v[l0:l0 + step]
-            if dst_device is not None:
-                kc = kc.to(dst_device, non_blocking=True)
-                vc = vc.to(dst_device, non_blocking=True)
+            kc, vc = ([t[l0:l0 + step] for t in runs] for runs in (k, v))
+            kc, vc = (reshard(c, src_dim, dst_dim, dst_mesh, copy=False)
+                      for c in (kc, vc))
             ev = None
-            if kc.is_cuda:
+            if kc[0].is_cuda:
                 ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(kc.device))
+                ev.record(torch.cuda.current_stream(kc[0].device))
             chunks.append((l0, kc, vc))
             events.append(ev)
         links = max(1, min(src_tp, dst_tp)) if backend == "ici" else 1

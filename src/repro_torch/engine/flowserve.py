@@ -36,7 +36,16 @@ or uploaded from a ``WarmPool`` entry (``from_warm``); ``release_params``
 drains a TE's weights to pinned host memory for that pool. A
 ``FaultPlan`` (``core/faults.py``) hooks ``step``, ``migrate_out`` and
 ``fork_from``; ``void_pending_imports`` and ``cancel_queued`` let the
-plane recover and drain. Tensor parallelism waits for its slice.
+plane recover and drain.
+
+Tensor parallelism (``EngineConfig.tp``, the paged family): the TE's
+ranks form one ``launch.mesh.EngineMesh``, built once; the constructor
+shards the full weights tree it is given (``launch/sharding.py``), and a
+TE's weights are always the list of its ranks' trees (one at tp 1), its
+pool one pool per rank and a page run one run per rank. A migration
+re-splits the KV heads when the two TEs' tp differ, and a fork re-splits
+the weights onto the new TE's mesh. A slot-family TE refuses tp > 1: its
+tensor parallelism is ROADMAP.md Queue 1 item 8b.
 """
 from __future__ import annotations
 
@@ -54,7 +63,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.distflow import (BufferInfo, DistFlow, TransferFault,
-                                         _nbytes, tree_leaves, tree_map)
+                                         _nbytes, tree_leaves)
 from repro_torch.engine.hotloop import (DecodeHotState, pow2_bucket, pow2s,
                                         to_device)
 from repro_torch.engine.kv_cache import (OutOfPagesError, PagedKVPool,
@@ -66,6 +75,8 @@ from repro_torch.engine.scheduler import Scheduler, SchedulerConfig
 from repro_torch.engine.tokenizer import EOS_ID, ByteTokenizer
 from repro_torch.kernels import counts
 from repro_torch.kernels import flash_prefill as FP
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import EngineMesh, make_engine_mesh
 from repro_torch.models import serving as S
 from repro_torch.models import transformer as T
 
@@ -106,6 +117,8 @@ class Completion:
 @dataclass
 class EngineConfig:
     mode: str = "colocated"             # colocated | prefill | decode
+    tp: int = 1                         # ranks of the TE's mesh
+    device_offset: int = 0              # first device of its 1 x tp window
     n_pages: int = 256                  # paged family: pool pages
     page_size: int = 16
     n_slots: int = 8                    # slot family: slots
@@ -163,12 +176,39 @@ def _shapes(tree):
 class FlowServe:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  name: str = "te-0", device="cuda"):
+        """A TE of ``cfg`` over the full weights tree ``params``, sharded
+        here over its mesh: ``ecfg.tp`` ranks from ``ecfg.device_offset``
+        past ``device`` (``launch/mesh.py``)."""
+        mesh = make_engine_mesh(ecfg.tp, ecfg.device_offset,
+                                resolve_device(device))
+        self._setup(cfg, ecfg, name, mesh)
+        self._build(SH.shard(params, self.param_specs, mesh))
+
+    @classmethod
+    def _from_ranks(cls, cfg: ModelConfig, ranks: list, ecfg: EngineConfig,
+                    name: str, mesh: EngineMesh) -> "FlowServe":
+        """A TE over its ranks' weights trees, already on ``mesh`` (a fork
+        or a warm upload)."""
+        te = cls.__new__(cls)
+        te._setup(cfg, ecfg, name, mesh)
+        te._build(ranks)
+        return te
+
+    def _setup(self, cfg: ModelConfig, ecfg: EngineConfig, name: str,
+               mesh: EngineMesh) -> None:
         self._lock = threading.RLock()   # executor safety (DESIGN.md §9)
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
         self.name = name
         self.family = resolve_family(cfg)
+        if ecfg.tp > 1 and not self.family.uses_pages:
+            raise NotImplementedError(
+                f"{cfg.name}: tensor parallelism of the slot family "
+                f"(tp={ecfg.tp}) is ROADMAP.md Queue 1 item 8b")
+        self.mesh = mesh
+        # rank 0's device: activations, sampling and the decode hot state
+        self.device = mesh.device
+        self.param_specs = SH.te_param_specs(cfg, ecfg.tp)
         self.tokenizer = ByteTokenizer(max(cfg.vocab_size, 259))
         self.distflow = DistFlow(owner=name)
         self.fault_plan = None           # set by FaultPlan.attach (§11)
@@ -182,19 +222,20 @@ class FlowServe:
         # stepping thread (counts.thread_tally), exact under fleet threads
         self.kernel_launches: Dict[str, int] = dict.fromkeys(counts.NAMES, 0)
 
-        params = tree_map(lambda t: t.to(self.device), params)
+    def _build(self, ranks: list) -> None:
+        cfg, ecfg = self.cfg, self.ecfg
         if self.family.uses_pages:
             self.pool = PagedKVPool(cfg, ecfg.n_pages, ecfg.page_size,
-                                    ecfg.dtype, self.device)
+                                    ecfg.dtype, self.mesh)
             cm = RTCCostModel(flops_per_token=2.0 * cfg.active_param_count())
             self.rtc = RelationalTensorCache(self.pool, cm)
-            self.runner = self.family.runner_cls(cfg, params, self.pool,
+            self.runner = self.family.runner_cls(cfg, ranks, self.pool,
                                                  impl=ecfg.kernel_impl)
         else:
             self.pool = None
             self.rtc = None
             self.runner = self.family.runner_cls(
-                cfg, params, ecfg.n_slots, ecfg.max_len, ecfg.dtype,
+                cfg, ranks, ecfg.n_slots, ecfg.max_len, ecfg.dtype,
                 self.device, impl=ecfg.kernel_impl)
             # token prefix -> slot snapshot (the recurrent prefix cache)
             self._state_cache: Dict[tuple, dict] = {}
@@ -234,22 +275,25 @@ class FlowServe:
                   name: str = "te-fork", link: str = "ici",
                   device=None) -> "FlowServe":
         """NPU-fork (§6.3): bring up a new TE from a live TE's resident
-        weights instead of re-initializing them. Every parameter is copied
-        into new storage on ``device`` (default: the source's), device to
-        device on the stream the fleet steps on (``npu_fork_live``); the
-        source's DistFlow prices the transfer as the reference does and the
-        new TE's clock observes it too. The new TE joins the source's peer
-        group. Holds the source's lock, so a fleet worker stepping the
+        weights instead of re-initializing them. Every shard of the new
+        TE's mesh (``ecfg.tp`` ranks from ``ecfg.device_offset`` past
+        ``device``, default the source's device) is copied into new
+        storage, device to device on the stream the fleet steps on, and
+        re-split when the two TEs' tp differ (``npu_fork_live``); the
+        source's DistFlow prices the transfer as the reference does and
+        the new TE's clock observes it too. The new TE joins the source's
+        peer group. Holds the source's lock, so a fleet worker stepping the
         source waits."""
         from repro_torch.core.scaling import npu_fork_live
         if source.fault_plan is not None:
             source.fault_plan.on_fork(source)
         dev = source.device if device is None else resolve_device(device)
+        mesh = make_engine_mesh(ecfg.tp, ecfg.device_offset, dev)
         with source._lock:
-            params, lr = npu_fork_live(
-                source.runner.params, source.cfg, None,
-                source=source.distflow, link=link, dst_device=dev)
-            te = cls(source.cfg, params, ecfg, name=name, device=dev)
+            ranks, lr = npu_fork_live(source.runner.params, source.cfg,
+                                      mesh, source=source.distflow,
+                                      link=link)
+            te = cls._from_ranks(source.cfg, ranks, ecfg, name, mesh)
             source.distflow.link_cluster([te.distflow])
         te.distflow.sim_clock += lr.seconds   # the fork target observed it
         te.transfer_timing["fork"] = lr.events
@@ -259,28 +303,31 @@ class FlowServe:
     def from_warm(cls, cfg: ModelConfig, host_params, ecfg: EngineConfig,
                   name: str = "te-warm", device="cuda") -> "FlowServe":
         """DRAM-warm bring-up (DESIGN.md §10): a TE built from a
-        ``WarmPool`` entry's host weights, uploaded to ``device`` with
-        ``non_blocking=True`` copies (from pinned memory on a card) in
-        place of model re-init. The entry is only read, so any number of
-        TEs can come up from it.
+        ``WarmPool`` entry's host weights (one host tree per rank, as
+        ``release_params`` drains them), uploaded to the mesh's devices
+        with ``non_blocking=True`` copies (from pinned memory on a card)
+        in place of model re-init. The entry is only read, so any number
+        of TEs can come up from it.
 
         Entry integrity (DESIGN.md §11): the entry's tree structure and
-        leaf shapes are checked against ``cfg`` (built on the meta device,
-        no memory) before any device memory is committed; a mismatch
-        raises ``WarmPoolMismatchError``."""
+        leaf shapes are checked against ``cfg``'s shards at ``ecfg.tp``
+        (built on the meta device, no memory) before any device memory is
+        committed; a mismatch raises ``WarmPoolMismatchError``."""
         from repro_torch.core.scaling import (WarmPoolMismatchError,
                                               copy_to_device)
-        expected = T.init_params(cfg, torch.Generator(), torch.float32,
-                                 "meta")
+        expected = SH.shard(T.meta_params(cfg), SH.te_param_specs(
+            cfg, ecfg.tp), make_engine_mesh(ecfg.tp, 0, "meta"))
         if _shapes(host_params) != _shapes(expected):
             raise WarmPoolMismatchError(
                 f"warm-pool entry does not match model "
-                f"{getattr(cfg, 'name', '?')!r} for TE {name}: tree/shape "
-                f"mismatch (expected {len(tree_leaves(expected))} leaves, "
-                f"got {len(tree_leaves(host_params))})")
-        dev = resolve_device(device)
-        params, ev = copy_to_device(host_params, dev)
-        te = cls(cfg, params, ecfg, name=name, device=dev)
+                f"{getattr(cfg, 'name', '?')!r} at tp={ecfg.tp} for TE "
+                f"{name}: tree/shape mismatch (expected "
+                f"{len(tree_leaves(expected))} leaves, got "
+                f"{len(tree_leaves(host_params))})")
+        mesh = make_engine_mesh(ecfg.tp, ecfg.device_offset,
+                                resolve_device(device))
+        ranks, ev = copy_to_device(host_params, mesh)
+        te = cls._from_ranks(cfg, ranks, ecfg, name, mesh)
         te.transfer_timing["h2d"] = ev
         return te
 
@@ -289,20 +336,20 @@ class FlowServe:
         """True while this TE's weights are device-resident, i.e. it can be
         a fork source (a TE that drained its weights back to the warm pool
         on release is not)."""
-        return getattr(self.runner, "params", None) is not None
+        return self.runner.params is not None
 
     @_executor_safe
     def release_params(self, to_host: bool = True):
         """Drain this TE's weights to host memory (the RELEASED -> WarmPool
         leg of the cold-start ladder): pinned buffers allocated, then
         non-blocking copies from the card, waited for (``transfer_timing``
-        gets "pin_s" and "d2h"). Returns the host tree (``to_host=True``)
-        or None; either way the TE drops its device references and stops
-        being a fork source (the memory returns once no other TE shares
-        the tree). Call only after the TE is empty: it cannot serve
-        afterwards."""
+        gets "pin_s" and "d2h"). Returns the host copy of the ranks' trees,
+        one copy per distinct storage (``to_host=True``), or None; either
+        way the TE drops its device references and stops being a fork
+        source (the memory returns once no other TE shares the tree). Call
+        only after the TE is empty: it cannot serve afterwards."""
         from repro_torch.core.scaling import copy_to_host
-        params = getattr(self.runner, "params", None)
+        params = self.runner.params
         if params is None:
             return None
         host = None
@@ -986,8 +1033,9 @@ class FlowServe:
             else:
                 kv = {"k": payload.pop("k"), "v": payload.pop("v")}
                 payload["kv_handle"] = self.distflow.transfer_sharded(
-                    kv, dst.name, dst_device=dst.pool.run_sharding(),
-                    layer_chunks=layer_chunks)
+                    kv, dst.name, src_dim=self.pool.spec,
+                    dst=dst.pool.run_sharding(), src_tp=self.ecfg.tp,
+                    dst_tp=dst.ecfg.tp, layer_chunks=layer_chunks)
                 dst.import_request(payload)
                 if not overlap:
                     dst.finish_pending_imports()

@@ -12,6 +12,11 @@ carries forward:
   * ``temps``/``top_ps`` (Bb,) f32 — per-row sampling params.
   * ``gen``      — the torch.Generator of the stochastic draws.
 
+On a tensor-parallel TE these O(batch) vectors live once, on rank 0's
+device (``launch.sharding.engine_decode_state_device``), where sampling
+runs on the gathered logits; each rank reads the block table and lengths
+through the mesh once per decode step.
+
 Buckets are powers of two. Batch events (join, leave, page growth) are
 incremental scatters into these tensors; a step with no event costs the
 host nothing but the horizon's launches. A host mirror of ``temps`` lets
@@ -23,6 +28,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.launch.sharding import engine_decode_state_device
 
 Row = Tuple[str, List[int], int, int, float, float]
 #     (seq_id, pages, length, last_tok, temperature, top_p)
@@ -60,7 +67,7 @@ class DecodeHotState:
 
     def __init__(self, pool, gen: torch.Generator):
         self.pool = pool
-        self.device = pool.device
+        self.device = engine_decode_state_device(pool.mesh)
         self.scratch = pool.scratch_page()  # padding rows' KV write sink
         self.gen = gen
         self.bb = 0                         # batch bucket (rows)

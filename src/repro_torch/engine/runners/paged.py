@@ -19,6 +19,14 @@ The KV pool is updated in place (``index_put_``) where the JAX package
 donates the pool to its jit and gets a new one back. Padding tokens and
 padding rows all write slot 0 of the pool's scratch page; those duplicate
 writes race, which is harmless because nothing reads that page.
+
+Tensor parallelism: the weights are a list of rank trees (one at tp 1)
+over the pool's mesh. Inside each layer every rank holding a head slice
+writes its K/V into its own pool and runs the attention kernel on its own
+shard (H/tp query and Hkv/tp KV heads); its output goes to ``block_out``,
+which all-reduces the output projections' partials. The per-rank
+operands of a pass (positions, pages, slots, block tables) are resolved
+once, before the layer loop.
 """
 from __future__ import annotations
 
@@ -31,29 +39,34 @@ from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.sampling import greedy_core, sample_core
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding as SH
 from repro_torch.models import transformer as T
 
 
 class PagedRunner:
-    """Family facade: shared state (params, pool, per-layer windows) and
-    delegation to the two phase runners."""
+    """Family facade: shared state (the ranks' weights, the pool and its
+    mesh, per-layer windows) and delegation to the two phase runners."""
 
-    def __init__(self, cfg, params, pool, impl: str = "auto"):
+    def __init__(self, cfg, params: list, pool, impl: str = "auto"):
         self.cfg = cfg
         self.pool = pool
-        self.params = params
+        self.mesh = pool.mesh
+        self.params = params                # one weights tree per rank
         self.impl = impl                    # "auto" (kernels) | "ref"
-        self.layers = [T.layer(params, li) for li in range(cfg.n_layers)]
+        # each layer's views of every rank's stacked weights
+        self.layers = [[T.layer(p, li) for p in params]
+                       for li in range(cfg.n_layers)]
         # None on global layers: the kernels then skip the window test
         self.windows = [w if w < T.GLOBAL_WINDOW else None
                         for w in T.window_schedule(cfg)]
         self.prefill = PagedPrefillRunner(self)
         self.decoder = PagedDecodeRunner(self)
 
-    def layer_attn_inputs(self, li: int, q, k_new, v_new, pages, slots):
-        """Write a layer's fresh K/V into the pool in place; return the
-        query in the pool's dtype and the layer's pool views."""
-        kp, vp = self.pool.k[li], self.pool.v[li]
+    def layer_attn_inputs(self, li: int, r: int, q, k_new, v_new, pages,
+                          slots):
+        """Write rank r's fresh K/V of layer ``li`` into its pool in place;
+        return the query in the pool's dtype and the layer's pool views."""
+        kp, vp = self.pool.k[r][li], self.pool.v[r][li]
         kp.index_put_((pages, slots), k_new.to(kp.dtype))
         vp.index_put_((pages, slots), v_new.to(vp.dtype))
         return q.to(kp.dtype), kp, vp
@@ -76,10 +89,11 @@ class PagedRunner:
 
     # ------------------------------------------------------------ PD export
     def export_kv(self, seq: SequenceState, host_gather: bool = False):
-        """The PD migration payload: the sequence's page run and its
-        metadata. By default the run stays on the device (one gather per
-        pool, no host copy) and DistFlow moves it device to device;
-        ``host_gather=True`` keeps the v1 host round trip (host tensors)."""
+        """The PD migration payload: the sequence's page run (one run per
+        rank) and its metadata. By default the run stays on the device (one
+        gather per distinct pool, no host copy) and DistFlow moves it
+        device to device; ``host_gather=True`` keeps the v1 host round trip
+        (host tensors)."""
         meta = {"tokens": list(seq.tokens), "n_prompt": seq.n_prompt,
                 "n_cached": seq.n_cached, "n_pages": len(seq.pages)}
         if host_gather:
@@ -90,20 +104,24 @@ class PagedRunner:
 
     def import_kv(self, payload, pages: List[int]) -> None:
         """Install a migrated page run in place: a whole run (``k``/``v``,
-        device or host) or the layer chunks of a ``MigrationHandle``
-        (``{"chunks": [(layer_start, k, v), ...]}``)."""
+        device or host, in the source's layout) or the layer chunks of a
+        ``MigrationHandle`` (``{"chunks": [(layer_start, k, v), ...]}``,
+        already in this pool's layout). Either way ``reshard`` puts each
+        run in this pool's layout: a no-op for a run DistFlow already
+        placed; a host run (v1) is uploaded, and re-split when the two
+        TEs' tp differ."""
         chunks = payload.get("chunks")
         if chunks is None:
             chunks = [(0, payload["k"], payload["v"])]
         # the run covers the pages allocated at import time; a lazy import
         # may land after _ensure_pages appended the next decode page
-        pages = pages[:chunks[0][1].shape[1]]
-        dev = self.pool.run_sharding()
+        pages = pages[:chunks[0][1][0].shape[1]]
+        mesh, dim = self.pool.run_sharding()
         for l0, k_run, v_run in chunks:
-            # a no-op for a run DistFlow already put on this device; a
-            # host run (v1) is uploaded here
-            self.pool.scatter_run(pages, k_run.to(dev), v_run.to(dev),
-                                  layer_start=l0)
+            k_run, v_run = (SH.reshard(run, SH.run_dim(self.cfg, run), dim,
+                                       mesh, copy=False)
+                            for run in (k_run, v_run))
+            self.pool.scatter_run(pages, k_run, v_run, layer_start=l0)
 
 
 # ===========================================================================
@@ -133,21 +151,28 @@ class PagedPrefillRunner:
         ``all_greedy`` is decided on the host from ``temps``. Returns
         (logits (Sb, Vp), sampled tokens (Sb,) int32)."""
         rt = self.rt
-        cfg = rt.cfg
-        x = T.embed(cfg, rt.params, tokens[:, None])          # (Tb,1,D)
-        pos2 = positions[:, None]
-        pages, slots = pages.long(), slots.long()
-        for li, p in enumerate(rt.layers):
-            q, k_new, v_new = T.block_qkv(cfg, p, x, pos2)
-            q, kp, vp = rt.layer_attn_inputs(li, q[:, 0], k_new[:, 0],
-                                             v_new[:, 0], pages, slots)
-            o = ops.paged_prefill(q, kp, vp, cu_tokens, entry_bt,
-                                  entry_start, tiles,
-                                  softcap=cfg.attn_logit_softcap,
-                                  window=rt.windows[li], impl=rt.impl)
-            x = T.block_out(cfg, p, x, o[:, None].to(x.dtype))
+        cfg, mesh = rt.cfg, rt.mesh
+        x = T.embed(cfg, rt.params, tokens[:, None], mesh)    # (Tb,1,D)
+        pos_r = mesh.broadcast(positions[:, None])
+        pg_r, sl_r, cu_r, bt_r, st_r, ti_r = (
+            mesh.broadcast(t) for t in (pages.long(), slots.long(),
+                                        cu_tokens, entry_bt, entry_start,
+                                        tiles))
+        for li, ps in enumerate(rt.layers):
+            os = []
+            for r, (q, k_new, v_new) in enumerate(
+                    T.block_qkv(cfg, ps, x, pos_r, mesh)):
+                q, kp, vp = rt.layer_attn_inputs(li, r, q[:, 0], k_new[:, 0],
+                                                 v_new[:, 0], pg_r[r],
+                                                 sl_r[r])
+                o = ops.paged_prefill(q, kp, vp, cu_r[r], bt_r[r], st_r[r],
+                                      ti_r[r],
+                                      softcap=cfg.attn_logit_softcap,
+                                      window=rt.windows[li], impl=rt.impl)
+                os.append(o[:, None].to(x.dtype))
+            x = T.block_out(cfg, ps, x, os, mesh)
         # unembed ONLY the chunk-final rows — (Sb, Vp), not (Tb, Vp)
-        logits = T.unembed(cfg, rt.params, x[final_idx.long()])[:, 0]
+        logits = T.unembed(cfg, rt.params, x[final_idx.long()], mesh)[:, 0]
         if all_greedy:
             toks = greedy_core(logits, cfg.vocab_size)
         else:
@@ -211,22 +236,28 @@ class PagedDecodeRunner:
         """One decode step on device tensors: (B,) token ids, (B, Pb) block
         table, (B,) lengths -> (B, Vp) logits; KV written in place."""
         rt = self.rt
-        cfg = rt.cfg
-        ps = rt.pool.page_size
-        x = T.embed(cfg, rt.params, tokens[:, None])          # (B,1,D)
+        cfg, mesh = rt.cfg, rt.mesh
+        page_size = rt.pool.page_size
+        x = T.embed(cfg, rt.params, tokens[:, None], mesh)    # (B,1,D)
         pos = (lengths - 1)[:, None]
-        page = bt.gather(1, ((lengths - 1) // ps).long()[:, None])[:, 0]
-        page = page.long()
-        slot = ((lengths - 1) % ps).long()
-        for li, p in enumerate(rt.layers):
-            q, k_new, v_new = T.block_qkv(cfg, p, x, pos)
-            q, kp, vp = rt.layer_attn_inputs(li, q[:, 0], k_new[:, 0],
-                                             v_new[:, 0], page, slot)
-            o = ops.paged_attention(q, kp, vp, bt, lengths,
-                                    softcap=cfg.attn_logit_softcap,
-                                    window=rt.windows[li], impl=rt.impl)
-            x = T.block_out(cfg, p, x, o[:, None].to(x.dtype))
-        return T.unembed(cfg, rt.params, x)[:, 0]
+        page = bt.gather(1, ((lengths - 1) // page_size).long()[:, None])
+        slot = ((lengths - 1) % page_size).long()
+        pos_r = mesh.broadcast(pos)
+        pg_r, sl_r, bt_r, len_r = (mesh.broadcast(t) for t in (
+            page[:, 0].long(), slot, bt, lengths))
+        for li, ps in enumerate(rt.layers):
+            os = []
+            for r, (q, k_new, v_new) in enumerate(
+                    T.block_qkv(cfg, ps, x, pos_r, mesh)):
+                q, kp, vp = rt.layer_attn_inputs(li, r, q[:, 0], k_new[:, 0],
+                                                 v_new[:, 0], pg_r[r],
+                                                 sl_r[r])
+                o = ops.paged_attention(q, kp, vp, bt_r[r], len_r[r],
+                                        softcap=cfg.attn_logit_softcap,
+                                        window=rt.windows[li], impl=rt.impl)
+                os.append(o[:, None].to(x.dtype))
+            x = T.block_out(cfg, ps, x, os, mesh)
+        return T.unembed(cfg, rt.params, x, mesh)[:, 0]
 
     @torch.no_grad()
     def decode_fused(self, state, k_steps: int) -> torch.Tensor:

@@ -44,6 +44,9 @@ class SlotRunner:
     def __init__(self, cfg, params, n_slots: int, max_len: int,
                  dtype: torch.dtype, device, impl: str = "auto"):
         self.cfg = cfg
+        # the ranks' weights trees, as every TE holds them: one rank here
+        # (the slot family's tensor parallelism is ROADMAP.md Queue 1
+        # item 8b), read as ``params[0]``
         self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
@@ -136,10 +139,10 @@ class SlotPrefillRunner:
         toks[0, :c] = chunk_tokens
         extra = rt.extra_dev.get(seq.seq_id)
         if extra is None:
-            dt = rt.params["embed"].dtype
+            dt = rt.params[0]["embed"].dtype
             extra = rt.extra_dev[seq.seq_id] = {
                 k: to_device(v, rt.device, dt) for k, v in seq.extra.items()}
-        logits, _ = S.prefill(rt.cfg, rt.params,
+        logits, _ = S.prefill(rt.cfg, rt.params[0],
                               to_device(toks, rt.device),
                               rt._slot_slice(seq.slot), n_valid=c,
                               impl=rt.impl, **extra)
@@ -172,7 +175,7 @@ class SlotDecodeRunner:
         tokens = np.zeros((rt.n_slots,), np.int64)
         for s in seqs:
             tokens[s.slot] = s.tokens[-1]
-        logits, _ = S.decode_step(cfg, rt.params,
+        logits, _ = S.decode_step(cfg, rt.params[0],
                                   to_device(tokens, rt.device),
                                   rt.cache, impl=rt.impl)
         if float(temps.max()) <= 0.0:

@@ -53,6 +53,12 @@ weights dict; a forked TE owns its copy.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --topology pd=1,colo=1 --scale-to 3 --fleet-threads 3
 
+    # tensor parallelism (the paged family): each TE over 2 ranks, which
+    # share the one card here; alone or under the plane
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 \
+        --topology pd=1,colo=1
+
     # a smoke config on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --device cpu --requests 4 --max-new 8 --mode pd
@@ -81,9 +87,10 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
 
-def engine_config(mode: str, dtype, smoke: bool = False,
-                  seed: int = 0) -> EngineConfig:
-    return EngineConfig(mode=mode, n_pages=2048 if not smoke else 256,
+def engine_config(mode: str, dtype, smoke: bool = False, seed: int = 0,
+                  tp: int = 1) -> EngineConfig:
+    return EngineConfig(mode=mode, tp=tp,
+                        n_pages=2048 if not smoke else 256,
                         page_size=16, n_slots=8, max_len=2048,
                         max_batch_tokens=512, chunk_size=256,
                         max_decode_batch=8, decode_horizon=8, dtype=dtype,
@@ -91,8 +98,9 @@ def engine_config(mode: str, dtype, smoke: bool = False,
 
 
 def build_te(cfg, params, mode: str, name: str, device, dtype,
-             smoke: bool = False, seed: int = 0) -> FlowServe:
-    return FlowServe(cfg, params, engine_config(mode, dtype, smoke, seed),
+             smoke: bool = False, seed: int = 0, tp: int = 1) -> FlowServe:
+    return FlowServe(cfg, params,
+                     engine_config(mode, dtype, smoke, seed, tp),
                      name=name, device=device)
 
 
@@ -131,14 +139,21 @@ def run_units(handles: List[TEHandle], max_steps: int = 100000
 
 
 def pd_pair(cfg, params, name: str, device, dtype, smoke: bool = False,
-            seed: int = 0) -> TEHandle:
+            seed: int = 0, tp: int = 1) -> TEHandle:
     """A live PD pair: a P-TE and a D-TE linked by DistFlow."""
     pe = build_te(cfg, params, "prefill", f"{name}-p", device, dtype, smoke,
-                  seed)
+                  seed, tp)
     de = build_te(cfg, params, "decode", f"{name}-d", device, dtype, smoke,
-                  seed)
+                  seed, tp)
     pe.distflow.link_cluster([de.distflow])
     return TEHandle(name, "pd_pair", engine=pe, decode_engine=de)
+
+
+def _print_meshes(engines: List[FlowServe]) -> None:
+    """Each TE's mesh: its tp and every rank's device."""
+    for e in engines:
+        print(f"{e.name}: tp={e.mesh.tp}, ranks on "
+              f"{[str(d) for d in e.mesh.devices]}")
 
 
 def _report(comps: List[Completion], wall: float) -> None:
@@ -163,6 +178,10 @@ def main() -> None:
                     help="cut the depth to this many layers (0 = all)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="ranks per TE (tensor parallelism, the paged "
+                         "family): rank r on card (r mod the visible "
+                         "count), every rank on the one card here")
     ap.add_argument("--topology", default=None,
                     help="serve through the serving plane over this fleet: "
                          "'pd=N,colo=N' (N PD pairs and N colocated TEs) or "
@@ -205,7 +224,7 @@ def main() -> None:
 
     def te(mode, name):
         return build_te(cfg, params, mode, name, dev, dtype, args.smoke,
-                        args.seed)
+                        args.seed, args.tp)
 
     if args.topology:
         serve_plane(args, cfg, full, params, dev, dtype, requests)
@@ -217,7 +236,7 @@ def main() -> None:
             handles[0].engine.add_request(r)
     elif args.mode == "pd":
         handles = [pd_pair(cfg, params, "te-pd0", dev, dtype, args.smoke,
-                           args.seed)]
+                           args.seed, args.tp)]
         for r in requests():
             handles[0].engine.add_request(r)
     else:
@@ -232,7 +251,7 @@ def main() -> None:
                    TEHandle("te-c1", "colocated",
                             engine=te("colocated", "te-c1")),
                    pd_pair(cfg, params, "te-pd0", dev, dtype, args.smoke,
-                           args.seed)]
+                           args.seed, args.tp)]
         ds = DistributedScheduler(handles, hs.combined(), hs.prefill_lens,
                                   hs.decode_ratios,
                                   predictor=DecodeLengthPredictor(pcfg,
@@ -246,6 +265,8 @@ def main() -> None:
         print(f"predictor held-out accuracy {acc:.3f}; "
               f"decisions {ds.decisions}")
 
+    _print_meshes([e for h in handles
+                   for e in (*h.prefill_members(), *h.decode_members())])
     ops.reset_launches()
     t0 = time.monotonic()
     comps = run_units(handles)
@@ -265,10 +286,17 @@ def serve_plane(args, cfg, full, params, dev, dtype, requests) -> None:
     scale-out and drain triggers and the heatmap of the full config on
     one H100's cost model; optionally ``scale_to`` first; then every
     request through ``submit`` and ``run_to_completion``."""
+    topo = TopologySpec.parse(args.topology)
+    if args.tp > 1:
+        # the reference launcher's check (repro/launch/serve.py:95-99)
+        if topo.tp > 1 and topo.tp != args.tp:
+            raise SystemExit(f"conflicting tp: --tp {args.tp} vs "
+                             f"--topology ...,tp={topo.tp}")
+        topo.tp = args.tp
     hs = HeatmapStudy(full)
     warm = WarmPool()
     je = ServingJobEngine(
-        cfg, params, TopologySpec.parse(args.topology),
+        cfg, params, topo,
         heatmap=hs.combined(), prefill_lens=hs.prefill_lens,
         decode_ratios=hs.decode_ratios, policy=args.policy,
         ecfg=engine_config("colocated", dtype, args.smoke, args.seed),
@@ -284,6 +312,7 @@ def serve_plane(args, cfg, full, params, dev, dtype, requests) -> None:
             for r in plan["rounds"]:
                 print(f"  round {r['round']}: {r['tes']} from "
                       f"{r['sources'] or ['-']} ({r['wall_s']:.3f} s)")
+        _print_meshes(je.engines)
         ops.reset_launches()
         t0 = time.monotonic()
         for r in requests():

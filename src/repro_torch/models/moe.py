@@ -66,9 +66,16 @@ def moe_route(p: dict, xt: torch.Tensor, cfg: MoEConfig, cap: int):
     return w_te, sel_scores, sel_tok, sel_scores > 0.0
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
+def moe_apply(ps: list, x: torch.Tensor, cfg: MoEConfig, act: str, mesh,
               groups: int = 1) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D), step by step as ``moe.py:46-95``."""
+    """x (B, S, D) -> (B, S, D), step by step as ``moe.py:46-95``, over
+    the ranks' MoE params ``ps`` (one tree on one rank: ``[p]`` and
+    ``launch.mesh.one_rank``). The router is replicated, so routing runs
+    once, on rank 0, and every rank would drop the same assignments. Each
+    rank runs its ``d_expert`` slice of every expert (``w_gate``/``w_up``
+    split on their last dimension, ``w_down`` on the one before it) and
+    the down projection's partials are all-reduced before the combine
+    weights and the scatter-add."""
     b, s, d = x.shape
     t = b * s
     if t % groups:
@@ -77,13 +84,26 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     e = cfg.n_experts
     cap = min(moe_capacity(tg, cfg), tg)
     _, sel_scores, sel_tok, keep = moe_route(
-        p, x.reshape(groups, tg, d), cfg, cap)                   # (G,E,cap)
+        ps[0], x.reshape(groups, tg, d), cfg, cap)               # (G,E,cap)
     # flat token index of each (group, expert, slot)
     flat = (sel_tok + tg * torch.arange(groups, device=x.device)[:, None,
                                                                  None])
     flat = flat.reshape(-1)
     xg = x.reshape(t, d).index_select(0, flat).view(groups, e, cap, d)
     xg = xg * keep[..., None].to(xg.dtype)
+    width = ps[0]["w_up"].shape[-1]
+    y = mesh.all_reduce([_experts(p, xr, act) for p, xr in
+                         zip(ps[:cfg.d_expert // width], mesh.broadcast(xg))])
+    y = y * (sel_scores * keep)[..., None].to(y.dtype)
+    out = torch.zeros((t, d), dtype=y.dtype, device=x.device)
+    out.index_add_(0, flat, y.reshape(-1, d))
+    return out.view(b, s, d)
+
+
+def _experts(p: dict, xg: torch.Tensor, act: str) -> torch.Tensor:
+    """The expert FFN of one rank's params over the gathered slots xg
+    (G, E, cap, D) -> (G, E, cap, D): that rank's partial sum when it
+    holds a ``d_expert`` slice."""
     up = torch.einsum("gecd,edf->gecf", xg, p["w_up"])
     if act in ("swiglu", "geglu"):
         gate = torch.einsum("gecd,edf->gecf", xg, p["w_gate"])
@@ -94,8 +114,4 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
         h = torch.relu(up).square()
     else:
         raise ValueError(act)
-    y = torch.einsum("gecf,efd->gecd", h, p["w_down"])           # (G,E,cap,D)
-    y = y * (sel_scores * keep)[..., None].to(y.dtype)
-    out = torch.zeros((t, d), dtype=y.dtype, device=x.device)
-    out.index_add_(0, flat, y.reshape(-1, d))
-    return out.view(b, s, d)
+    return torch.einsum("gecf,efd->gecd", h, p["w_down"])

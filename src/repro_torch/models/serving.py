@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import one_rank
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import GLOBAL_WINDOW
@@ -128,7 +129,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache: Cache,
     start = cache["length"]
     positions = start[:, None] + torch.arange(s, dtype=torch.int32,
                                               device=tokens.device)[None, :]
-    x = T.embed(cfg, params, tokens)
+    x = T.embed(cfg, [params], tokens, one_rank(tokens.device))
     if cfg.vision is not None and vision_embeds is not None:
         _fill_cross_cache(cfg, params, vision_embeds, cache)
     if cfg.encoder is not None:
@@ -150,7 +151,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache: Cache,
                                     cache["v"][li], start, nv, win)
             x = _cross_after(cfg, params, cross.get(li), x, cache)
     cache["length"].add_(nv)
-    logits = T.unembed(cfg, params, x[:, nv - 1:nv, :])
+    logits = T.unembed(cfg, [params], x[:, nv - 1:nv, :],
+                       one_rank(x.device))
     return logits[:, 0, :], cache
 
 
@@ -197,14 +199,15 @@ def _expand_like(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def _attn_layer_prefill(cfg, p, x, positions, ck, cv, start, nv, win):
     """One attention block of a chunk: write its K/V into the layer's
     cache rows, then attend jointly over the cache (the engine path)."""
-    q, k_new, v_new = T.block_qkv(cfg, p, x, positions)
+    mesh = one_rank(x.device)
+    (q, k_new, v_new), = T.block_qkv(cfg, [p], x, [positions], mesh)
     _write_kv(ck, cv, k_new, v_new, start, nv)
     k_pos = _cache_kpos(ck.shape[1], start, x.shape[1])
     mask = L.causal_mask(positions, k_pos)
     mask &= k_pos[:, None, :] > (positions[:, :, None] - win)
     o = L.attention(q, ck.to(q.dtype), cv.to(q.dtype), mask,
                     cfg.attn_logit_softcap)
-    return T.block_out(cfg, p, x, o)
+    return T.block_out(cfg, [p], x, [o], mesh)
 
 
 def _rglru_prefill(cfg, params, x, positions, cache, nv, n_valid, impl):
@@ -266,7 +269,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: Cache,
     (B, Vp), cache updated in place)."""
     lengths = cache["length"]
     positions = lengths[:, None]                                  # (B,1)
-    x = T.embed(cfg, params, token[:, None].long())
+    mesh = one_rank(token.device)
+    x = T.embed(cfg, [params], token[:, None].long(), mesh)
     if cfg.attn_kind == "rwkv":
         for li in range(cfg.n_layers):
             x = _rwkv_layer(cfg, T.layer(params, li), x, cache, li, None,
@@ -281,9 +285,9 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: Cache,
                 ri += 1
             else:
                 p = params["attn_blocks"][ai]
-                x = T.block_out(cfg, p, x, _ring_decode_attention(
+                x = T.block_out(cfg, [p], x, [_ring_decode_attention(
                     cfg, p, x, positions, cache["k"][ai], cache["v"][ai],
-                    win, lengths))
+                    win, lengths, mesh)], mesh)
                 ai += 1
     else:
         # the reference's unrolled tower with its cross blocks
@@ -291,17 +295,17 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: Cache,
         cross = T.cross_schedule(cfg)
         for li, win in enumerate(T.window_schedule(cfg)):
             p = T.layer(params, li)
-            x = T.block_out(cfg, p, x, _ring_decode_attention(
+            x = T.block_out(cfg, [p], x, [_ring_decode_attention(
                 cfg, p, x, positions, cache["k"][li], cache["v"][li], win,
-                lengths))
+                lengths, mesh)], mesh)
             x = _cross_after(cfg, params, cross.get(li), x, cache)
     lengths.add_(1)
-    logits = T.unembed(cfg, params, x)
+    logits = T.unembed(cfg, [params], x, mesh)
     return logits[:, 0, :], cache
 
 
 def _ring_decode_attention(cfg, p, x, positions, k_cache, v_cache, win,
-                           lengths):
+                           lengths, mesh):
     """One self-attention block's attention in decode mode over a rotating
     buffer (``serving.py:352-371``): slot j holds the newest token t = j
     (mod Smax); the whole buffer is attended and masks do the rest. While
@@ -310,10 +314,7 @@ def _ring_decode_attention(cfg, p, x, positions, k_cache, v_cache, win,
     before the output projection."""
     b = x.shape[0]
     smax = k_cache.shape[1]
-    h = L.apply_norm(x, p["ln1"], cfg.norm)
-    q, k_new, v_new = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
-                                 cfg.head_dim, positions, cfg.rope_theta,
-                                 cfg.qk_norm)
+    (q, k_new, v_new), = T.block_qkv(cfg, [p], x, [positions], mesh)
     bidx = torch.arange(b, device=x.device)
     lm1 = lengths.long()                       # position of the new token
     k_cache[bidx, lm1 % smax] = k_new[:, 0].to(k_cache.dtype)

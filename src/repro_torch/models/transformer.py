@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import one_rank
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
@@ -89,6 +90,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
             "ln": _init_norm(cfg, dev),
             "attn": _init_attn(cfg, gen, dtype, dev, qk_norm=False)})
     return params
+
+
+def meta_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """``cfg``'s weights tree on the meta device: its structure and leaf
+    shapes, nothing allocated."""
+    return init_params(cfg, torch.Generator(), torch.float32, "meta")
 
 
 def _normal(gen, shape, std, dtype, dev) -> torch.Tensor:
@@ -187,8 +194,41 @@ def window_schedule(cfg: ModelConfig) -> List[int]:
             else GLOBAL_WINDOW for kind in cfg.layer_kinds()]
 
 
-def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+# ------------------------------------------------- the block bodies
+# ``ps`` is the list of the ranks' weights trees (or one layer's views of
+# them) and ``mesh`` the TE's ``launch.mesh.EngineMesh``; a caller with
+# one tree passes ``[p]`` and ``one_rank(device)``. A split product's
+# partials go through ``mesh.all_reduce`` and vocab slices through
+# ``mesh.all_gather``, the identity over one rank, so a tp-1 TE keeps its
+# arithmetic bit for bit. Which ranks take part in a product is read off
+# the shards' widths: all of them when it splits, rank 0 alone when it is
+# replicated (``_split_ranks``). Activations live on rank 0's device.
+
+
+def _split_ranks(ps: list, full: int, width: int) -> list:
+    """The ranks holding distinct slices of a dimension of size ``full``
+    whose shard has ``width``: every rank when it splits, rank 0 alone
+    when each rank holds it whole."""
+    return ps[:full // width]
+
+
+def embed(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
+          mesh) -> torch.Tensor:
+    """Token ids -> (…, D) embeddings. A vocab-split table (every
+    ``padded_vocab`` a multiple of 256 splits over any tp up to 256) is a
+    masked lookup per rank, all-reduced: a token's row comes from the one
+    rank holding it, the others add zeros. A table split on ``d_model``
+    (a wider tp) gathers each rank's columns."""
+    rows, cols = ps[0]["embed"].shape
+    toks = mesh.broadcast(tokens)
+    parts = []
+    for r, p in enumerate(_split_ranks(ps, cfg.padded_vocab * cfg.d_model,
+                                       rows * cols)):
+        t = toks[r] - (r * rows) % cfg.padded_vocab
+        ok = ((t >= 0) & (t < rows))[..., None]
+        parts.append(p["embed"][t.clamp(0, rows - 1)].masked_fill(~ok, 0))
+    x = mesh.all_gather(parts, -1) if cols < cfg.d_model \
+        else mesh.all_reduce(parts)
     if cfg.embed_scale:
         # the scale is rounded to the embedding's dtype first, as in the
         # reference (a bf16 model multiplies by bf16(sqrt(d)))
@@ -196,43 +236,70 @@ def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """(…, D) -> (…, padded_vocab) logits, final softcap in fp32."""
-    x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head
+def unembed(cfg: ModelConfig, ps: list, x: torch.Tensor,
+            mesh) -> torch.Tensor:
+    """(…, D) -> (…, padded_vocab) logits: the final norm once, each
+    rank's vocab slice (the untied head's shard, or the tied table's shard
+    transposed), gathered before the final softcap in fp32. A tied table
+    split on ``d_model`` gives partial sums over each rank's columns,
+    all-reduced."""
+    h = L.apply_norm(x, ps[0]["final_norm"], cfg.norm)
+    heads = [p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+             for p in ps]
+    d, v = heads[0].shape
+    hs = mesh.broadcast(h)
+    parts = [(hr if d == cfg.d_model else hr[..., r * d:(r + 1) * d]) @ w
+             for r, (hr, w) in enumerate(zip(
+                 hs, _split_ranks(heads, cfg.padded_vocab * cfg.d_model,
+                                  d * v)))]
+    logits = mesh.all_reduce(parts) if d < cfg.d_model \
+        else mesh.all_gather(parts, -1)
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
     return logits
 
 
-def block_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              positions: torch.Tensor):
-    """First half of an attention block: pre-norm + q/k/v (+ qk-norm,
-    rope). x (B,S,D) -> q (B,S,H,hd), k/v (B,S,Hkv,hd)."""
-    h = L.apply_norm(x, p["ln1"], cfg.norm)
-    return L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
-                      cfg.head_dim, positions, cfg.rope_theta, cfg.qk_norm)
+def block_qkv(cfg: ModelConfig, ps: list, x: torch.Tensor,
+              positions: list, mesh) -> list:
+    """First half of an attention block: pre-norm, then q/k/v (+ qk-norm,
+    rope) on every rank holding a head slice. x (B,S,D), ``positions``
+    one per rank -> [(q (B,S,H/tp,hd), k/v (B,S,Hkv/tp,hd))] per such
+    rank (one whole triple when attention replicates). qk-norm is per
+    head, so it shards with the heads."""
+    h = L.apply_norm(x, ps[0]["ln1"], cfg.norm)
+    hd = cfg.head_dim
+    width = ps[0]["attn"]["wq"].shape[-1]
+    return [L.attn_qkv(p["attn"], hr, width // hd,
+                       p["attn"]["wk"].shape[-1] // hd, hd, pos,
+                       cfg.rope_theta, cfg.qk_norm)
+            for p, hr, pos in zip(_split_ranks(ps, cfg.n_heads * hd, width),
+                                  mesh.broadcast(h), positions)]
 
 
-def block_out(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              o: torch.Tensor, groups: int = 1) -> torch.Tensor:
+def block_out(cfg: ModelConfig, ps: list, x: torch.Tensor, os: list,
+              mesh, groups: int = 1) -> torch.Tensor:
     """Second half: output projection, residual, MLP (or MoE, over
-    ``groups`` capacity groups), residual. o: (B,S,H,hd) attention
-    output. The engine's passes take one group, as the reference's paged
-    runner does."""
-    a = L.attn_out(p["attn"], o)
+    ``groups`` capacity groups), residual. ``os``: the attention outputs
+    (B,S,H/tp,hd) of ``block_qkv``'s ranks, whose output projections'
+    partials are all-reduced; the split MLP's are too. gemma2's post-norms
+    apply to the reduced sums. The engine's passes take one group, as the
+    reference's paged runner does."""
+    a = mesh.all_reduce([L.attn_out(p["attn"], o) for p, o in zip(ps, os)])
     if cfg.post_norms:
-        a = L.apply_norm(a, p["ln1_post"], cfg.norm)
+        a = L.apply_norm(a, ps[0]["ln1_post"], cfg.norm)
     x = x + a
-    h = L.apply_norm(x, p["ln2"], cfg.norm)
-    if "moe" in p:
-        m = M.moe_apply(p["moe"], h, cfg.moe, cfg.mlp_act, groups=groups)
+    h = L.apply_norm(x, ps[0]["ln2"], cfg.norm)
+    if "moe" in ps[0]:
+        m = M.moe_apply([p["moe"] for p in ps], h, cfg.moe, cfg.mlp_act,
+                        mesh, groups=groups)
     else:
-        m = L.mlp_apply(p["mlp"], h, cfg.mlp_act)
+        w = ps[0]["mlp"]["w_up"].shape[-1]
+        m = mesh.all_reduce([L.mlp_apply(p["mlp"], hr, cfg.mlp_act)
+                             for p, hr in zip(_split_ranks(ps, cfg.d_ff, w),
+                                              mesh.broadcast(h))])
     if cfg.post_norms:
-        m = L.apply_norm(m, p["ln2_post"], cfg.norm)
+        m = L.apply_norm(m, ps[0]["ln2_post"], cfg.norm)
     return x + m
 
 
@@ -240,11 +307,12 @@ def attn_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      positions: torch.Tensor, window: int) -> torch.Tensor:
     """A whole attention block with naive masked attention over the
     block's own tokens (the teacher-forced path)."""
-    q, k, v = block_qkv(cfg, p, x, positions)
+    mesh = one_rank(x.device)
+    (q, k, v), = block_qkv(cfg, [p], x, [positions], mesh)
     mask = L.causal_mask(positions, positions, window)
-    return block_out(cfg, p, x, L.attention(q, k, v, mask,
-                                            cfg.attn_logit_softcap),
-                     groups=moe_groups(x.shape[0] * x.shape[1]))
+    return block_out(cfg, [p], x, [L.attention(q, k, v, mask,
+                                               cfg.attn_logit_softcap)],
+                     mesh, groups=moe_groups(x.shape[0] * x.shape[1]))
 
 
 def moe_groups(tokens: int) -> int:
@@ -328,7 +396,7 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     x = frames
     for li in range(cfg.encoder.n_layers):
         p = layer(params, li, "enc_blocks")
-        q, k, v = block_qkv(cfg, p, x, pos)
+        (q, k, v), = block_qkv(cfg, [p], x, [pos], one_rank(x.device))
         x = x + L.attn_out(p["attn"], L.attention(q, k, v, None,
                                                   cfg.attn_logit_softcap))
         x = x + L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"], cfg.norm),
@@ -349,7 +417,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed(cfg, params, tokens)
+    x = embed(cfg, [params], tokens, one_rank(tokens.device))
     dev = x.device
     if cfg.attn_kind == "rwkv":
         nh, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
@@ -387,7 +455,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
                 x = cross_block_apply(cfg, pc, x,
                                       *memory_kv(cfg, pc["attn"], mem),
                                       gated)
-    return unembed(cfg, params, x)
+    return unembed(cfg, [params], x, one_rank(dev))
 
 
 def cross_schedule(cfg: ModelConfig) -> Dict[int, tuple]:

@@ -185,7 +185,7 @@ def test_warmups_leave_live_state_alone(models):
     assert te.pool.free_page_count() == free
     scratch = te.pool.scratch_page()
     live = [p for p in range(te.pool.n_pages) if p != scratch]
-    assert not te.pool.k[:, live].any() and not te.pool.v[:, live].any()
+    assert not te.pool.k[0][:, live].any() and not te.pool.v[0][:, live].any()
 
 
 def test_dram_tier_round_trip(models):
@@ -203,7 +203,7 @@ def test_dram_tier_round_trip(models):
     te.run_to_completion()
     (entry,) = [leaf.payload for leaf in te.rtc.tree.leaves_by_lru()]
     pages = list(entry.pages)
-    k_before = te.pool.k[:, pages].clone()
+    k_before = te.pool.k[0][:, pages].clone()
     te.rtc.copy_to_dram(entry)
     assert entry.location == "dram" and entry.pages is None
     te.add_request(Request(prompt_tokens=prompt + [5], req_id="b",
@@ -214,7 +214,7 @@ def test_dram_tier_round_trip(models):
     # populate allocates only the pages that hold the entry's tokens
     n = len(entry.pages)
     assert n == -(-entry.n_tokens // SHARED["page_size"]) <= len(pages)
-    assert torch.equal(te.pool.k[:, entry.pages], k_before[:, :n])
+    assert torch.equal(te.pool.k[0][:, entry.pages], k_before[:, :n])
 
 
 def test_flowserve_defaults_to_the_card(models):

@@ -1,4 +1,5 @@
-"""The port's fleet control plane without live engines, on the CPU: the
+"""The port's fleet control plane, on the CPU, without live engines but
+one: the
 pure-Python pieces against the JAX package's on the same inputs, and the
 port's own executor, warm pool and window allocator.
 
@@ -13,8 +14,12 @@ port's own executor, warm pool and window allocator.
     copies of torch tensors (pinned on a card: the gpu-marked tests);
   * the window allocator under a monkeypatched device count: a thread
     hammer, a reserved free-list entry, and the window returned when a
-    bring-up fails; tp > 1 is refused, naming its ROADMAP item.
+    bring-up fails;
+  * at tp 2 a paged arch's plane serves (a 2-layer smoke TE, the one live
+    engine here) and its weights fork onto a tp-2 mesh, while a slot
+    arch's is refused, naming its ROADMAP item.
 """
+import dataclasses
 import gc
 import sys
 import threading
@@ -33,7 +38,11 @@ import repro_torch.core.cluster as TC
 import repro_torch.core.faults as TF
 import repro_torch.core.scaling as TS
 import repro_torch.core.serving_plane as TP
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.fleet import FleetExecutor, TEState
+from repro_torch.engine import EngineConfig, SamplingParams
+from repro_torch.launch.mesh import make_engine_mesh
+from repro_torch.models import transformer as T
 
 
 # ---------------------------------------------------------------------------
@@ -60,13 +69,47 @@ def test_topology_parse_errors_as_reference(spec):
         TP.TopologySpec.parse(spec)
 
 
-def test_plane_refuses_tensor_parallelism():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TP.ServingJobEngine(None, None, TP.TopologySpec(colo=1, tp=2),
-                            heatmap=None, prefill_lens=[], decode_ratios=[],
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TS.npu_fork_live({"w": torch.zeros(2)}, None, dst_mesh=object())
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-1.6b"])
+def test_plane_refuses_tensor_parallelism(arch):
+    """At ``tp=2`` the plane refuses only the slot family, naming its
+    ROADMAP item: a paged arch (smoke, 2 layers) is served on a tp-2 TE,
+    and ``npu_fork_live`` forks its weights onto a tp-2 mesh, every shard
+    its rank's slice of the source in new storage."""
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), n_layers=2)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+
+    def plane():
+        return TP.ServingJobEngine(
+            cfg, params, TP.TopologySpec(colo=1, tp=2), heatmap=None,
+            prefill_lens=[], decode_ratios=[], policy="round_robin",
+            ecfg=EngineConfig(n_pages=32, page_size=8, n_slots=2,
+                              max_len=64),
+            device="cpu")
+    if arch == "rwkv6-1.6b":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
+            plane()
+        return
+    je = plane()
+    try:
+        te = je.engines[0]
+        assert te.ecfg.tp == 2 and len(te.runner.params) == 2
+        rids = [je.submit([1, 5, 9, 7], sampling=SamplingParams(
+            temperature=0.0, max_new_tokens=4, stop_on_eos=False))
+            for _ in range(2)]
+        done = {c.req_id: c.tokens for c in je.run_to_completion()}
+        assert all(len(done[r]) == 4 for r in rids)
+    finally:
+        je.close()
+    forked, lr = TS.npu_fork_live([params], cfg,
+                                  make_engine_mesh(2, 0, "cpu"))
+    wq = params["blocks"]["attn"]["wq"]
+    half = wq.shape[-1] // 2
+    for r, tree in enumerate(forked):
+        got = tree["blocks"]["attn"]["wq"]
+        assert torch.equal(got, wq[..., r * half:(r + 1) * half])
+        assert got.data_ptr() != wq.data_ptr()
+    assert lr.bytes_moved == TS._nbytes(params)
 
 
 # ---------------------------------------------------------------------------

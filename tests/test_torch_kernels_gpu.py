@@ -4,7 +4,9 @@ card: the ``tests/test_kernels.py`` sweep shapes and tolerances (f32 atol
 family's WKV6 and RG-LRU recurrences on the test_wkv6 / test_rglru sweeps
 with a state carried in and out, the split-K decode at forced split
 counts, the decode at the other paged archs' shapes (G 2-6, hd 120 and
-256, softcap 50 with a window), and the bf16 tensor-core prefill at G =
+256, softcap 50 with a window), both attention kernels at one
+tensor-parallel rank's shapes (qwen3-8b at tp 2, granite-moe at tp 4, on
+a layer view of a rank's pool), and the bf16 tensor-core prefill at G =
 1-8 and hd 64-256 (hd 120 padded to 128); the hot loop under sync-debug
 "error", the cross-attention towers' prefill chunk and decode included;
 and the fleet control plane: a fork's weights bit-equal in new storage, a
@@ -106,6 +108,44 @@ def test_paged_prefill_kernel_ragged(cuda, dtype):
         _close(ops.paged_prefill(q, kp, vp, *meta, softcap, window),
                ops.paged_prefill(q, kp, vp, *meta, softcap, window,
                                  impl="ref"), dtype)
+
+
+# one tensor-parallel rank's attention shapes: qwen3-8b at tp 2 (H 16,
+# Hkv 4, hd 128) and granite-moe-3b-a800m at tp 4 (H 6, Hkv 2, hd 64)
+RANK_SHAPES = [(16, 4, 128), (6, 2, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,hd", RANK_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_kernels_at_one_ranks_shape(cuda, h, hkv, hd, dtype):
+    """Both attention kernels as a tensor-parallel TE's runner calls them:
+    on one layer's view of a rank's (L, pages, page, Hkv/tp, hd) pool, at
+    the rank's head counts. The decode runs sequences up to 288 tokens
+    long (the split-K planner at this head count), the prefill a ragged
+    pack; both against their plain versions."""
+    g = torch.Generator().manual_seed(3)
+    n_pool, page, b, npg = 80, 16, 4, 18
+    kpool, vpool = (torch.randn((2, n_pool, page, hkv, hd),
+                                generator=g).to(cuda, dtype)
+                    for _ in range(2))
+    kp, vp = kpool[1], vpool[1]
+    bt = torch.randperm(n_pool, generator=g)[:b * npg].view(b, npg)
+    bt = bt.int().to(cuda)
+    ln = torch.tensor([1, 17, 200, npg * page], dtype=torch.int32).to(cuda)
+    q = torch.randn((b, h, hd), generator=g).to(cuda, dtype)
+    _close(ops.paged_attention(q, kp, vp, bt, ln, None, None),
+           ops.paged_attention(q, kp, vp, bt, ln, None, None, impl="ref"),
+           dtype)
+    lens, starts, tb = [9, 1, 33, 16], [0, 40, 7, 16], 64
+    cu = np.cumsum([0] + lens).tolist()
+    ebt = bt[:, :-(-(max(starts) + max(lens)) // page)].cpu().numpy()
+    qp = torch.randn((tb, h, hd), generator=g).to(cuda, dtype)
+    meta = [torch.as_tensor(np.asarray(a, np.int32)).to(cuda) for a in
+            (cu, ebt, starts, FP.build_tiles(cu, tb))]
+    _close(ops.paged_prefill(qp, kp, vp, *meta, None, None),
+           ops.paged_prefill(qp, kp, vp, *meta, None, None, impl="ref"),
+           dtype)
 
 
 @pytest.mark.gpu
@@ -483,8 +523,10 @@ def test_hot_state_sync_and_evict_never_sync(cuda):
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.engine.hotloop import DecodeHotState
     from repro_torch.engine.kv_cache import PagedKVPool
+    from repro_torch.launch.mesh import make_engine_mesh
     cfg = smoke_config(get_config("qwen3-8b"))
-    pool = PagedKVPool(cfg, 32, 16, torch.float32, cuda)
+    pool = PagedKVPool(cfg, 32, 16, torch.float32,
+                       make_engine_mesh(1, 0, cuda))
     hot = DecodeHotState(pool, torch.Generator(device=cuda))
     hot.sync([("a", [1, 2], 20, 5, 0.0, 1.0), ("b", [3], 9, 6, 0.5, 0.9)])
     torch.cuda.synchronize()
@@ -684,15 +726,15 @@ def test_pd_pool_run_bit_identical_after_import(cuda, layer_chunks):
     pe, de = _pd_pair(cuda)
     _pd_prefill(pe, "a", list(range(3, 60)))
     pages = list(pe._seqs["a"].pages)
-    k_exp, v_exp = (t.clone() for t in pe.pool.gather_device(pages))
+    k_exp, v_exp = (run[0].clone() for run in pe.pool.gather_device(pages))
     pe.migrate_out("a", de, layer_chunks=layer_chunks, keep_prefix=False)
     _pd_prefill(pe, "b", list(range(100, 156)))
     assert set(pe._seqs["b"].pages) == set(pages)
     de.finish_pending_imports()
     run = de._seqs["a"].pages[:len(pages)]
-    assert torch.equal(de.pool.k[:, run], k_exp)
-    assert torch.equal(de.pool.v[:, run], v_exp)
-    assert not torch.equal(pe.pool.k[:, pages], k_exp)
+    assert torch.equal(de.pool.k[0][:, run], k_exp)
+    assert torch.equal(de.pool.v[0][:, run], v_exp)
+    assert not torch.equal(pe.pool.k[0][:, pages], k_exp)
 
 
 # ---------------------------------------------------------------------------
@@ -748,7 +790,8 @@ def _live_bytes():
 
 
 def _pool_bytes(eng):
-    return eng.pool.k.nbytes + eng.pool.v.nbytes
+    from repro_torch.engine.distflow import _nbytes
+    return _nbytes([eng.pool.k, eng.pool.v])
 
 
 @pytest.mark.gpu

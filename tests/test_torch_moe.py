@@ -25,6 +25,7 @@ from repro.configs.base import MoEConfig as JMoEConfig
 from repro.models import moe as JM
 from repro.models import transformer as JT
 from repro_torch.configs import MoEConfig
+from repro_torch.launch.mesh import one_rank
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from test_torch_paged_archs import (RAGGED, check_bridge, check_config,
@@ -33,6 +34,7 @@ from test_torch_paged_archs import (RAGGED, check_bridge, check_config,
                                     serve_both)
 
 ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b"]
+CPU = one_rank(torch.device("cpu"))     # one weights tree on one rank
 
 
 def _cfgs(**kw):
@@ -106,8 +108,8 @@ def test_moe_apply_matches_reference(act, groups, drops):
     assert (over > 0) == drops, over
     want = JM.moe_apply({k: jnp.asarray(v) for k, v in p.items()},
                         jnp.asarray(x), jcfg, act, groups=groups)
-    got = M.moe_apply({k: torch.from_numpy(v) for k, v in p.items()},
-                      torch.from_numpy(x), cfg, act, groups=groups)
+    got = M.moe_apply([{k: torch.from_numpy(v) for k, v in p.items()}],
+                      torch.from_numpy(x), cfg, act, CPU, groups=groups)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
@@ -115,8 +117,8 @@ def test_moe_apply_rejects_uneven_groups():
     cfg, _ = _cfgs(n_experts=4, top_k=2, d_expert=48)
     x, p = _moe_inputs("swiglu", skew=False)
     with pytest.raises(ValueError, match="groups"):
-        M.moe_apply({k: torch.from_numpy(v) for k, v in p.items()},
-                    torch.from_numpy(x), cfg, "swiglu", groups=5)
+        M.moe_apply([{k: torch.from_numpy(v) for k, v in p.items()}],
+                    torch.from_numpy(x), cfg, "swiglu", CPU, groups=5)
 
 
 @pytest.fixture(scope="module")

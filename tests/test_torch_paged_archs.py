@@ -38,6 +38,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.engine.kv_cache import PagedKVPool
+from repro_torch.launch.mesh import make_engine_mesh
 from repro_torch.engine.runners import PagedRunner, resolve_family
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.models import transformer as T
@@ -190,8 +191,9 @@ def prefill_decode_errs(model, s=24, n_prefill=18, page=8):
     tokens = np.random.RandomState(1).randint(3, cfg.vocab_size, (b, s))
     want = np.asarray(JT.forward(bundle.cfg, jp, jnp.asarray(tokens),
                                  attn_impl="naive"))
-    pool = PagedKVPool(cfg, 16, page, torch.float32, "cpu")
-    rt = PagedRunner(cfg, tp, pool)
+    pool = PagedKVPool(cfg, 16, page, torch.float32,
+                       make_engine_mesh(1, 0, "cpu"))
+    rt = PagedRunner(cfg, [tp], pool)
     npg = -(-s // page)
     bt = np.asarray([pool.alloc(npg) for _ in range(b)], np.int32)
     tb = 64

@@ -39,6 +39,8 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.engine.distflow import BufferInfo, DistFlow
 from repro_torch.engine.kv_cache import OutOfPagesError
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import make_engine_mesh
 from repro_torch.models.bridge import params_from_numpy
 
 # tests/test_pd_migration.py's engine shape
@@ -239,18 +241,18 @@ def test_pool_run_equals_exported_run_after_page_reuse(qwen):
     pe, de = _tpair(cfg, tp)
     _prefilled(pe, PROMPT, "a")
     pages = list(pe._seqs["a"].pages)
-    k_exp, v_exp = (t.clone() for t in pe.pool.gather_device(pages))
+    k_exp, v_exp = (run[0].clone() for run in pe.pool.gather_device(pages))
     pe.migrate_out("a", de, layer_chunks=2, keep_prefix=False)
     handle = de._seqs["a"].kv_pending
     assert handle is not None and not handle.xfer.done
     _prefilled(pe, _prompts(1, length=len(PROMPT) - 1, seed0=9)[0], "b")
     assert set(pe._seqs["b"].pages) == set(pages)      # the pages reused
-    assert not torch.equal(pe.pool.k[:, pages], k_exp)
+    assert not torch.equal(pe.pool.k[0][:, pages], k_exp)
     de.finish_pending_imports()
     assert handle.xfer.done and de._seqs["a"].kv_pending is None
     run = de._seqs["a"].pages[:len(pages)]
-    assert torch.equal(de.pool.k[:, run], k_exp)
-    assert torch.equal(de.pool.v[:, run], v_exp)
+    assert torch.equal(de.pool.k[0][:, run], k_exp)
+    assert torch.equal(de.pool.v[0][:, run], v_exp)
 
 
 def test_import_out_of_pages_leaves_dst_untouched(qwen, colocated_ref):
@@ -372,17 +374,28 @@ def test_broadcast_charges_peers_as_jax():
 
 
 def test_sharded_transfer_prices_bytes_per_link_as_jax():
+    """The same runs priced by both packages: the port's as per-rank head
+    shards (one per source rank), JAX's as global arrays."""
+    shape = (4, 8, 8, 4, 8)
+
+    def port(a, src_tp, dst_tp):
+        kv = {n: SH.split(torch.zeros(shape), 3,
+                          make_engine_mesh(src_tp, 0, "cpu"), copy=False)
+              for n in ("k", "v")}
+        return a.transfer_sharded(
+            kv, "b", src_dim=3, dst=(make_engine_mesh(dst_tp, 0, "cpu"), 3),
+            src_tp=src_tp, dst_tp=dst_tp, layer_chunks=1)
+
+    def jax_(a, src_tp, dst_tp):
+        kv = {"k": jnp.zeros(shape), "v": jnp.zeros(shape)}
+        return a.transfer_sharded(kv, "b", src_tp=src_tp, dst_tp=dst_tp,
+                                  layer_chunks=1)
     res = []
-    for df, zeros in ((DistFlow, lambda s: torch.zeros(s)),
-                      (JDistFlow, lambda s: jnp.zeros(s))):
+    for df, move in ((DistFlow, port), (JDistFlow, jax_)):
         a, b = df("a"), df("b")
         a.link_cluster([b])
-        kv = {"k": zeros((4, 8, 8, 4, 8)), "v": zeros((4, 8, 8, 4, 8))}
-        one = a.transfer_sharded(kv, "b", src_tp=1, dst_tp=1, layer_chunks=1)
-        four = a.transfer_sharded(kv, "b", src_tp=4, dst_tp=4,
-                                  layer_chunks=1)
-        cross = a.transfer_sharded(kv, "b", src_tp=4, dst_tp=2,
-                                   layer_chunks=1)
+        one, four, cross = (move(a, s, d) for s, d in ((1, 1), (4, 4),
+                                                       (4, 2)))
         assert cross.xfer.links == 2 and b.sim_clock == a.sim_clock
         res.append([h.xfer.sim_seconds for h in (one, four, cross)]
                    + [a.sim_clock, b.sim_clock])
@@ -395,8 +408,10 @@ def test_layer_chunks_cover_the_run():
     the transfer is done once every chunk has been waited on."""
     a = DistFlow("a")
     k = torch.arange(5 * 3 * 2, dtype=torch.float32).view(5, 3, 2, 1, 1)
-    h = a.transfer_sharded({"k": k, "v": -k}, "b", layer_chunks=2)
+    one = make_engine_mesh(1, 0, "cpu")
+    h = a.transfer_sharded({"k": [k], "v": [-k]}, "b", src_dim=3,
+                           dst=(one, 3), src_tp=1, dst_tp=1, layer_chunks=2)
     assert [c[0] for c in h.chunks] == [0, 3] and h.events == [None, None]
     assert h.chunk_ready(1) and not h.xfer.done
     assert h.wait_chunk(0)[0] == 0 and h.xfer.done
-    assert torch.equal(torch.cat([c[1] for c in h.wait()["chunks"]]), k)
+    assert torch.equal(torch.cat([c[1][0] for c in h.wait()["chunks"]]), k)

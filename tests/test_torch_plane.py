@@ -421,9 +421,9 @@ def test_from_warm_rejects_mismatch_before_allocating(qwen, monkeypatch):
     with pytest.raises(TS.WarmPoolMismatchError, match="does not match"):
         FlowServe.from_warm(cfg, {"not_the_model": torch.zeros(4, 4)},
                             ecfg, name="te-bad", device="cpu")
-    wrong = dict(tp, embed=torch.zeros(3, 3))
+    wrong = [dict(tp, embed=torch.zeros(3, 3))]
     with pytest.raises(TS.WarmPoolMismatchError):
         FlowServe.from_warm(cfg, wrong, ecfg, name="te-bad", device="cpu")
     monkeypatch.undo()
-    assert FlowServe.from_warm(cfg, tp, ecfg, name="te-good",
+    assert FlowServe.from_warm(cfg, [tp], ecfg, name="te-good",
                                device="cpu").fork_ready
