@@ -128,8 +128,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (every shard bit-equal in new storage, its device time by
                 CUDA events); the serving plane at pd=1,colo=1,tp=2, sized
                 from ``mem_get_info`` (a depth cut, if any, printed),
-                every request served.
-The last lines are the per-rank attention rows ({"tp_kernels": [...]}),
+                every request served. Then the slot family: both
+                recurrences at one tp-2 rank's shape (rwkv6-1.6b WKV6 at
+                16 of 32 heads, recurrentgemma-2b RG-LRU at 1280 of 2560
+                channels), timed and held as phase 2 holds them; both
+                archs serving the phase-3 requests at tp 2 at full width
+                (each decode step and prefill dispatch launching the
+                recurrence n_layers x tp times: 24 x 2 WKV6, 18 x 2
+                RG-LRU; each rank's cache bytes printed); both cross
+                towers at tp 2, full width and depth; at 2 (rwkv6) and 3
+                (recurrentgemma) fp32 layers the tp-2 TE on the kernels
+                gives its plain versions' tokens exactly and the tp-1
+                TE's up to near-ties; an rwkv6-1.6b P-TE at tp 2 hands
+                off to a D-TE at tp 1 at full width (the slot snapshot
+                resharded at import, the migrated state bit-identical,
+                one migration's device time); a fork of a tp-2 rwkv6 TE
+                onto a new tp-2 TE.
+The last lines are the per-rank kernel rows ({"tp_kernels": [...]}),
 the other paged archs' attention rows as JSON ({"arch_kernels": [...]}),
 the kernel table as JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -1024,13 +1039,14 @@ def serve(cfg, dev, n_greedy, n_sampled, tp=1):
         launches_per_step=sum(launches.values()) / te.steps,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         card=card_line())
+    if te.pool is None:
+        out.update(tp=tp, cache_bytes_per_rank=_cache_bytes_per_rank(te))
     if not PATH_KERNELS[cfg.name]:
         # a cross-attention tower: plain PyTorch on the slot path, no
         # hand-written kernel launched; what its slots and checkpoints hold
         assert not any(launches.values()), launches
         snaps = list(te._state_cache.values())
-        out["snapshot_bytes"] = sum(t.numel() * t.element_size()
-                                    for t in snaps[0].values())
+        out["snapshot_bytes"] = snaps[0].nbytes
         out["state_cache_entries"] = len(snaps)
         out["state_cache_gib"] = out["snapshot_bytes"] * len(snaps) / 2**30
         if cfg.encoder is not None:
@@ -1040,7 +1056,8 @@ def serve(cfg, dev, n_greedy, n_sampled, tp=1):
                 dev, torch.bfloat16)
             with torch.no_grad():
                 out["encode_ms"] = time_ms(
-                    lambda: T.encode(cfg, params, frames), iters=5,
+                    lambda: T.encode(cfg, te.runner.params, frames,
+                                     te.mesh), iters=5,
                     warmup=1)
     elif PATH_KERNELS[cfg.name] == PAGED:
         # one launch of each attention kernel per layer and attention rank
@@ -1061,12 +1078,15 @@ def serve(cfg, dev, n_greedy, n_sampled, tp=1):
             (launches, cfg.n_layers, ranks, te.decode_steps,
              te.prefill_dispatches)
     else:
-        # one launch per recurrent layer for every prefill dispatch and
-        # every decode step: read both from the steps that ran only one
-        # of the two, and hold the total to it
+        # one launch per recurrent layer and rank holding a part of the
+        # state, for every prefill dispatch and every decode step: read
+        # both from the steps that ran only one of the two, and hold the
+        # total to it
         (name,) = PATH_KERNELS[cfg.name]
-        per = sum(k == ("rwkv" if name == "wkv6" else "rglru")
-                  for k in cfg.layer_kinds())
+        out["kernel_ranks"] = _ranks(te)
+        per = out["kernel_ranks"] * sum(
+            k == ("rwkv" if name == "wkv6" else "rglru")
+            for k in cfg.layer_kinds())
         out[f"{name}_per_decode_step"] = _mean(
             [n / dec for _, pf, dec, _, n in steps if pf == 0 and dec])
         out[f"{name}_per_prefill_dispatch"] = _mean(
@@ -1156,9 +1176,27 @@ def moe_census(te, cfg, rng, n=8):
 
 
 def _ranks(te):
-    """The ranks of a paged TE that run attention: tp when it splits, one
-    when it replicates (rank 0 runs it)."""
-    return len(te.pool.ranks)
+    """The ranks of a TE that launch its path's kernel in a pass: a paged
+    TE's attention ranks (tp when its pool splits, one when it
+    replicates: rank 0 runs it), a slot TE's ranks holding a part of its
+    recurrent state (tp when the heads or the width split); one for a
+    cross tower, which launches none."""
+    from repro_torch.launch import sharding as SH
+    if te.pool is not None:
+        return len(te.pool.ranks)
+    caches = te.runner.caches
+    keys = [k for k in ("state", "h") if k in caches[0]]
+    return len(SH.held([c[keys[0]] for c in caches])) if keys else 1
+
+
+def _cache_bytes_per_rank(te):
+    """Each rank's bytes of a slot TE's dense caches: its parts of the
+    split leaves, and on rank 0 also the replicated leaves (stored once,
+    there)."""
+    specs = te.runner.cache_specs
+    return [sum(t.nbytes for k, t in c.items()
+                if specs[k] is not None or r == 0)
+            for r, c in enumerate(te.runner.caches)]
 
 
 def _release():
@@ -1380,7 +1418,7 @@ def serve_pd(cfg, params, dev, n_greedy, n_sampled, tp=(1, 1)):
     pk, dk = PD_KERNELS[cfg.name]
     n_kind = sum(k.startswith("rwkv" if pk == "wkv6" else "attn")
                  for k in cfg.layer_kinds())
-    n_pe, n_de = (_ranks(t) if t.pool is not None else 1 for t in (pe, de))
+    n_pe, n_de = _ranks(pe), _ranks(de)
     assert per["prefill"] == {**zero, pk: n_kind * n_pe
                               * pe.prefill_dispatches}, \
         (per["prefill"], pe.prefill_dispatches)
@@ -1428,8 +1466,8 @@ def serve_pd(cfg, params, dev, n_greedy, n_sampled, tp=(1, 1)):
                                      / max(pe.prefill_dispatches, 1))
     out[f"{dk}_per_decode_iteration"] = (per["decode"][dk]
                                          / max(de.decode_steps, 1))
-    if pe.pool is not None:
-        out.update(migration_check(cfg, pe, de, dev))
+    out.update(migration_check(cfg, pe, de, dev) if pe.pool is not None
+               else slot_migration_check(cfg, pe, de))
     log("  pd serving: " + json.dumps(out))
     del pe, de
     _release()
@@ -1500,6 +1538,51 @@ def migration_check(cfg, pe, de, dev):
                 migration_ms=ms, migration_run_bytes=run_bytes,
                 migration_gb_per_s=run_bytes / ms / 1e6,
                 migration_hbm_gb_per_s=4 * run_bytes / ms / 1e6)
+
+
+def _joined(snap):
+    """A slot snapshot's leaves as whole tensors: a split leaf's parts
+    joined on its split, a replicated leaf's one copy."""
+    import torch
+    return {k: torch.cat([r[k] for r in snap.ranks], d)
+            if d is not None and len(snap.ranks) > 1 else snap.ranks[0][k]
+            for k, d in snap.splits.items()}
+
+
+def slot_migration_check(cfg, pe, de):
+    """One more greedy request through a slot pair, after the timed window:
+    its slot snapshot on the P-TE, joined over the ranks, equals the
+    D-TE's slot after ``migrate_out`` (resharded at import when the two
+    tp differ) bit for bit. Before it, the device time of one migration
+    of that slot (the P-TE's snapshot of every rank, the D-TE's reshard
+    and copy into a slot of its own, the length read back included), by
+    CUDA events."""
+    import torch
+    from repro_torch.engine.runners import SequenceState
+    (req,) = _requests(cfg, 1, 0, seed=11, tag="m")
+    pe.add_request(req)
+    while pe.has_work():
+        pe.step()
+    (rid,) = pe.pop_migratable()
+    pseq = pe._seqs[rid]
+    want = {k: t.clone() for k, t in
+            _joined(pe.runner.snapshot_state(pseq)).items()}
+    scratch = SequenceState(seq_id="scratch", tokens=[0], n_prompt=1)
+    assert de.runner.alloc_slot(scratch)
+    ms = time_ms(lambda: de.runner.import_kv(pe.runner.export_kv(pseq),
+                                             scratch), iters=10, warmup=2)
+    de.runner.free_slot(scratch)
+    pe.migrate_out(rid, de)
+    got = _joined(de.runner.snapshot_state(de._seqs[rid]))
+    same = got.keys() == want.keys() and all(torch.equal(got[k], want[k])
+                                             for k in want)
+    assert same, "the D-TE's slot differs from the exported snapshot"
+    de.run_to_completion()
+    nbytes = sum(t.nbytes for t in want.values())
+    return dict(check_state_tokens=pseq.n_cached,
+                check_state_bit_identical=same, migration_ms=ms,
+                migration_state_bytes=nbytes,
+                migration_gb_per_s=nbytes / ms / 1e6)
 
 
 def pd_parity(cfg, dev, n_layers, tp=(1, 1)):
@@ -2299,6 +2382,12 @@ def phase6(dev):
 # (H 16 / Hkv 4 per rank); granite-moe-3b-a800m's at tp 4 (H 6 / Hkv 2,
 # G 3; d_expert 512 -> 128 per rank)
 TP_SERVED = (("qwen3-8b", 2, 8, 2), ("granite-moe-3b-a800m", 4, 6, 2))
+# the slot family at tp 2: rwkv6-1.6b's state splits its 32 heads (16 per
+# rank), recurrentgemma-2b's RG-LRU its 2560 channels (1280 per rank; its
+# 10 query / 1 KV heads replicate attention, whose cache splits the
+# sequence); the cross towers split their heads and their sequence
+SLOT_TP_SERVED = (("rwkv6-1.6b", 2, 6, 2), ("recurrentgemma-2b", 2, 6, 2))
+CROSS_TP = 2
 
 
 def rank_cfg(cfg, tp):
@@ -2307,10 +2396,20 @@ def rank_cfg(cfg, tp):
                                n_kv_heads=cfg.n_kv_heads // tp)
 
 
+def rank_recurrence_cfg(cfg, tp):
+    """One rank's recurrence shape of ``cfg`` at ``tp``: rwkv6's heads
+    (d_model / head_dim of them) or the RG-LRU width, cut ``tp`` ways."""
+    if cfg.rwkv is not None:
+        return dataclasses.replace(cfg, d_model=cfg.d_model // tp)
+    return dataclasses.replace(cfg, rglru=dataclasses.replace(
+        cfg.rglru, lru_width=cfg.rglru.lru_width // tp))
+
+
 def tp_rows(dev):
     """Both attention kernels at one rank's shape of each TP_SERVED arch,
-    timed as phase 2 times the main path; each row names its arch and
-    width."""
+    and both recurrences at one rank's shape of each SLOT_TP_SERVED arch,
+    timed and held against their plain versions as phase 2 holds the main
+    path; each row names its arch and width."""
     from repro_torch.configs import get_config
     rows = []
     for name, tp, _, _ in TP_SERVED:
@@ -2319,15 +2418,23 @@ def tp_rows(dev):
                   main_path_prefill(cfg, dev, seed=15, arch_row=True)):
             r["arch"] = f"{name} tp{tp}"
             rows.append(r)
+    for name, tp, _, _ in SLOT_TP_SERVED:
+        cfg = rank_recurrence_cfg(get_config(name), tp)
+        r = (main_path_wkv6 if cfg.rwkv is not None else
+             main_path_rglru)(cfg, dev)
+        r["arch"] = f"{name} tp{tp}"
+        rows.append(r)
     return rows
 
 
 def _decode_logits(te, prompt):
     """The logits of one decode pass per position of ``prompt`` through
-    ``te``'s runner, on pages taken and given back: the raw numbers the
-    engine samples from."""
+    ``te``'s runner, on pages (a slot) taken and given back: the raw
+    numbers the engine samples from."""
     import torch
     from repro_torch.engine.kv_cache import pages_needed
+    if te.pool is None:
+        return _slot_decode_logits(te, prompt)
     pages = te.pool.alloc(pages_needed(len(prompt), te.pool.page_size))
     bt = torch.tensor([pages], dtype=torch.int32, device=te.device)
     out = []
@@ -2340,14 +2447,37 @@ def _decode_logits(te, prompt):
     return torch.cat(out)
 
 
-def tp_parity(cfg, dev, n_layers=2):
+def _slot_decode_logits(te, prompt):
+    """``_decode_logits`` on a slot TE: one all-slot decode step per
+    position, the row of a slot taken and given back."""
+    import torch
+    from repro_torch.engine.runners import SequenceState
+    from repro_torch.models import serving as S
+    rt = te.runner
+    seq = SequenceState(seq_id="logits", tokens=list(prompt),
+                        n_prompt=len(prompt))
+    assert rt.alloc_slot(seq)
+    out = []
+    with torch.no_grad():
+        for t in prompt:
+            toks = torch.zeros((rt.n_slots,), dtype=torch.int64,
+                               device=te.device)
+            toks[seq.slot] = t
+            logits, _ = S.decode_step(te.cfg, rt.params, toks, rt.caches,
+                                      rt.mesh, impl=rt.impl)
+            out.append(logits[seq.slot:seq.slot + 1])
+    rt.free_slot(seq)
+    return torch.cat(out)
+
+
+def tp_parity(cfg, dev, n_layers=2, tps=(2, 16)):
     """Full width cut to ``n_layers`` layers, fp32: the tp-2 TE on the
     kernels gives the tp-2 TE on the plain versions' greedy tokens
-    exactly; the tp-2 TE and the tp-16 TE (Hkv 8 does not split 16 ways:
-    attention and the pool replicate, the FFN and the vocab still split)
-    give the tp-1 TE's tokens up to near-ties (``_same_tokens``). The
-    largest logit difference against tp 1 over one prompt's decode passes
-    is printed."""
+    exactly; the TEs at ``tps`` (qwen3-8b at tp 16: Hkv 8 does not split
+    16 ways, so attention and the pool replicate, the FFN and the vocab
+    still split) give the tp-1 TE's tokens up to near-ties
+    (``_same_tokens``). The largest logit difference against tp 1 over
+    one prompt's decode passes is printed."""
     import torch
     from repro_torch.engine import FlowServe
     from repro_torch.models import transformer as T
@@ -2357,7 +2487,8 @@ def tp_parity(cfg, dev, n_layers=2):
     params = T.init_params(cfg2, gen, torch.float32, dev)
     reqs = _requests(cfg2, 4, 0, seed=41, tag="t")
     toks, logits = {}, {}
-    for tp, impl in ((1, "auto"), (2, "auto"), (2, "ref"), (16, "auto")):
+    for tp, impl in ((1, "auto"), (2, "ref"),
+                     *((t, "auto") for t in tps)):
         te = FlowServe(cfg2, params, _engine_config(cfg2, torch.float32,
                                                     impl, tp=tp), device=dev)
         if impl == "auto":
@@ -2371,7 +2502,7 @@ def tp_parity(cfg, dev, n_layers=2):
     assert toks[2, "auto"] == toks[2, "ref"], \
         "tp 2: the kernel and plain paths differ"
     out = {"kernel_vs_plain_tp2_identical": True}
-    for tp in (2, 16):
+    for tp in tps:
         d = float((logits[tp] - logits[1]).abs().max())
         ties = _same_tokens(cfg2, params, dev, reqs, toks[1, "auto"],
                             toks[tp, "auto"], f"tp {tp} vs tp 1")
@@ -2454,7 +2585,7 @@ def tp_plane(cfg, dev):
 
 
 def phase7(dev):
-    """Tensor parallelism of the paged family on the card: the attention
+    """Tensor parallelism on the card. The paged family: the attention
     kernels at one rank's shapes; qwen3-8b at tp 2 and granite-moe-3b-a800m
     at tp 4 serving at full width (launches: n_layers x tp per decode
     iteration and per prefill pass); fp32 parity at 2 layers (kernel vs
@@ -2462,12 +2593,14 @@ def phase7(dev):
     qwen3-8b PD pair from tp 4 to tp 2 at full width (the migrated run
     bit-identical after the import lands, one migration's device time)
     and its 2-layer fp32 tokens against a colocated tp-2 TE; a fork onto
-    tp 2; the plane at tp 2. Returns the per-rank kernel rows and each
-    kernel's launches on this path, per (arch, kernel)."""
+    tp 2; the plane at tp 2. Then the slot family (``slot_tp``), with
+    both recurrences at one rank's shape among the rows. Returns the
+    per-rank kernel rows and each kernel's launches on this path, per
+    (arch, kernel)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    log(f"phase 7: attention kernels at one rank's shape "
+    log(f"phase 7: attention kernels and recurrences at one rank's shape "
         f"[{time.monotonic() - T0:.1f} s]")
     rows = tp_rows(dev)
     launches = {}
@@ -2512,7 +2645,60 @@ def phase7(dev):
     plane = tp_plane(qwen, dev)
     for k in PAGED:
         launches["qwen3-8b", k] += plane["launches"][k]
+    slot_tp(dev, rows, launches)
     return rows, launches
+
+
+def slot_tp(dev, rows, launches):
+    """Phase 7's slot family: rwkv6-1.6b and recurrentgemma-2b at tp 2
+    serving at full width (each decode step and prefill dispatch launching
+    the recurrence n_layers x tp times), the cross towers at tp 2 at full
+    width and depth, 2- and 3-layer fp32 parity, an rwkv6 PD pair from tp
+    2 to tp 1 at full width (the migrated state bit-identical, one
+    migration's device time) and a fork onto tp 2. Adds each kernel's
+    launches on these paths to ``launches`` and to its per-rank row."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    for name, tp, n_greedy, n_sampled in SLOT_TP_SERVED:
+        cfg = get_config(name)
+        log(f"phase 7: full-width serving ({name}, tp {tp}, {cfg.n_layers} "
+            f"layers, bf16) [{time.monotonic() - T0:.1f} s]")
+        out = serve(cfg, dev, n_greedy, n_sampled, tp=tp)
+        (k,) = PATH_KERNELS[name]
+        n_kind = sum(kind == ("rwkv" if k == "wkv6" else "rglru")
+                     for kind in cfg.layer_kinds())
+        assert out["kernel_ranks"] == tp, out["kernel_ranks"]
+        assert out[f"{k}_per_decode_step"] == n_kind * tp \
+            == out[f"{k}_per_prefill_dispatch"], out
+        launches[name, k] = out["launches"][k]
+        for r in rows:
+            if r["arch"] == f"{name} tp{tp}":
+                r["launches"] = out["launches"][k]
+    for name in CROSS_ARCHS:
+        cfg = get_config(name)
+        log(f"phase 7: full-width serving ({name}, tp {CROSS_TP}, "
+            f"{cfg.n_layers} layers, bf16) [{time.monotonic() - T0:.1f} s]")
+        serve(cfg, dev, 6, 2, tp=CROSS_TP)
+    rwkv, rgemma = get_config("rwkv6-1.6b"), get_config("recurrentgemma-2b")
+    for cfg, n_layers in ((rwkv, 2), (rgemma, 3)):
+        log(f"phase 7: tp parity ({cfg.name}, {n_layers} layers, fp32) "
+            f"[{time.monotonic() - T0:.1f} s]")
+        tp_parity(cfg, dev, n_layers, tps=(2,))
+    log(f"phase 7: PD tp 2 -> tp 1 ({rwkv.name}, full width, bf16) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(rwkv, gen, torch.bfloat16, dev)
+    pd = serve_pd(rwkv, params, dev, 6, 2, tp=(2, 1))
+    assert pd["check_state_bit_identical"]
+    launches["rwkv6-1.6b", "wkv6"] += (pd["launches_prefill_te"]["wkv6"]
+                                       + pd["launches_decode_te"]["wkv6"])
+    log(f"phase 7: fork onto tp 2 ({rwkv.name}, full width, bf16) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    tp_fork(rwkv, params, dev)
+    del params
+    _release()
 
 
 def main() -> int:

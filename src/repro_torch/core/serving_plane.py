@@ -38,8 +38,7 @@ all of them then share the card, and so do a TE's ranks. The initial
 fleet's TEs share the one weights tree the plane is given (each TE's
 shards are views of it on its device); a forked or warm TE owns its copy.
 ``TopologySpec.tp`` and ``EngineConfig.tp`` are merged as the reference
-merges them; the paged family serves at tp > 1, the slot family refuses
-it (ROADMAP.md Queue 1 item 8b).
+merges them; both runner families serve at tp > 1.
 """
 from __future__ import annotations
 

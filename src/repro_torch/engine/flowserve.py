@@ -38,14 +38,15 @@ drains a TE's weights to pinned host memory for that pool. A
 ``fork_from``; ``void_pending_imports`` and ``cancel_queued`` let the
 plane recover and drain.
 
-Tensor parallelism (``EngineConfig.tp``, the paged family): the TE's
-ranks form one ``launch.mesh.EngineMesh``, built once; the constructor
-shards the full weights tree it is given (``launch/sharding.py``), and a
-TE's weights are always the list of its ranks' trees (one at tp 1), its
-pool one pool per rank and a page run one run per rank. A migration
-re-splits the KV heads when the two TEs' tp differ, and a fork re-splits
-the weights onto the new TE's mesh. A slot-family TE refuses tp > 1: its
-tensor parallelism is ROADMAP.md Queue 1 item 8b.
+Tensor parallelism (``EngineConfig.tp``, both families): the TE's ranks
+form one ``launch.mesh.EngineMesh``, built once; the constructor shards
+the full weights tree it is given (``launch/sharding.py``), and a TE's
+weights are always the list of its ranks' trees (one at tp 1), its pool
+one pool per rank, a page run one run per rank, and a slot TE's dense
+caches one cache per rank. A migration re-splits the KV heads, or a slot
+snapshot's leaves, when the two TEs' tp differ, and a fork re-splits the
+weights onto the new TE's mesh. A state checkpoint is a slot snapshot of
+the TE's own ranks.
 """
 from __future__ import annotations
 
@@ -201,10 +202,6 @@ class FlowServe:
         self.ecfg = ecfg
         self.name = name
         self.family = resolve_family(cfg)
-        if ecfg.tp > 1 and not self.family.uses_pages:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor parallelism of the slot family "
-                f"(tp={ecfg.tp}) is ROADMAP.md Queue 1 item 8b")
         self.mesh = mesh
         # rank 0's device: activations, sampling and the decode hot state
         self.device = mesh.device
@@ -236,9 +233,10 @@ class FlowServe:
             self.rtc = None
             self.runner = self.family.runner_cls(
                 cfg, ranks, ecfg.n_slots, ecfg.max_len, ecfg.dtype,
-                self.device, impl=ecfg.kernel_impl)
-            # token prefix -> slot snapshot (the recurrent prefix cache)
-            self._state_cache: Dict[tuple, dict] = {}
+                self.mesh, impl=ecfg.kernel_impl)
+            # token prefix -> slot snapshot of every rank (the recurrent
+            # prefix cache)
+            self._state_cache: Dict[tuple, Any] = {}
 
         scfg = SchedulerConfig(max_batch_tokens=ecfg.max_batch_tokens,
                                max_decode_batch=ecfg.max_decode_batch,

@@ -16,25 +16,49 @@ based (DESIGN.md §4).
     in-pass sampling; only the (n_slots,) token vector is returned.
 
 Both phases run the recurrences through ``ops.wkv6`` / ``ops.rglru``: the
-port's kernels on a CUDA cache, their plain versions on a CPU one. The
-caches are updated in place (the reference writes a new cache back).
-The reference's raw-length prefill (``bucket_prefill=False``), its unfused
-decode and its mesh branches have no caller in the port and are not
-ported.
+port's kernels on a CUDA cache, their plain versions on a CPU one, once
+per rank of the TE's mesh. The runner holds its weights as the list of
+the ranks' trees and its caches as the list of the ranks' caches
+(``models/serving.py``), one of each at tp 1; the reference's SPMD slot TE
+(``runners/slot.py:51-60``) shards the same way. The caches are updated in
+place (the reference writes a new cache back). A slot snapshot (the state
+checkpoint, and the payload of a PD migration) is one copy per rank of
+the slot's rows with each leaf's split, so a TE of another tp reshards it
+at import. The reference's raw-length prefill (``bucket_prefill=False``)
+and its unfused decode have no caller in the port and are not ported.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.engine.distflow import _nbytes, map_distinct
 from repro_torch.engine.hotloop import pow2_bucket, to_device
 from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.sampling import greedy_core, sample_core
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import EngineMesh
 from repro_torch.models import serving as S
 
 _STATE_KEYS = ("state", "last_tm", "last_cm", "h", "conv")
+
+
+@dataclass
+class SlotSnapshot:
+    """One slot's rows of every cache leaf as the ranks of a TE held them
+    (``ranks[r][key]``: rank r's part, or the replicated rows every rank
+    refers to), and each leaf's split dimension there (``splits``)."""
+    ranks: List[Dict[str, torch.Tensor]]
+    splits: Dict[str, Optional[int]]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the rows, a replicated leaf's once (what DistFlow
+        prices for a slot migration: the reference's global arrays)."""
+        return _nbytes(self.ranks)
 
 
 class SlotRunner:
@@ -42,17 +66,17 @@ class SlotRunner:
     delegation."""
 
     def __init__(self, cfg, params, n_slots: int, max_len: int,
-                 dtype: torch.dtype, device, impl: str = "auto"):
+                 dtype: torch.dtype, mesh: EngineMesh, impl: str = "auto"):
         self.cfg = cfg
-        # the ranks' weights trees, as every TE holds them: one rank here
-        # (the slot family's tensor parallelism is ROADMAP.md Queue 1
-        # item 8b), read as ``params[0]``
-        self.params = params
+        self.params = params                # the ranks' weights trees
         self.n_slots = n_slots
         self.max_len = max_len
         self.impl = impl                    # "auto" (kernels) | "ref"
-        self.device = device
-        self.cache = S.init_cache(cfg, n_slots, max_len, dtype, device)
+        self.mesh = mesh
+        self.device = mesh.device           # activations and sampling
+        self.caches = S.init_cache(cfg, n_slots, max_len, dtype, mesh)
+        self.cache_specs = SH.engine_cache_specs(
+            cfg, S.cache_like(cfg, n_slots, max_len, dtype), mesh.tp)
         self.free_slots = list(range(n_slots))
         # seq_id -> its modality inputs on the device (in the weights'
         # dtype), uploaded at its first chunk and dropped with its slot
@@ -60,11 +84,11 @@ class SlotRunner:
         self.prefill = SlotPrefillRunner(self)
         self.decoder = SlotDecodeRunner(self)
 
-    def _slot_slice(self, slot: int) -> Dict[str, torch.Tensor]:
-        """Views of one slot's rows of every cache tensor (batch axis 1,
-        ``length`` axis 0)."""
-        return {k: v[slot:slot + 1] if k == "length" else v[:, slot:slot + 1]
-                for k, v in self.cache.items()}
+    def _slot_slice(self, slot: int) -> List[Dict[str, torch.Tensor]]:
+        """Each rank's views of one slot's rows of every cache tensor
+        (batch axis 1, ``length`` axis 0)."""
+        return [{k: v[slot:slot + 1] if k == "length" else v[:, slot:slot + 1]
+                 for k, v in c.items()} for c in self.caches]
 
     def alloc_slot(self, seq: SequenceState) -> bool:
         if not self.free_slots:
@@ -74,10 +98,11 @@ class SlotRunner:
         # masked by length, but a recurrent state would leak the previous
         # occupant into the new sequence (the cross cache needs no reset:
         # every prefill chunk refills it)
-        self.cache["length"][seq.slot:seq.slot + 1].fill_(0)
+        self.caches[0]["length"][seq.slot:seq.slot + 1].fill_(0)
         for key in _STATE_KEYS:
-            if key in self.cache:
-                self.cache[key][:, seq.slot].zero_()
+            if key in self.caches[0]:
+                for t in SH.held([c[key] for c in self.caches]):
+                    t[:, seq.slot].zero_()
         return True
 
     def free_slot(self, seq: SequenceState) -> None:
@@ -96,14 +121,28 @@ class SlotRunner:
         return self.decoder.decode_sample(seqs, temps, top_ps, gen)
 
     # state checkpointing (the prefix cache of recurrent archs)
-    def snapshot_state(self, seq: SequenceState) -> Dict[str, torch.Tensor]:
-        """A device copy of the slot's rows of every cache tensor."""
-        return {k: v.clone() for k, v in self._slot_slice(seq.slot).items()}
+    def snapshot_state(self, seq: SequenceState) -> SlotSnapshot:
+        """A device copy of the slot's rows of every cache tensor on every
+        rank, a replicated leaf's rows copied once."""
+        views = self._slot_slice(seq.slot)
+        copies = {k: map_distinct(torch.clone, [v[k] for v in views])
+                  for k in views[0]}
+        return SlotSnapshot([{k: copies[k][r] for k in copies}
+                             for r in range(self.mesh.tp)],
+                            dict(self.cache_specs))
 
-    def restore_state(self, seq: SequenceState, snap) -> None:
-        for k, v in self._slot_slice(seq.slot).items():
-            v.copy_(snap[k])
-        seq.n_cached = int(snap["length"][0])
+    def restore_state(self, seq: SequenceState, snap: SlotSnapshot) -> None:
+        """Write a snapshot into ``seq``'s slot on every rank holding a
+        part, each leaf resharded from the snapshot's split onto this TE's
+        (``sharding.reshard``: where the two agree, each part is copied
+        as it is)."""
+        views = self._slot_slice(seq.slot)
+        for k in views[0]:
+            parts = SH.reshard([r[k] for r in snap.ranks], snap.splits[k],
+                               self.cache_specs[k], self.mesh, copy=False)
+            for dst, src in zip(SH.held([v[k] for v in views]), parts):
+                dst.copy_(src)
+        seq.n_cached = int(snap.ranks[0]["length"][0])
 
     # PD migration: the slot snapshot is the whole payload (the v1 path)
     def export_kv(self, seq: SequenceState):
@@ -111,9 +150,9 @@ class SlotRunner:
                 "n_prompt": seq.n_prompt, "n_cached": seq.n_cached}
 
     def import_kv(self, payload, seq: SequenceState) -> None:
-        """Restore a migrated slot snapshot into ``seq``'s slot. Reading
-        its length back is a host sync: this runs at admission, off the
-        decode step."""
+        """Restore a migrated slot snapshot, from a TE of any tp, into
+        ``seq``'s slot. Reading its length back is a host sync: this runs
+        at admission, off the decode step."""
         self.restore_state(seq, payload["state"])
 
 
@@ -142,9 +181,8 @@ class SlotPrefillRunner:
             dt = rt.params[0]["embed"].dtype
             extra = rt.extra_dev[seq.seq_id] = {
                 k: to_device(v, rt.device, dt) for k, v in seq.extra.items()}
-        logits, _ = S.prefill(rt.cfg, rt.params[0],
-                              to_device(toks, rt.device),
-                              rt._slot_slice(seq.slot), n_valid=c,
+        logits, _ = S.prefill(rt.cfg, rt.params, to_device(toks, rt.device),
+                              rt._slot_slice(seq.slot), rt.mesh, n_valid=c,
                               impl=rt.impl, **extra)
         seq.n_cached += c
         if seq.n_cached >= seq.n_prompt:
@@ -175,9 +213,9 @@ class SlotDecodeRunner:
         tokens = np.zeros((rt.n_slots,), np.int64)
         for s in seqs:
             tokens[s.slot] = s.tokens[-1]
-        logits, _ = S.decode_step(cfg, rt.params[0],
+        logits, _ = S.decode_step(cfg, rt.params,
                                   to_device(tokens, rt.device),
-                                  rt.cache, impl=rt.impl)
+                                  rt.caches, rt.mesh, impl=rt.impl)
         if float(temps.max()) <= 0.0:
             toks = greedy_core(logits, cfg.vocab_size)
         else:

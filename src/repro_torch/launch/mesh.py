@@ -77,6 +77,33 @@ class EngineMesh:
                           else p.to(dev, non_blocking=True) for p in parts],
                          dim)
 
+    def scatter(self, t: torch.Tensor, n: int,
+                dim: int) -> List[torch.Tensor]:
+        """``t`` cut into ``n`` equal slices on ``dim``, slice r on rank r's
+        device (a view of ``t`` where that is ``t``'s device). Cut into one
+        slice it is ``[t]``."""
+        if n == 1:
+            return [t]
+        return [s if s.device == d else s.to(d, non_blocking=True)
+                for s, d in zip(t.split(t.shape[dim] // n, dim),
+                                self.devices)]
+
+    def regroup(self, parts: Sequence[torch.Tensor], n: int,
+                dim: int) -> List[torch.Tensor]:
+        """Even slices of one tensor on ``dim`` (rank r's on rank r's
+        device) as ``n`` even slices: the slices themselves when there are
+        ``n`` of them, else their join cut again (``scatter``)."""
+        if len(parts) == n:
+            return list(parts)
+        return self.scatter(self.all_gather(parts, dim), n, dim)
+
+
+def split_ranks(ps: list, full: int, width: int) -> list:
+    """The ranks holding distinct slices of a dimension of size ``full``
+    whose shard has ``width``: every rank when it splits, rank 0 alone
+    when each rank holds it whole."""
+    return ps[:full // width]
+
 
 def make_engine_mesh(tp: int, offset: int, device) -> EngineMesh:
     """The mesh of a TE of width ``tp`` whose device window starts
@@ -96,6 +123,6 @@ def make_engine_mesh(tp: int, offset: int, device) -> EngineMesh:
 @functools.lru_cache(maxsize=None)
 def one_rank(device: torch.device) -> EngineMesh:
     """The mesh of one rank on ``device`` (one object per device): what a
-    caller holding one weights tree (the slot family, the cross towers,
-    the teacher-forced ``forward``) passes to the block bodies."""
+    caller holding one weights tree (the teacher-forced ``forward``, a
+    test) passes to the block bodies."""
     return EngineMesh([device])

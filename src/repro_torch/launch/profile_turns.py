@@ -48,9 +48,13 @@ def main() -> int:
                 env = dict(os.environ, PYTHONPATH=paths[who])
                 with err.open("w") as ef:
                     try:
+                        # -P: the script's directory, which holds this
+                        # profile.py, must not shadow the standard
+                        # library's profile module (torch imports cProfile)
                         run = subprocess.run(
-                            [sys.executable, str(HERE.with_name("profile.py")),
-                             "--arch", arch], env=env, stdout=subprocess.PIPE,
+                            [sys.executable, "-P",
+                             str(HERE.with_name("profile.py")), "--arch",
+                             arch], env=env, stdout=subprocess.PIPE,
                             stderr=ef, text=True, timeout=args.timeout)
                         rc = run.returncode
                         f.write(run.stdout)

@@ -16,7 +16,11 @@ the reference's, matched on the same path strings (``['blocks']['attn']
   * ``prune_unsplittable`` replicates any split that does not divide.
 
 A TE's weights are a list of rank trees, one per rank (one at tp 1). A
-page run is a list of per-rank runs. ``shard`` turns a full tree into rank
+page run is a list of per-rank runs, and a slot TE's dense caches a list
+of rank caches (``engine_cache_specs``: the sequence of the attention
+layers' K/V, the rwkv state's heads and the RG-LRU width split; a
+replicated leaf is one tensor on rank 0's device that every rank's cache
+refers to, as the replicated pool is). ``shard`` turns a full tree into rank
 trees; ``reshard`` moves the shards of one tensor to another mesh, joining
 and re-splitting them when the layouts differ (P at tp 4 -> D at tp 2 joins
 adjacent head shards pairwise): a cross-tp migration (DistFlow) and a fork
@@ -136,6 +140,31 @@ def engine_kv_run_spec(cfg: ModelConfig, tp: int) -> Spec:
     return engine_kv_pool_spec(cfg, tp)
 
 
+def engine_cache_specs(cfg: ModelConfig, cache_like, tp: int) -> Any:
+    """The split of every leaf of a slot TE's dense caches at width ``tp``
+    (``engine_cache_shardings`` -> ``cache_specs`` at a slot batch,
+    ``sharding.py:130-158,250-258``): the attention layers' ``k``/``v``
+    (La, B, S, Hkv, hd) split the sequence, the reference's context
+    parallelism inside a TE; the rwkv ``state`` (L, B, H, hd, hd) its
+    heads when they split; the RG-LRU ``h`` (L, B, W) and ``conv`` (L, B,
+    cw-1, W) the width; ``length``, ``last_tm``, ``last_cm`` and the cross
+    cache replicate. ``prune_unsplittable`` applies. The reference splits
+    16 or more slots over its data axis, of size 1 in a TE, so the model
+    axis stands on these dims at any slot count."""
+    def spec_for(name: str, leaf) -> Spec:
+        if name in ("['k']", "['v']"):
+            return 2
+        if name == "['state']":
+            return 2 if cfg.tp_heads_ok(tp) else None
+        if name == "['h']":
+            return 2
+        if name == "['conv']":
+            return 3
+        return None     # length, last_tm, last_cm, cross_k, cross_v
+
+    return prune_unsplittable(walk(cache_like, spec_for), cache_like, tp)
+
+
 def engine_decode_state_device(mesh: EngineMesh) -> torch.device:
     """Where the decode hot loop's carried state lives
     (``engine_decode_state_sharding``, ``sharding.py:240``): the reference
@@ -173,6 +202,26 @@ def split(t: torch.Tensor, dim: Spec, mesh: EngineMesh, *,
     n = t.shape[dim] // mesh.tp
     return [place(t.narrow(dim, r * n, n), dev, copy=copy)
             for r, dev in enumerate(mesh.devices)]
+
+
+def rank_zeros(shape, dtype: torch.dtype, dim: Spec,
+               mesh: EngineMesh) -> List[torch.Tensor]:
+    """A zeroed leaf of ``shape`` as the mesh's ranks hold it: rank r's
+    slice on ``dim`` in storage of its own on its device, or (``dim=None``)
+    one tensor on rank 0's device that every rank refers to."""
+    if dim is None:
+        return [torch.zeros(shape, dtype=dtype, device=mesh.device)] * mesh.tp
+    part = list(shape)
+    part[dim] //= mesh.tp
+    return [torch.zeros(part, dtype=dtype, device=d) for d in mesh.devices]
+
+
+def held(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The entries of a rank list that hold distinct parts of one leaf:
+    every rank's when the leaf splits (each part its own storage), rank
+    0's alone when the ranks refer to one tensor (a replicated leaf)."""
+    return parts[:1] if parts[-1].data_ptr() == parts[0].data_ptr() \
+        else list(parts)
 
 
 def shard(tree, specs, mesh: EngineMesh) -> List[Any]:

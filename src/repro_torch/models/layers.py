@@ -74,23 +74,44 @@ def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor],
+            cap: Optional[float]) -> torch.Tensor:
+    """fp32 scores (B, Hkv, G, Sq, Sk) of grouped-query attention, softcapped
+    and masked."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(hd)
+    s = softcap(s, cap)
+    if mask is not None:
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG))
+    return s
+
+
+def _weigh(s: torch.Tensor, v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    pr = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v)
+    return o.reshape(q.shape)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor], cap: Optional[float] = None
               ) -> torch.Tensor:
     """Naive grouped-query attention with materialised scores (the plain
     path the teacher-forced forward uses). q: (B,Sq,H,hd); k,v:
     (B,Sk,Hkv,hd); mask (B,Sq,Sk) or None."""
-    b, sq, h, hd = q.shape
-    hkv = k.shape[2]
-    g = h // hkv
-    qg = q.reshape(b, sq, hkv, g, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(hd)
-    s = softcap(s, cap)
-    if mask is not None:
-        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG))
-    pr = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v)
-    return o.reshape(b, sq, h, hd)
+    return _weigh(_scores(q, k, mask, cap), v, q)
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], cap: Optional[float] = None):
+    """``attention`` over one slice of the keys, with each query row's
+    log-sum-exp of its scores (B, Sq, H): what a log-sum-exp merge of the
+    slices' outputs needs. The output is ``attention``'s, bit for bit."""
+    s = _scores(q, k, mask, cap)
+    b, sq, h, _ = q.shape
+    lse = torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2).reshape(b, sq, h)
+    return _weigh(s, v, q), lse
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:

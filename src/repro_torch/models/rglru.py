@@ -9,7 +9,8 @@ Recurrence (per channel):
 
 The reference runs the sequence form as an associative scan and decode as
 one step; here both go through ``ops.rglru`` (the RG-LRU kernel on a CUDA
-tensor, the sequential plain version on a CPU tensor), decode as T = 1."""
+tensor, the sequential plain version on a CPU tensor), decode as T = 1,
+once per rank of the TE's mesh at that rank's channels."""
 from __future__ import annotations
 
 import math
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import split_ranks
 
 _C = 8.0
 
@@ -47,11 +49,13 @@ def init_rglru_block(gen: torch.Generator, d: int, width: int,
     }
 
 
-def _rglru_coeffs(p: dict, u: torch.Tensor):
-    """u: (B, T, W) post-conv activations -> fp32 (a, b) with
-    h_t = a_t h_{t-1} + b_t."""
-    rg = torch.sigmoid((u @ p["wa"]).float())
-    ig = torch.sigmoid((u @ p["wx"]).float())
+def _rglru_coeffs(p: dict, u_all: torch.Tensor, u: torch.Tensor):
+    """fp32 (a, b) with h_t = a_t h_{t-1} + b_t for the channels of ``u``
+    (B, T, W_r), a rank's post-conv activations; the gate products read
+    the whole post-conv width ``u_all`` (B, T, W) through the rank's
+    column shards of ``wa``/``wx``."""
+    rg = torch.sigmoid((u_all @ p["wa"]).float())
+    ig = torch.sigmoid((u_all @ p["wx"]).float())
     log_a = -_C * F.softplus(p["lambda_p"].float()) * rg
     a = torch.exp(log_a)
     gated = ig * u.float()
@@ -60,13 +64,15 @@ def _rglru_coeffs(p: dict, u: torch.Tensor):
     return a, b
 
 
-def rglru_scan(p: dict, u: torch.Tensor, h0: torch.Tensor,
-               n_valid: Optional[int] = None, impl: str = "auto"):
-    """The sequence form. u: (B, T, W); h0: (B, W). Positions >= n_valid
-    are padding: their steps become exact identities (a -> 1, b -> 0), so
-    the returned final state equals h_{n_valid-1}. Returns (h, h_last),
-    both fp32."""
-    a, b = _rglru_coeffs(p, u)
+def rglru_scan(p: dict, u_all: torch.Tensor, u: torch.Tensor,
+               h0: torch.Tensor, n_valid: Optional[int] = None,
+               impl: str = "auto"):
+    """The recurrence over a rank's channels, in prefill and in decode (T =
+    1). u_all: (B, T, W); u: (B, T, W_r); h0: (B, W_r). Positions >=
+    n_valid are padding: their steps become exact identities (a -> 1,
+    b -> 0), so the returned final state equals h_{n_valid-1}. Returns
+    (h, h_last), both fp32."""
+    a, b = _rglru_coeffs(p, u_all, u)
     t = u.shape[1]
     if n_valid is not None and n_valid < t:
         valid = (torch.arange(t, device=u.device) < n_valid)[None, :, None]
@@ -74,13 +80,6 @@ def rglru_scan(p: dict, u: torch.Tensor, h0: torch.Tensor,
         b = torch.where(valid, b, torch.zeros_like(b))
     return ops.rglru(a.contiguous(), b.contiguous(),
                      h0.float().contiguous(), impl=impl)
-
-
-def rglru_step(p: dict, u: torch.Tensor, h: torch.Tensor,
-               impl: str = "auto"):
-    """One decode step. u: (B, 1, W); h: (B, W). Returns (h_seq (B, 1, W),
-    h_new (B, W)) — the recurrence at T = 1."""
-    return rglru_scan(p, u, h, impl=impl)
 
 
 def conv1d_apply(p: dict, u: torch.Tensor, conv_state: torch.Tensor,
@@ -107,17 +106,31 @@ def conv1d_apply(p: dict, u: torch.Tensor, conv_state: torch.Tensor,
     return y.to(u.dtype), new_state
 
 
-def rglru_block_apply(p: dict, x: torch.Tensor, h0: torch.Tensor,
-                      conv_state: torch.Tensor, decode: bool = False,
-                      n_valid: Optional[int] = None, impl: str = "auto"):
-    """The Griffin recurrent block: (gelu gate) * (conv -> RG-LRU) -> out
-    projection. x: (B, T, D). Returns (y, new_h, new_conv_state)."""
-    gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")
-    u = x @ p["w_in"]
-    u, conv_state = conv1d_apply(p, u, conv_state, n_valid=n_valid)
-    if decode:
-        hseq, h = rglru_step(p, u, h0, impl=impl)
-    else:
-        hseq, h = rglru_scan(p, u, h0, n_valid=n_valid, impl=impl)
-    y = hseq.to(x.dtype) * gate
-    return y @ p["w_out"], h, conv_state
+def rglru_block_apply(ps: list, x: torch.Tensor, h0s: list, convs: list,
+                      mesh, n_valid: Optional[int] = None,
+                      impl: str = "auto"):
+    """The Griffin recurrent block over the ranks of ``mesh``: (gelu gate) *
+    (conv -> RG-LRU) -> out projection. ``ps``: the ranks' trees, whose
+    ``w_in``/``w_gate_in``/conv/``lambda_p``/``wa``/``wx`` hold the rank's
+    channels of the width; ``h0s``/``convs``: the ranks' (B, W_r) states
+    and (B, cw-1, W_r) conv inputs. Each rank runs the causal conv and the
+    RG-LRU on its channels (its gate products read the gathered post-conv
+    width), and ``w_out``'s row partials are all-reduced. x: (B, T, D) on
+    rank 0. Returns (y, [new h per rank], [new conv state per rank]), one
+    entry per rank holding channels (rank 0 alone when the width does not
+    split)."""
+    ranks = split_ranks(ps, ps[0]["wa"].shape[0], ps[0]["w_in"].shape[-1])
+    gates, us, new_convs = [], [], []
+    for p, xr, cs in zip(ranks, mesh.broadcast(x), convs):
+        gates.append(F.gelu(xr @ p["w_gate_in"], approximate="tanh"))
+        u, c = conv1d_apply(p, xr @ p["w_in"], cs, n_valid=n_valid)
+        us.append(u)
+        new_convs.append(c)
+    hs, ys = [], []
+    for p, ua, u, h0, g in zip(ranks, mesh.broadcast(mesh.all_gather(us, -1)),
+                               us, h0s, gates):
+        hseq, h = rglru_scan(p, ua, u, h0, n_valid=n_valid, impl=impl)
+        hs.append(h)
+        ys.append(hseq.to(x.dtype) * g)
+    return mesh.all_reduce([y @ p["w_out"] for p, y in zip(ranks, ys)]), \
+        hs, new_convs

@@ -7,8 +7,9 @@ Recurrence (per head, state S in R^{hd x hd}):
 with per-channel decay w_t = exp(-exp(w_hat_t)) computed from the input.
 
 ``rwkv_time_mix`` runs the recurrence through ``ops.wkv6`` with the carried
-state, in prefill and in decode: the WKV6 kernel on a CUDA tensor, the
-sequential plain version on a CPU tensor. ``wkv_sequential`` and
+state, in prefill and in decode, once per rank of the TE's mesh at that
+rank's heads: the WKV6 kernel on a CUDA tensor, the sequential plain
+version on a CPU tensor. ``wkv_sequential`` and
 ``wkv_chunked`` are the reference's two plain formulations, kept as twins
 for the CPU tests."""
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import wkv6_ref
+from repro_torch.launch.mesh import split_ranks
 
 # Clamp on the per-token log-decay inside the chunked form's within-chunk
 # products, so its exp(-cumsum) factors stay in fp32 range (lossless at
@@ -135,63 +137,102 @@ def _last_valid(x: torch.Tensor, n_valid: Optional[int]) -> torch.Tensor:
     return x[:, -1, :] if n_valid is None else x[:, n_valid - 1, :]
 
 
-def rwkv_time_mix(p: dict, x: torch.Tensor, head_dim: int,
-                  state: torch.Tensor, last_x: torch.Tensor,
+def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
+                  last_x: torch.Tensor, mesh,
                   n_valid: Optional[int] = None, impl: str = "auto"):
-    """x: (B, T, D); state: (B, H, hd, hd) fp32, advanced IN PLACE through
-    ``ops.wkv6``; last_x: (B, D) the previous call's last input. Returns
-    (y, state, new_last_x).
+    """The time mix over the ranks of ``mesh``. ``ps``: the ranks' time-mix
+    trees; x: (B, T, D) on rank 0; ``states``: the ranks' (B, H_r, hd, hd)
+    fp32 states (one tensor the ranks share when the heads replicate),
+    each advanced IN PLACE through ``ops.wkv6`` on its rank; last_x:
+    (B, D) the previous call's last input. Returns (y, states,
+    new_last_x).
+
+    Each rank holding a part of the state runs its heads: r, k, v and the
+    gate come from the ranks' column shards of ``wr``/``wk``/``wv``/``wg``
+    (a replicated one computed on rank 0 and cut), the replicated decay
+    LoRA, ``bonus_u`` and ``ln_x`` are read at the rank's heads, and
+    ``wo``'s row partials are all-reduced. Over one rank this is the
+    one-tree arithmetic, bit for bit.
 
     ``n_valid`` marks positions >= n_valid as padding (the bucketed-prefill
     contract): their recurrence steps become exact identities (w -> 1,
     k -> 0) and new_last_x is taken at n_valid-1."""
     b, t, d = x.shape
-    h = d // head_dim
+    p0 = ps[0]
     xs = _token_shift(x, last_x)
     delta = (xs - x).float()
     # data-dependent lerp (ddlerp): mix = base + lora(x)
-    lora = x @ p["mix_lora_a"]
-    mixes = p["mix_base"][:, None, None, :] + torch.einsum(
+    lora = x @ p0["mix_lora_a"]
+    mixes = p0["mix_base"][:, None, None, :] + torch.einsum(
         "btr,mrd->mbtd", torch.tanh(lora.float()).to(x.dtype),
-        p["mix_lora_b"]).float()
+        p0["mix_lora_b"]).float()
     xr, xk, xv, xw, xg = (x.float() + delta * mixes[i] for i in range(5))
+    hr = states[0].shape[1]                 # heads of a state part
+    parts = split_ranks(states, d // head_dim, hr)
+    cols = hr * head_dim
 
     def proj(a, wname):
-        return a.to(x.dtype) @ p[wname]
+        """a @ w as the state parts' column slices, on their ranks."""
+        out = [ar @ p[wname] for p, ar in zip(
+            split_ranks(ps, d, p0[wname].shape[-1]),
+            mesh.broadcast(a.to(x.dtype)))]
+        return mesh.regroup(out, len(parts), -1)
 
-    r = proj(xr, "wr").reshape(b, t, h, head_dim)
-    k = proj(xk, "wk").reshape(b, t, h, head_dim)
-    v = proj(xv, "wv").reshape(b, t, h, head_dim)
-    g = F.silu(proj(xg, "wg"))
-    dec = p["decay_base"] + ((xw.to(x.dtype) @ p["decay_lora_a"])
-                             @ p["decay_lora_b"]).float()
-    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, head_dim)
+    rs, ks, vs = (proj(a, n) for a, n in ((xr, "wr"), (xk, "wk"),
+                                          (xv, "wv")))
+    gs = [F.silu(g) for g in proj(xg, "wg")]
+    dls = mesh.broadcast(xw.to(x.dtype) @ p0["decay_lora_a"])
+    valid = None
     if n_valid is not None and n_valid < t:
         valid = (torch.arange(t, device=x.device) < n_valid)[None, :, None,
                                                              None]
-        w = torch.where(valid, w, torch.ones_like(w))
-        k = torch.where(valid, k, torch.zeros_like(k))
-    # the reference's cast of w to r's dtype: in bf16 that rounding is part
-    # of the result
-    y, state = ops.wkv6(r.contiguous(), k.contiguous(), v.contiguous(),
-                        w.to(r.dtype).contiguous(), p["bonus_u"], state,
-                        impl=impl)
-    # per-head group norm, then the gate
-    y32 = y.float()
-    mu = y32.mean(-1, keepdim=True)
-    var = (y32 - mu).square().mean(-1, keepdim=True)
-    y32 = (y32 - mu) * torch.rsqrt(var + 1e-5)
-    y = (y32.reshape(b, t, d) * p["ln_x"]).to(x.dtype) * g
-    return y @ p["wo"], state, _last_valid(x, n_valid)
+    ys = []
+    for r, (p, state, dl, rr, kk, vv, g) in enumerate(
+            zip(ps, parts, dls, rs, ks, vs, gs)):
+        c = slice(r * cols, (r + 1) * cols)
+        dec = p["decay_base"][c] + (dl @ p["decay_lora_b"][:, c]).float()
+        w = torch.exp(-torch.exp(dec)).reshape(b, t, hr, head_dim)
+        rr, kk, vv = (z.reshape(b, t, hr, head_dim) for z in (rr, kk, vv))
+        if valid is not None:
+            vr = valid.to(w.device)
+            w = torch.where(vr, w, torch.ones_like(w))
+            kk = torch.where(vr, kk, torch.zeros_like(kk))
+        # the reference's cast of w to r's dtype: in bf16 that rounding is
+        # part of the result
+        y, _ = ops.wkv6(rr.contiguous(), kk.contiguous(), vv.contiguous(),
+                        w.to(rr.dtype).contiguous(),
+                        p["bonus_u"][r * hr:(r + 1) * hr], state, impl=impl)
+        # per-head group norm, then the gate
+        y32 = y.float()
+        mu = y32.mean(-1, keepdim=True)
+        var = (y32 - mu).square().mean(-1, keepdim=True)
+        y32 = (y32 - mu) * torch.rsqrt(var + 1e-5)
+        ys.append((y32.reshape(b, t, cols) * p["ln_x"][c]).to(x.dtype) * g)
+    wo = split_ranks(ps, d, p0["wo"].shape[-2])
+    out = mesh.all_reduce([y @ p["wo"] for p, y in zip(
+        wo, mesh.regroup(ys, len(wo), -1))])
+    return out, states, _last_valid(x, n_valid)
 
 
-def rwkv_channel_mix(p: dict, x: torch.Tensor, last_x: torch.Tensor,
-                     n_valid: Optional[int] = None):
-    """Squared-relu channel mix with token shift. Returns (y, new_last_x)."""
+def rwkv_channel_mix(ps: list, x: torch.Tensor, last_x: torch.Tensor,
+                     mesh, d_ff: int, n_valid: Optional[int] = None):
+    """Squared-relu channel mix with token shift over the ranks of
+    ``mesh``: ``cm_k`` split on its ``d_ff`` columns and ``cm_v`` on its
+    rows (partials all-reduced), ``cm_r`` on its ``d_model`` output (the
+    gate's slices gathered before it multiplies). Returns (y,
+    new_last_x)."""
+    d = x.shape[-1]
+    p0 = ps[0]
     xs = _token_shift(x, last_x)
     delta = (xs - x).float()
-    xk = (x.float() + delta * p["cm_mix"][0]).to(x.dtype)
-    xr = (x.float() + delta * p["cm_mix"][1]).to(x.dtype)
-    kk = torch.relu(xk @ p["cm_k"]).square()
-    rr = torch.sigmoid((xr @ p["cm_r"]).float()).to(x.dtype)
-    return rr * (kk @ p["cm_v"]), _last_valid(x, n_valid)
+    xk = (x.float() + delta * p0["cm_mix"][0]).to(x.dtype)
+    xr = (x.float() + delta * p0["cm_mix"][1]).to(x.dtype)
+    kv = mesh.all_reduce([
+        torch.relu(a @ p["cm_k"]).square() @ p["cm_v"] for p, a in zip(
+            split_ranks(ps, d_ff, p0["cm_k"].shape[-1]),
+            mesh.broadcast(xk))])
+    rr = mesh.all_gather([
+        torch.sigmoid((a @ p["cm_r"]).float()).to(x.dtype) for p, a in zip(
+            split_ranks(ps, d, p0["cm_r"].shape[-1]), mesh.broadcast(xr))],
+        -1)
+    return rr * kv, _last_valid(x, n_valid)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import one_rank
+from repro_torch.launch.mesh import one_rank, split_ranks
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
@@ -202,14 +202,8 @@ def window_schedule(cfg: ModelConfig) -> List[int]:
 # ``mesh.all_gather``, the identity over one rank, so a tp-1 TE keeps its
 # arithmetic bit for bit. Which ranks take part in a product is read off
 # the shards' widths: all of them when it splits, rank 0 alone when it is
-# replicated (``_split_ranks``). Activations live on rank 0's device.
-
-
-def _split_ranks(ps: list, full: int, width: int) -> list:
-    """The ranks holding distinct slices of a dimension of size ``full``
-    whose shard has ``width``: every rank when it splits, rank 0 alone
-    when each rank holds it whole."""
-    return ps[:full // width]
+# replicated (``launch.mesh.split_ranks``). Activations live on rank 0's
+# device.
 
 
 def embed(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
@@ -222,7 +216,7 @@ def embed(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
     rows, cols = ps[0]["embed"].shape
     toks = mesh.broadcast(tokens)
     parts = []
-    for r, p in enumerate(_split_ranks(ps, cfg.padded_vocab * cfg.d_model,
+    for r, p in enumerate(split_ranks(ps, cfg.padded_vocab * cfg.d_model,
                                        rows * cols)):
         t = toks[r] - (r * rows) % cfg.padded_vocab
         ok = ((t >= 0) & (t < rows))[..., None]
@@ -250,7 +244,7 @@ def unembed(cfg: ModelConfig, ps: list, x: torch.Tensor,
     hs = mesh.broadcast(h)
     parts = [(hr if d == cfg.d_model else hr[..., r * d:(r + 1) * d]) @ w
              for r, (hr, w) in enumerate(zip(
-                 hs, _split_ranks(heads, cfg.padded_vocab * cfg.d_model,
+                 hs, split_ranks(heads, cfg.padded_vocab * cfg.d_model,
                                   d * v)))]
     logits = mesh.all_reduce(parts) if d < cfg.d_model \
         else mesh.all_gather(parts, -1)
@@ -273,7 +267,7 @@ def block_qkv(cfg: ModelConfig, ps: list, x: torch.Tensor,
     return [L.attn_qkv(p["attn"], hr, width // hd,
                        p["attn"]["wk"].shape[-1] // hd, hd, pos,
                        cfg.rope_theta, cfg.qk_norm)
-            for p, hr, pos in zip(_split_ranks(ps, cfg.n_heads * hd, width),
+            for p, hr, pos in zip(split_ranks(ps, cfg.n_heads * hd, width),
                                   mesh.broadcast(h), positions)]
 
 
@@ -290,17 +284,24 @@ def block_out(cfg: ModelConfig, ps: list, x: torch.Tensor, os: list,
         a = L.apply_norm(a, ps[0]["ln1_post"], cfg.norm)
     x = x + a
     h = L.apply_norm(x, ps[0]["ln2"], cfg.norm)
-    if "moe" in ps[0]:
-        m = M.moe_apply([p["moe"] for p in ps], h, cfg.moe, cfg.mlp_act,
-                        mesh, groups=groups)
-    else:
-        w = ps[0]["mlp"]["w_up"].shape[-1]
-        m = mesh.all_reduce([L.mlp_apply(p["mlp"], hr, cfg.mlp_act)
-                             for p, hr in zip(_split_ranks(ps, cfg.d_ff, w),
-                                              mesh.broadcast(h))])
+    m = _ffn(cfg, ps, h, mesh, groups)
     if cfg.post_norms:
         m = L.apply_norm(m, ps[0]["ln2_post"], cfg.norm)
     return x + m
+
+
+def _ffn(cfg: ModelConfig, ps: list, h: torch.Tensor, mesh,
+         groups: int = 1) -> torch.Tensor:
+    """A block's FFN over its normed input: the MoE (over ``groups``
+    capacity groups), or the dense MLP whose ``d_ff`` slices' partials
+    are all-reduced."""
+    if "moe" in ps[0]:
+        return M.moe_apply([p["moe"] for p in ps], h, cfg.moe, cfg.mlp_act,
+                           mesh, groups=groups)
+    w = ps[0]["mlp"]["w_up"].shape[-1]
+    return mesh.all_reduce([L.mlp_apply(p["mlp"], hr, cfg.mlp_act)
+                            for p, hr in zip(split_ranks(ps, cfg.d_ff, w),
+                                             mesh.broadcast(h))])
 
 
 def attn_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -325,83 +326,108 @@ def moe_groups(tokens: int) -> int:
     return 1
 
 
-def rwkv_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                     state: torch.Tensor, last_tm: torch.Tensor,
-                     last_cm: torch.Tensor, n_valid: Optional[int] = None,
-                     impl: str = "auto"):
-    """Pre-norm time mix + channel mix (``transformer.py:251-261``). The
-    state is advanced in place. Returns (x, state, last_tm, last_cm)."""
-    h = L.apply_norm(x, p["ln1"], cfg.norm)
-    y, state, last_tm = R.rwkv_time_mix(p["tm"], h, cfg.rwkv.head_dim,
-                                        state, last_tm, n_valid=n_valid,
-                                        impl=impl)
+def rwkv_block_apply(cfg: ModelConfig, ps: list, x: torch.Tensor,
+                     states: list, last_tm: torch.Tensor,
+                     last_cm: torch.Tensor, mesh,
+                     n_valid: Optional[int] = None, impl: str = "auto"):
+    """Pre-norm time mix + channel mix (``transformer.py:251-261``) over
+    the ranks' layer trees ``ps``; each rank's state in ``states`` is
+    advanced in place (``rwkv6.rwkv_time_mix``). Returns (x, last_tm,
+    last_cm)."""
+    tms = [p["tm"] for p in ps]
+    h = L.apply_norm(x, ps[0]["ln1"], cfg.norm)
+    y, _, last_tm = R.rwkv_time_mix(tms, h, cfg.rwkv.head_dim, states,
+                                    last_tm, mesh, n_valid=n_valid,
+                                    impl=impl)
     x = x + y
-    h = L.apply_norm(x, p["ln2"], cfg.norm)
-    y, last_cm = R.rwkv_channel_mix(p["tm"], h, last_cm, n_valid=n_valid)
-    return x + y, state, last_tm, last_cm
+    h = L.apply_norm(x, ps[0]["ln2"], cfg.norm)
+    y, last_cm = R.rwkv_channel_mix(tms, h, last_cm, mesh, cfg.d_ff,
+                                    n_valid=n_valid)
+    return x + y, last_tm, last_cm
 
 
-def rglru_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                      h0: torch.Tensor, conv_state: torch.Tensor,
-                      decode: bool = False, n_valid: Optional[int] = None,
-                      impl: str = "auto"):
-    """Pre-norm recurrent block + MLP (``transformer.py:264-272``).
-    Returns (x, h, conv_state)."""
-    h = L.apply_norm(x, p["ln1"], cfg.norm)
-    y, h0, conv_state = G.rglru_block_apply(p["rec"], h, h0, conv_state,
-                                            decode=decode, n_valid=n_valid,
-                                            impl=impl)
+def rglru_block_apply(cfg: ModelConfig, ps: list, x: torch.Tensor,
+                      h0s: list, convs: list, mesh,
+                      n_valid: Optional[int] = None, impl: str = "auto"):
+    """Pre-norm recurrent block + MLP (``transformer.py:264-272``) over the
+    ranks' layer trees ``ps`` and their (B, W_r) states and conv inputs.
+    Returns (x, [h per rank], [conv state per rank]) for the ranks holding
+    channels (``rglru.rglru_block_apply``)."""
+    h = L.apply_norm(x, ps[0]["ln1"], cfg.norm)
+    y, hs, convs = G.rglru_block_apply([p["rec"] for p in ps], h, h0s,
+                                       convs, mesh, n_valid=n_valid,
+                                       impl=impl)
     x = x + y
-    h = L.apply_norm(x, p["ln2"], cfg.norm)
-    return x + L.mlp_apply(p["mlp"], h, cfg.mlp_act), h0, conv_state
+    h = L.apply_norm(x, ps[0]["ln2"], cfg.norm)
+    return x + _ffn(cfg, ps, h, mesh), hs, convs
 
 
-def cross_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+def cross_block_apply(cfg: ModelConfig, ps: list, x: torch.Tensor,
                       mem_k: torch.Tensor, mem_v: torch.Tensor,
-                      gated: bool) -> torch.Tensor:
-    """Cross-attention block (``transformer.py:222-240``): the queries of
-    ``x`` attend to every position of the modality memory's mem_k/mem_v
-    (B, P, Hkv, hd). A VLM block (``gated``) adds its attention and its
-    MLP through tanh gates; an enc-dec block adds its attention alone."""
-    h = L.apply_norm(x, p["ln1"] if "ln1" in p else p["ln"], cfg.norm)
+                      gated: bool, mesh) -> torch.Tensor:
+    """Cross-attention block (``transformer.py:222-240``) over the ranks'
+    layer trees ``ps``: each rank's queries (its ``wq`` heads) attend to
+    every position of the modality memory's mem_k/mem_v (B, P, Hkv, hd,
+    replicated) at the KV heads of its group, and the output projections'
+    partials are all-reduced. A VLM block (``gated``) adds its attention
+    and its MLP through tanh gates; an enc-dec block adds its attention
+    alone."""
+    p0 = ps[0]
+    h = L.apply_norm(x, p0["ln1"] if "ln1" in p0 else p0["ln"], cfg.norm)
     b, s, _ = h.shape
-    q = (h @ p["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    o = L.attn_out(p["attn"], L.attention(q, mem_k.to(q.dtype),
-                                          mem_v.to(q.dtype), None,
-                                          cfg.attn_logit_softcap))
+    hd = cfg.head_dim
+    width = p0["attn"]["wq"].shape[-1]
+    hr = width // hd                          # query heads per rank
+    kr = hr * cfg.n_kv_heads // cfg.n_heads   # their KV heads
+    parts = []
+    for r, (p, hb, mk, mv) in enumerate(zip(
+            split_ranks(ps, cfg.n_heads * hd, width), mesh.broadcast(h),
+            mesh.broadcast(mem_k), mesh.broadcast(mem_v))):
+        q = (hb @ p["attn"]["wq"]).reshape(b, s, hr, hd)
+        g = slice(r * kr, (r + 1) * kr)
+        parts.append(L.attn_out(p["attn"], L.attention(
+            q, mk[:, :, g].to(q.dtype), mv[:, :, g].to(q.dtype), None,
+            cfg.attn_logit_softcap)))
+    o = mesh.all_reduce(parts)
     if not gated:
         return x + o
-    x = x + torch.tanh(p["gate_attn"]).to(o.dtype) * o
-    m = L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"], cfg.norm),
-                    cfg.mlp_act)
-    return x + torch.tanh(p["gate_mlp"]).to(m.dtype) * m
+    x = x + torch.tanh(p0["gate_attn"]).to(o.dtype) * o
+    m = _ffn(cfg, ps, L.apply_norm(x, p0["ln2"], cfg.norm), mesh)
+    return x + torch.tanh(p0["gate_mlp"]).to(m.dtype) * m
 
 
-def memory_kv(cfg: ModelConfig, p_attn: dict, mem: torch.Tensor):
+def memory_kv(cfg: ModelConfig, ps_attn: list, mem: torch.Tensor, mesh):
     """Project the modality memory (B, P, D) into the cross K/V (B, P,
-    Hkv, hd); no rope (``transformer.py:243-248``)."""
+    Hkv, hd), no rope (``transformer.py:243-248``): each rank's KV heads
+    from its ``wk``/``wv`` shards, gathered on rank 0."""
     b, s, _ = mem.shape
-    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
-    return (mem @ p_attn["wk"]).reshape(shape), \
-        (mem @ p_attn["wv"]).reshape(shape)
+    hd = cfg.head_dim
+    width = ps_attn[0]["wk"].shape[-1]
+    ranks = split_ranks(ps_attn, cfg.n_kv_heads * hd, width)
+    mems = mesh.broadcast(mem)
+
+    def proj(name):
+        return mesh.all_gather([(m @ p[name]).reshape(b, s, width // hd, hd)
+                                for p, m in zip(ranks, mems)], 2)
+    return proj("wk"), proj("wv")
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, ps: list, frames: torch.Tensor,
+           mesh) -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings (B, F, D)
-    (``transformer.py:490-519``), with naive attention at every length:
-    the reference's chunked flash form past 2048 frames computes the same
-    softmax in another order."""
+    (``transformer.py:490-519``) on the ranks' trees ``ps``: each layer's
+    heads split as a decoder block's (``block_qkv`` / ``block_out``), with
+    naive attention at every length: the reference's chunked flash form
+    past 2048 frames computes the same softmax in another order."""
     b, f, _ = frames.shape
-    pos = torch.arange(f, device=frames.device).expand(b, f)
+    pos = mesh.broadcast(torch.arange(f, device=frames.device).expand(b, f))
     x = frames
     for li in range(cfg.encoder.n_layers):
-        p = layer(params, li, "enc_blocks")
-        (q, k, v), = block_qkv(cfg, [p], x, [pos], one_rank(x.device))
-        x = x + L.attn_out(p["attn"], L.attention(q, k, v, None,
-                                                  cfg.attn_logit_softcap))
-        x = x + L.mlp_apply(p["mlp"], L.apply_norm(x, p["ln2"], cfg.norm),
-                            cfg.mlp_act)
-    return L.apply_norm(x, params["enc_final_norm"], cfg.norm)
+        lps = [layer(p, li, "enc_blocks") for p in ps]
+        x = block_out(cfg, lps, x, [
+            L.attention(q, k, v, None, cfg.attn_logit_softcap)
+            for q, k, v in block_qkv(cfg, lps, x, pos, mesh)], mesh)
+    return L.apply_norm(x, ps[0]["enc_final_norm"], cfg.norm)
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
@@ -417,7 +443,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed(cfg, [params], tokens, one_rank(tokens.device))
+    mesh = one_rank(tokens.device)
+    x = embed(cfg, [params], tokens, mesh)
     dev = x.device
     if cfg.attn_kind == "rwkv":
         nh, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
@@ -425,17 +452,18 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             state = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
                                 device=dev)
             last = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=dev)
-            x, _, _, _ = rwkv_block_apply(cfg, layer(params, li), x, state,
-                                          last, last)
+            x, _, _ = rwkv_block_apply(cfg, [layer(params, li)], x,
+                                       [state], last, last, mesh)
     elif cfg.attn_kind == "hybrid_rglru":
         w, cw = cfg.rglru.lru_width, cfg.rglru.conv1d_width
         ri = ai = 0
         for kind in cfg.layer_kinds():
             if kind == "rglru":
                 x, _, _ = rglru_block_apply(
-                    cfg, params["rglru_blocks"][ri], x,
-                    torch.zeros((b, w), dtype=torch.float32, device=dev),
-                    torch.zeros((b, cw - 1, w), dtype=x.dtype, device=dev))
+                    cfg, [params["rglru_blocks"][ri]], x,
+                    [torch.zeros((b, w), dtype=torch.float32, device=dev)],
+                    [torch.zeros((b, cw - 1, w), dtype=x.dtype, device=dev)],
+                    mesh)
                 ri += 1
             else:
                 x = attn_block_apply(cfg, params["attn_blocks"][ai], x,
@@ -446,16 +474,16 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
         if cfg.encoder is not None:
             if frames is None:
                 raise ValueError(f"{cfg.name}: an enc-dec model needs frames")
-            mem = encode(cfg, params, frames)
+            mem = encode(cfg, [params], frames, mesh)
         for li, win in enumerate(window_schedule(cfg)):
             x = attn_block_apply(cfg, layer(params, li), x, positions, win)
             if li in cross and mem is not None:
                 ci, gated = cross[li]
                 pc = layer(params, ci, "cross_blocks")
-                x = cross_block_apply(cfg, pc, x,
-                                      *memory_kv(cfg, pc["attn"], mem),
-                                      gated)
-    return unembed(cfg, [params], x, one_rank(dev))
+                x = cross_block_apply(cfg, [pc], x,
+                                      *memory_kv(cfg, [pc["attn"]], mem,
+                                                 mesh), gated, mesh)
+    return unembed(cfg, [params], x, mesh)
 
 
 def cross_schedule(cfg: ModelConfig) -> Dict[int, tuple]:

@@ -44,12 +44,14 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.engine.runners import resolve_family
+from repro_torch.launch.mesh import one_rank
 from repro_torch.models import serving as S
 from repro_torch.models import transformer as T
 from repro_torch.models.bridge import params_from_numpy
 
 VLM, ENCDEC = "llama-3.2-vision-11b", "seamless-m4t-large-v2"
 ARCHS = [VLM, ENCDEC]
+CPU = one_rank(torch.device("cpu"))     # one weights tree on one rank
 SHARED = dict(n_slots=4, max_len=64, max_batch_tokens=32, chunk_size=8,
               max_decode_batch=4)
 
@@ -226,12 +228,13 @@ def test_memory_kv_and_cross_block_match_reference(models, arch):
     jpc = jax.tree.map(lambda a: a[1], jp["cross_blocks"])
     tpc = T.layer(tp, 1, "cross_blocks")
     wk, wv = JT.memory_kv(cfg, jpc["attn"], jnp.asarray(mem))
-    gk, gv = T.memory_kv(cfg, tpc["attn"], torch.from_numpy(mem))
+    gk, gv = T.memory_kv(cfg, [tpc["attn"]], torch.from_numpy(mem), CPU)
     np.testing.assert_allclose(_f32(gk), _f32(wk), atol=1e-5)
     np.testing.assert_allclose(_f32(gv), _f32(wv), atol=1e-5)
     gated = arch == VLM
     want = JT.cross_block_apply(cfg, jpc, jnp.asarray(x), wk, wv, gated)
-    got = T.cross_block_apply(cfg, tpc, torch.from_numpy(x), gk, gv, gated)
+    got = T.cross_block_apply(cfg, [tpc], torch.from_numpy(x), gk, gv, gated,
+                              CPU)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5)
     assert np.abs(_f32(got) - x).max() > 0.1       # the block does work
 
@@ -244,7 +247,7 @@ def test_encode_matches_reference(models, n_frames):
     bundle, jp, cfg, tp = models[ENCDEC]
     frames = _mem(cfg, 13, n=n_frames)
     want = JT.encode(bundle.cfg, jp, jnp.asarray(frames))
-    got = T.encode(cfg, tp, torch.from_numpy(frames))
+    got = T.encode(cfg, [tp], torch.from_numpy(frames), CPU)
     assert got.shape == (1, n_frames, cfg.d_model)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-4)
 
@@ -286,7 +289,7 @@ def test_prefill_decode_logits_match_reference(models, arch):
     jdecode = jax.jit(lambda p, t, c: JS.decode_step(bundle.cfg, p, t, c))
     prompt = np.random.RandomState(6).randint(3, cfg.vocab_size, (2, 21))
     jc = bundle.init_cache(2, 32, jnp.float32)
-    tc = S.init_cache(cfg, 2, 32, torch.float32, "cpu")
+    tc = S.init_cache(cfg, 2, 32, torch.float32, CPU)
     seq, rows = prompt, []
     for a in range(0, 21, 8):
         chunk = prompt[:, a:a + 8]
@@ -295,7 +298,7 @@ def test_prefill_decode_logits_match_reference(models, arch):
         padded[:, :nv] = chunk
         wl, jc = jprefill(jp, jnp.asarray(padded, jnp.int32), jc,
                           jnp.asarray(mem), jnp.int32(nv))
-        gl, tc = S.prefill(cfg, tp, torch.from_numpy(padded), tc,
+        gl, tc = S.prefill(cfg, [tp], torch.from_numpy(padded), tc, CPU,
                            n_valid=nv, **{key: torch.from_numpy(mem)})
         np.testing.assert_allclose(_f32(gl), _f32(wl), atol=2e-3)
         rows.append((a + nv - 1, gl))
@@ -303,12 +306,12 @@ def test_prefill_decode_logits_match_reference(models, arch):
     for _ in range(11):
         seq = np.concatenate([seq, tok[:, None]], 1)
         wl, jc = jdecode(jp, jnp.asarray(tok, jnp.int32), jc)
-        gl, tc = S.decode_step(cfg, tp, torch.from_numpy(tok), tc)
+        gl, tc = S.decode_step(cfg, [tp], torch.from_numpy(tok), tc, CPU)
         np.testing.assert_allclose(_f32(gl), _f32(wl), atol=2e-3)
         rows.append((seq.shape[1] - 1, gl))
         tok = np.asarray(jnp.argmax(wl[:, :bundle.cfg.vocab_size], -1),
                          np.int64)
-    assert tc["length"].tolist() == np.asarray(jc["length"]).tolist() \
+    assert tc[0]["length"].tolist() == np.asarray(jc["length"]).tolist() \
         == [32, 32]
     full = T.forward(cfg, tp, torch.from_numpy(seq),
                      **{key: torch.from_numpy(mem)})

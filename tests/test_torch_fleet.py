@@ -71,26 +71,18 @@ def test_topology_parse_errors_as_reference(spec):
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-1.6b"])
 def test_plane_refuses_tensor_parallelism(arch):
-    """At ``tp=2`` the plane refuses only the slot family, naming its
-    ROADMAP item: a paged arch (smoke, 2 layers) is served on a tp-2 TE,
-    and ``npu_fork_live`` forks its weights onto a tp-2 mesh, every shard
-    its rank's slice of the source in new storage."""
+    """(The name is from when the plane refused tp > 1.) At ``tp=2`` a
+    paged arch and a slot arch (smoke, 2 layers) are each served on a
+    tp-2 TE, and ``npu_fork_live`` forks the weights onto a tp-2 mesh,
+    every shard its rank's slice of the source in new storage."""
     cfg = dataclasses.replace(smoke_config(get_config(arch)), n_layers=2)
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            torch.float32, "cpu")
-
-    def plane():
-        return TP.ServingJobEngine(
-            cfg, params, TP.TopologySpec(colo=1, tp=2), heatmap=None,
-            prefill_lens=[], decode_ratios=[], policy="round_robin",
-            ecfg=EngineConfig(n_pages=32, page_size=8, n_slots=2,
-                              max_len=64),
-            device="cpu")
-    if arch == "rwkv6-1.6b":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-            plane()
-        return
-    je = plane()
+    je = TP.ServingJobEngine(
+        cfg, params, TP.TopologySpec(colo=1, tp=2), heatmap=None,
+        prefill_lens=[], decode_ratios=[], policy="round_robin",
+        ecfg=EngineConfig(n_pages=32, page_size=8, n_slots=2, max_len=64),
+        device="cpu")
     try:
         te = je.engines[0]
         assert te.ecfg.tp == 2 and len(te.runner.params) == 2
@@ -103,10 +95,13 @@ def test_plane_refuses_tensor_parallelism(arch):
         je.close()
     forked, lr = TS.npu_fork_live([params], cfg,
                                   make_engine_mesh(2, 0, "cpu"))
-    wq = params["blocks"]["attn"]["wq"]
+    # a column-split projection of each: attention's wq, rwkv's wr
+    pick = (lambda t: t["blocks"]["attn"]["wq"]) if "attn" in \
+        params["blocks"] else (lambda t: t["blocks"]["tm"]["wr"])
+    wq = pick(params)
     half = wq.shape[-1] // 2
     for r, tree in enumerate(forked):
-        got = tree["blocks"]["attn"]["wq"]
+        got = pick(tree)
         assert torch.equal(got, wq[..., r * half:(r + 1) * half])
         assert got.data_ptr() != wq.data_ptr()
     assert lr.bytes_moved == TS._nbytes(params)

@@ -6,9 +6,12 @@ with a state carried in and out, the split-K decode at forced split
 counts, the decode at the other paged archs' shapes (G 2-6, hd 120 and
 256, softcap 50 with a window), both attention kernels at one
 tensor-parallel rank's shapes (qwen3-8b at tp 2, granite-moe at tp 4, on
-a layer view of a rank's pool), and the bf16 tensor-core prefill at G =
+a layer view of a rank's pool), both recurrences on one tp-2 rank's cache
+storage (rwkv6-1.6b's 16 heads, recurrentgemma-2b's 1280 channels), and
+the bf16 tensor-core prefill at G =
 1-8 and hd 64-256 (hd 120 padded to 128); the hot loop under sync-debug
-"error", the cross-attention towers' prefill chunk and decode included;
+"error", the cross-attention towers' prefill chunk and decode and a tp-2
+slot decode_sample included;
 and the fleet control plane: a fork's weights bit-equal in new storage, a
 warm upload from a pinned pool entry, the device memory a killed and a
 released TE give back, a steady plane step with no sync, and threaded
@@ -442,6 +445,58 @@ def test_rglru_kernel_main_path_shape(cuda):
     assert torch.equal(h_k, h_r) and torch.equal(last_k, last_r)
 
 
+# one tensor-parallel rank's recurrence shapes at tp 2: rwkv6-1.6b's 16 of
+# 32 heads and recurrentgemma-2b's 1280 of 2560 channels, prefill (one
+# sequence's 256-token chunk) and decode (8 slots)
+RANK_RECURRENCES = [("prefill", 1, 256), ("decode", 8, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase,b,t", RANK_RECURRENCES)
+def test_recurrences_on_one_ranks_cache_storage(cuda, phase, b, t):
+    """Both recurrences as a tp-2 slot TE calls them: on rank 1's own
+    storage of the (L, B, H/2, hd, hd) rwkv state and the (L, B, W/2)
+    RG-LRU state (a layer's rows of one slot in prefill, of every slot in
+    decode), at the rank's head and channel counts, each against its
+    plain version (test_wkv6_kernel's and test_rglru_kernel's
+    tolerances)."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_engine_mesh
+    mesh = make_engine_mesh(2, 0, cuda)
+    g = torch.Generator().manual_seed(12)
+    h, hd, w, slots = 16, 64, 1280, 8
+    state = SH.rank_zeros((3, slots, 2 * h, hd, hd), torch.float32, 2,
+                          mesh)[1]
+    hstate = SH.rank_zeros((3, slots, 2 * w), torch.float32, 2, mesh)[1]
+    assert state.shape[2] == h and hstate.shape[2] == w
+    state.copy_(torch.randn(state.shape, generator=g) * 0.5)
+    hstate.copy_(torch.randn(hstate.shape, generator=g) * 0.5)
+    rows = slice(5, 6) if phase == "prefill" else slice(None)
+    s_k = state[1, rows]
+    assert s_k.is_contiguous() and s_k.shape == (b, h, hd, hd)
+    r, k, v = (torch.randn((b, t, h, hd), generator=g) * 0.5 for _ in
+               range(3))
+    wd = torch.exp(-torch.exp(torch.randn((b, t, h, hd), generator=g) * 0.5
+                              - 1.0))
+    u = (torch.randn((h, hd), generator=g) * 0.3).to(cuda)
+    r, k, v, wd = (x.to(cuda, torch.bfloat16) for x in (r, k, v, wd))
+    s_r = s_k.clone()
+    y_k, out = ops.wkv6(r, k, v, wd, u, s_k)
+    y_r, _ = ops.wkv6(r, k, v, wd, u, s_r, impl="ref")
+    assert out is s_k
+    np.testing.assert_allclose(y_k.float().cpu().numpy(),
+                               y_r.float().cpu().numpy(), atol=2e-2,
+                               rtol=1e-2)
+    np.testing.assert_allclose(state[1, rows].cpu().numpy(),
+                               s_r.cpu().numpy(), atol=1e-4)
+    h0 = hstate[2, rows]
+    a = torch.sigmoid(torch.randn((b, t, w), generator=g)).to(cuda)
+    bb = (torch.randn((b, t, w), generator=g) * 0.2).to(cuda)
+    h_k, last_k = ops.rglru(a, bb, h0)
+    h_r, last_r = ops.rglru(a, bb, h0, impl="ref")
+    assert torch.equal(h_k, h_r) and torch.equal(last_k, last_r)
+
+
 # ---------------------------------------------------------------------------
 # the hot loop's host side never drains the stream (no blocking copy)
 # ---------------------------------------------------------------------------
@@ -553,6 +608,20 @@ def test_slot_decode_sample_never_syncs(cuda, arch):
     uploaded from pinned memory) enqueues its step with no blocking device
     call. The token fetch after it, which the reference also blocks on,
     is outside the checked region."""
+    _slot_decode_sample_never_syncs(cuda, arch, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_tp2_slot_decode_sample_never_syncs(cuda, arch):
+    """The same step on a tp-2 slot TE: each rank's recurrence on its part
+    of the state, recurrentgemma's ring write into the rank holding the
+    slot and the log-sum-exp merge of the ranks' attention, with no
+    blocking device call."""
+    _slot_decode_sample_never_syncs(cuda, arch, 2)
+
+
+def _slot_decode_sample_never_syncs(cuda, arch, tp):
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.engine import (EngineConfig, FlowServe, Request,
                                     SamplingParams)
@@ -560,7 +629,8 @@ def test_slot_decode_sample_never_syncs(cuda, arch):
     cfg = smoke_config(get_config(arch))
     gen = torch.Generator(device=cuda).manual_seed(0)
     te = FlowServe(cfg, T.init_params(cfg, gen, torch.float32, cuda),
-                   EngineConfig(n_slots=4, max_len=64), device=cuda)
+                   EngineConfig(n_slots=4, max_len=64, tp=tp), device=cuda)
+    assert len(te.runner.caches) == tp
     for i in range(2):
         te.add_request(Request(prompt_tokens=list(range(3, 12 + i)),
                                req_id=f"r{i}", sampling=SamplingParams(
@@ -613,7 +683,8 @@ def test_cross_attn_prefill_and_decode_never_sync(cuda, arch):
         te.runner.prefill_chunk(seq, prompt[:8])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert seq.n_cached == 8 and int(te.runner.cache["length"][seq.slot]) == 8
+    assert seq.n_cached == 8
+    assert int(te.runner.caches[0]["length"][seq.slot]) == 8
     te.runner.free_slot(seq)
     for i in range(2):
         te.add_request(Request(

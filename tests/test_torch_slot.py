@@ -36,6 +36,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.engine.runners import resolve_family
+from repro_torch.launch.mesh import one_rank
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import serving as S
@@ -43,6 +44,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.bridge import params_from_numpy
 
 ARCHS = ["rwkv6-1.6b", "recurrentgemma-2b"]
+CPU = one_rank(torch.device("cpu"))     # one weights tree on one rank
 SHARED = dict(n_slots=4, max_len=64, max_batch_tokens=32, chunk_size=8,
               max_decode_batch=4)
 
@@ -186,14 +188,16 @@ def test_rwkv_mixes_match_reference(models, n_valid):
     wy, wst, wl = time_mix(jtm, jnp.asarray(x), hd, jnp.asarray(st),
                            jnp.asarray(last), n_valid=n_valid)
     state = torch.from_numpy(st.copy())
-    gy, gst, gl = R.rwkv_time_mix(ttm, torch.from_numpy(x), hd, state,
-                                  torch.from_numpy(last), n_valid=n_valid)
+    gy, (gst,), gl = R.rwkv_time_mix([ttm], torch.from_numpy(x), hd,
+                                     [state], torch.from_numpy(last), CPU,
+                                     n_valid=n_valid)
     for g, w in ((gy, wy), (gst, wst), (gl, wl)):
         np.testing.assert_allclose(_f32(g), _f32(w), atol=1e-5)
     wy, wl = jax.jit(JR.rwkv_channel_mix, static_argnames="n_valid")(
         jtm, jnp.asarray(x), jnp.asarray(last), n_valid=n_valid)
-    gy, gl = R.rwkv_channel_mix(ttm, torch.from_numpy(x),
-                                torch.from_numpy(last), n_valid=n_valid)
+    gy, gl = R.rwkv_channel_mix([ttm], torch.from_numpy(x),
+                                torch.from_numpy(last), CPU, cfg.d_ff,
+                                n_valid=n_valid)
     np.testing.assert_allclose(_f32(gy), _f32(wy), atol=1e-5)
     np.testing.assert_allclose(_f32(gl), _f32(wl), atol=1e-5)
 
@@ -217,11 +221,11 @@ def test_rglru_block_matches_reference(models, n_valid, decode):
     want = block(jp["rglru_blocks"][0]["rec"], jnp.asarray(x),
                  jnp.asarray(h0), jnp.asarray(conv), decode=decode,
                  n_valid=n_valid)
-    got = G.rglru_block_apply(tp["rglru_blocks"][0]["rec"],
-                              torch.from_numpy(x), torch.from_numpy(h0),
-                              torch.from_numpy(conv), decode=decode,
-                              n_valid=n_valid)
-    for g, wv in zip(got, want):
+    y, (h,), (c,) = G.rglru_block_apply(
+        [tp["rglru_blocks"][0]["rec"]], torch.from_numpy(x),
+        [torch.from_numpy(h0)], [torch.from_numpy(conv)], CPU,
+        n_valid=n_valid)
+    for g, wv in zip((y, h, c), want):
         np.testing.assert_allclose(_f32(g), _f32(wv), atol=1e-5)
 
 
@@ -254,7 +258,7 @@ def test_prefill_decode_logits_match_reference(models, arch):
     jdecode = jax.jit(lambda p, t, c: JS.decode_step(bundle.cfg, p, t, c))
     prompt = np.random.RandomState(6).randint(3, cfg.vocab_size, (2, 21))
     jc = bundle.init_cache(2, 64, jnp.float32)
-    tc = S.init_cache(cfg, 2, 64, torch.float32, "cpu")
+    tc = S.init_cache(cfg, 2, 64, torch.float32, CPU)
     for a in range(0, 21, 8):
         chunk = prompt[:, a:a + 8]
         nv = chunk.shape[1]
@@ -262,16 +266,17 @@ def test_prefill_decode_logits_match_reference(models, arch):
         padded[:, :nv] = chunk
         wl, jc = jprefill(jp, jnp.asarray(padded, jnp.int32), jc,
                           jnp.int32(nv))
-        gl, tc = S.prefill(cfg, tp, torch.from_numpy(padded), tc, n_valid=nv)
+        gl, tc = S.prefill(cfg, [tp], torch.from_numpy(padded), tc, CPU,
+                           n_valid=nv)
         np.testing.assert_allclose(_f32(gl), _f32(wl), atol=2e-3)
     tok = np.asarray(jnp.argmax(wl[:, :bundle.cfg.vocab_size], -1), np.int64)
     for _ in range(4):
         wl, jc = jdecode(jp, jnp.asarray(tok, jnp.int32), jc)
-        gl, tc = S.decode_step(cfg, tp, torch.from_numpy(tok), tc)
+        gl, tc = S.decode_step(cfg, [tp], torch.from_numpy(tok), tc, CPU)
         np.testing.assert_allclose(_f32(gl), _f32(wl), atol=2e-3)
         tok = np.asarray(jnp.argmax(wl[:, :bundle.cfg.vocab_size], -1),
                          np.int64)
-    assert tc["length"].tolist() == np.asarray(jc["length"]).tolist() \
+    assert tc[0]["length"].tolist() == np.asarray(jc["length"]).tolist() \
         == [25, 25]
 
 

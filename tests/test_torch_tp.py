@@ -18,8 +18,9 @@ the simulated host devices that ``tests/conftest.py`` forces. Held here:
   * granite smoke at tp 4 (2 KV heads: attention and pool replicate, the
     MoE FFN splits ``d_expert``): logits within 1e-4 of JAX tp 4;
   * the sharding helpers (a shard's bits, a reshard across widths), the
-    mesh's collectives, a slot arch's refusal and the launcher's tp
-    conflict check.
+    mesh's collectives, a slot arch served at tp 2 (the slot family's
+    parity with JAX is ``tests/test_torch_tp_slot.py``) and the launcher's
+    tp conflict check.
 Everything else at tp > 1 is held against the port's own tp-1 TE, which
 the other files hold to JAX tp 1 (``tests/test_torch_tp_fleet.py``)."""
 import dataclasses
@@ -172,12 +173,24 @@ def test_mesh_collectives_and_co_location():
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b",
                                   "llama-3.2-vision-11b"])
 def test_slot_family_refuses_tp_by_roadmap_item(arch):
+    """(The name is from when a slot-family TE refused tp > 1 by its
+    roadmap item.) A slot-family TE at tp 2 holds two rank trees and two
+    rank caches and serves the tp-1 TE's greedy tokens."""
     cfg = smoke_config(get_config(arch))
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        FlowServe(cfg, params, EngineConfig(tp=2, n_slots=2, max_len=64),
-                  device="cpu")
+    toks = {}
+    for tp in (1, 2):
+        te = FlowServe(cfg, params, EngineConfig(tp=tp, n_slots=2,
+                                                 max_len=64), device="cpu")
+        assert len(te.runner.params) == len(te.runner.caches) == tp
+        te.add_request(Request(prompt_tokens=PROMPT, req_id="r",
+                               sampling=SamplingParams(
+                                   temperature=0.0, max_new_tokens=4,
+                                   stop_on_eos=False)))
+        (c,) = te.run_to_completion()
+        toks[tp] = c.tokens
+    assert toks[2] == toks[1] and len(toks[2]) == 4
 
 
 def test_launcher_refuses_conflicting_tp(monkeypatch):

@@ -30,8 +30,13 @@ from repro_torch.core import serving_plane as TP
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.engine.distflow import tree_leaves
 from repro_torch.engine.rtc import RTCCostModel
+from repro_torch.engine.runners.base import SequenceState
+from repro_torch.kernels import ops
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import make_engine_mesh
+from repro_torch.models import layers as L
+from repro_torch.models import rglru as G
+from repro_torch.models import serving as S
 from repro_torch.models import transformer as T
 
 SHARED = dict(n_pages=64, page_size=8, max_batch_tokens=32, chunk_size=8,
@@ -309,3 +314,275 @@ def test_dram_populate_per_rank_at_tp2(qwen3):
         assert torch.equal(k[:, entry.pages], k0[:, :n])
         assert torch.equal(v[:, entry.pages], v0[:, :n])
     assert got == want
+
+
+# ---------------------------------------------------------------- slot family
+# rwkv6 smoke at 2 layers (4 heads of 16: the state splits 2 or 4 ways),
+# recurrentgemma smoke at 3 layers (two RG-LRU blocks of width 64 and one
+# local-attention block, whose single KV head replicates attention while
+# its cache splits the sequence)
+SLOT = dict(n_slots=5, max_len=64, max_batch_tokens=32, chunk_size=8,
+            max_decode_batch=4)
+SLOT_ARCHS = {"rwkv6-1.6b": 2, "recurrentgemma-2b": 3}
+
+
+# prompts a colocated TE prefills in its first step: none of them is then
+# advanced by a decode step mid-prefill (the reference's all-slot decode
+# does that, a P-TE does not), so a PD pair gives the colocated tokens
+ONE_STEP = RAGGED[:4]
+
+
+@pytest.fixture(scope="module")
+def slot_models():
+    """arch -> (cfg, params, the colocated tp-1 TE's tokens on RAGGED and
+    on ONE_STEP)."""
+    out = {}
+    for arch, layers in SLOT_ARCHS.items():
+        cfg, params = _model(arch, layers)
+        out[arch] = cfg, params, *(
+            _serve(FlowServe(cfg, params, EngineConfig(**SLOT),
+                             device="cpu"), prompts)
+            for prompts in (RAGGED, ONE_STEP))
+    return out
+
+
+def _joined(snap):
+    """A slot snapshot's leaves as whole tensors: the parts of a split
+    leaf joined on its split, a replicated leaf's one copy."""
+    return {k: torch.cat([r[k] for r in snap.ranks], d) if d is not None
+            and len(snap.ranks) > 1 else snap.ranks[0][k]
+            for k, d in snap.splits.items()}
+
+
+@pytest.mark.parametrize("arch", sorted(SLOT_ARCHS))
+@pytest.mark.parametrize("src_tp,dst_tp", [(1, 1), (2, 1), (1, 2)])
+def test_slot_pd_across_tp(slot_models, arch, src_tp, dst_tp):
+    """A slot P -> D pair from tp 2 to tp 1 and back gives the colocated
+    tokens; each migrated slot lands bit for bit (the snapshot resharded
+    at import), and DistFlow prices a snapshot as the tp-1 pair does:
+    every split leaf's parts once, a replicated leaf once."""
+    cfg, params, _, want = slot_models[arch]
+    pe = FlowServe(cfg, params, EngineConfig(mode="prefill", tp=src_tp,
+                                             **SLOT), name="p", device="cpu")
+    de = FlowServe(cfg, params, EngineConfig(mode="decode", tp=dst_tp,
+                                             **SLOT), name="d", device="cpu")
+    pe.distflow.link_cluster([de.distflow])
+    for r in _reqs(ONE_STEP):
+        pe.add_request(r)
+    comps, sizes = {}, []
+    for _ in range(200):
+        if not (pe.has_work() or de.has_work()):
+            break
+        if pe.has_work():
+            pe.step()
+        for rid in pe.pop_migratable():
+            sent = _joined(pe.runner.snapshot_state(pe._seqs[rid]))
+            pe.migrate_out(rid, de)
+            got = _joined(de.runner.snapshot_state(de._seqs[rid]))
+            assert sent.keys() == got.keys()
+            assert all(torch.equal(got[k], sent[k]) for k in sent)
+            sizes.append(sum(t.nbytes for t in sent.values()))
+        if de.has_work():
+            for c in de.step():
+                comps[c.req_id] = c.tokens
+    assert [comps[f"r{i}"] for i in range(len(ONE_STEP))] == want
+    assert len(sizes) == len(ONE_STEP)
+    # the payload is the snapshot plus the same bookkeeping at every tp
+    extra = pe.distflow.bytes_moved() - sum(sizes)
+    assert 0 < extra < 4096 * len(ONE_STEP)
+
+
+def test_slot_pd_prices_a_snapshot_as_tp1():
+    cfg, params = _model("recurrentgemma-2b", 3)
+    moved = {}
+    for tp in (1, 2):
+        pe = FlowServe(cfg, params, EngineConfig(mode="prefill", tp=tp,
+                                                 **SLOT), name="p",
+                       device="cpu")
+        de = FlowServe(cfg, params, EngineConfig(mode="decode", **SLOT),
+                       name="d", device="cpu")
+        pe.distflow.link_cluster([de.distflow])
+        pe.add_request(_reqs([RAGGED[3]])[0])
+        while not pe._prefill_done_buffer:
+            pe.step()
+        pe.migrate_out(pe.pop_migratable()[0], de)
+        moved[tp] = pe.distflow.bytes_moved()
+    assert moved[2] == moved[1] > 0
+
+
+@pytest.mark.parametrize("src_tp", [1, 2])
+def test_slot_fork_onto_tp2(slot_models, src_tp):
+    cfg, params, want, _ = slot_models["rwkv6-1.6b"]
+    src = FlowServe(cfg, params, EngineConfig(tp=src_tp, **SLOT),
+                    name="src", device="cpu")
+    fork = FlowServe.fork_from(src, EngineConfig(tp=2, **SLOT), name="fork")
+    assert fork.mesh.tp == 2 and len(fork.runner.caches) == 2
+    _assert_shards_of(params, fork, 2)
+    assert _serve(fork, RAGGED) == want
+
+
+def test_slot_release_and_warm_bring_up_at_tp2(slot_models):
+    cfg, params, want, _ = slot_models["rwkv6-1.6b"]
+    te = FlowServe(cfg, params, EngineConfig(tp=2, **SLOT), device="cpu")
+    host = te.release_params()
+    assert len(host) == 2 and not te.fork_ready
+    warm = FlowServe.from_warm(cfg, host, EngineConfig(tp=2, **SLOT),
+                               device="cpu")
+    _assert_shards_of(params, warm, 2)
+    assert _serve(warm, RAGGED) == want
+
+
+def test_slot_plane_at_colo1_tp2_serves_the_tp1_tokens():
+    cfg, params = _model("rwkv6-1.6b")
+    want, _ = _plane_tokens(cfg, params, TP.TopologySpec(colo=1),
+                            EngineConfig(**SLOT))
+    got, je = _plane_tokens(cfg, params, TP.TopologySpec(colo=1, tp=2),
+                            EngineConfig(**SLOT))
+    assert got == want
+    assert [e.mesh.tp for e in je.engines] == [2]
+    assert len(je.engines[0].runner.caches) == 2
+
+
+def test_slot_launcher_at_tp2(monkeypatch, capsys):
+    from repro_torch.launch import serve
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+        "--tp", "2", "--requests", "2", "--max-new", "4", "--layers", "2"])
+    serve.main()
+    out = capsys.readouterr().out
+    assert "te-0: tp=2, ranks on ['cpu', 'cpu']" in out
+    assert out.count("-> 4 tokens") == 2
+
+
+# The one-tree arithmetic of the slot blocks before their rank lists, kept
+# verbatim (bar names) as the baseline a tp-1 TE must reproduce bit for bit.
+def _tree_time_mix(p, x, head_dim, state, last_x, n_valid=None):
+    b, t, d = x.shape
+    h = d // head_dim
+    xs = torch.cat([last_x[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
+    delta = (xs - x).float()
+    lora = x @ p["mix_lora_a"]
+    mixes = p["mix_base"][:, None, None, :] + torch.einsum(
+        "btr,mrd->mbtd", torch.tanh(lora.float()).to(x.dtype),
+        p["mix_lora_b"]).float()
+    xr, xk, xv, xw, xg = (x.float() + delta * mixes[i] for i in range(5))
+
+    def proj(a, wname):
+        return a.to(x.dtype) @ p[wname]
+
+    r = proj(xr, "wr").reshape(b, t, h, head_dim)
+    k = proj(xk, "wk").reshape(b, t, h, head_dim)
+    v = proj(xv, "wv").reshape(b, t, h, head_dim)
+    g = torch.nn.functional.silu(proj(xg, "wg"))
+    dec = p["decay_base"] + ((xw.to(x.dtype) @ p["decay_lora_a"])
+                             @ p["decay_lora_b"]).float()
+    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, head_dim)
+    if n_valid is not None and n_valid < t:
+        valid = (torch.arange(t) < n_valid)[None, :, None, None]
+        w = torch.where(valid, w, torch.ones_like(w))
+        k = torch.where(valid, k, torch.zeros_like(k))
+    y, state = ops.wkv6(r.contiguous(), k.contiguous(), v.contiguous(),
+                        w.to(r.dtype).contiguous(), p["bonus_u"], state)
+    y32 = y.float()
+    mu = y32.mean(-1, keepdim=True)
+    var = (y32 - mu).square().mean(-1, keepdim=True)
+    y32 = (y32 - mu) * torch.rsqrt(var + 1e-5)
+    y = (y32.reshape(b, t, d) * p["ln_x"]).to(x.dtype) * g
+    last = x[:, -1, :] if n_valid is None else x[:, n_valid - 1, :]
+    return y @ p["wo"], last
+
+
+def _tree_channel_mix(p, x, last_x, n_valid=None):
+    xs = torch.cat([last_x[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
+    delta = (xs - x).float()
+    xk = (x.float() + delta * p["cm_mix"][0]).to(x.dtype)
+    xr = (x.float() + delta * p["cm_mix"][1]).to(x.dtype)
+    kk = torch.relu(xk @ p["cm_k"]).square()
+    rr = torch.sigmoid((xr @ p["cm_r"]).float()).to(x.dtype)
+    last = x[:, -1, :] if n_valid is None else x[:, n_valid - 1, :]
+    return rr * (kk @ p["cm_v"]), last
+
+
+def _tree_rwkv_logits(cfg, params, tokens, cache, n_valid=None):
+    one = make_engine_mesh(1, 0, "cpu")
+    x = T.embed(cfg, [params], tokens, one)
+    for li in range(cfg.n_layers):
+        p = T.layer(params, li)
+        h = L.apply_norm(x, p["ln1"], cfg.norm)
+        y, cache["last_tm"][li] = _tree_time_mix(
+            p["tm"], h, cfg.rwkv.head_dim, cache["state"][li],
+            cache["last_tm"][li], n_valid)
+        x = x + y
+        h = L.apply_norm(x, p["ln2"], cfg.norm)
+        y, cache["last_cm"][li] = _tree_channel_mix(
+            p["tm"], h, cache["last_cm"][li], n_valid)
+        x = x + y
+    nv = tokens.shape[1] if n_valid is None else n_valid
+    return T.unembed(cfg, [params], x[:, nv - 1:nv], one)[:, 0]
+
+
+def _tree_rglru_block(p, x, h0, conv_state):
+    gate = torch.nn.functional.gelu(x @ p["w_gate_in"], approximate="tanh")
+    u, conv_state = G.conv1d_apply(p, x @ p["w_in"], conv_state)
+    rg = torch.sigmoid((u @ p["wa"]).float())
+    ig = torch.sigmoid((u @ p["wx"]).float())
+    log_a = -8.0 * torch.nn.functional.softplus(p["lambda_p"].float()) * rg
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * (ig * u.float())
+    hseq, h = ops.rglru(a.contiguous(), b.contiguous(),
+                        h0.float().contiguous())
+    return (hseq.to(x.dtype) * gate) @ p["w_out"], h, conv_state
+
+
+def test_slot_tp1_is_the_one_tree_arithmetic_bit_for_bit():
+    """At tp 1 the rank-list bodies compute what one tree computes, bit for
+    bit: the rwkv6 TE's logits over a prompt in two chunks (the first with
+    a padded tail) and a decode step against the one-tree time/channel
+    mixes on a copy of its caches, the RG-LRU block against its one-tree
+    form, and attention over one key slice against plain attention (over
+    two slices, merged, within fp32 rounding of it)."""
+    cfg, params = _model("rwkv6-1.6b")
+    rt = FlowServe(cfg, params, EngineConfig(**SLOT), device="cpu").runner
+    prompt = RAGGED[4][:8]
+    seq = SequenceState("s", tokens=list(prompt), n_prompt=len(prompt))
+    rt.alloc_slot(seq)
+    cache = {k: v.clone() for k, v in rt.caches[0].items()}
+    row = {k: v[:, seq.slot:seq.slot + 1] for k, v in cache.items()
+           if k != "length"}
+    assert rt.prefill_chunk(seq, prompt[:6]) is None
+    _tree_rwkv_logits(cfg, params, torch.tensor([prompt[:6] + [0, 0]]), row,
+                      n_valid=6)
+    assert torch.equal(rt.prefill_chunk(seq, prompt[6:]),
+                       _tree_rwkv_logits(cfg, params,
+                                         torch.tensor([prompt[6:]]), row)[0])
+    tokens = torch.zeros((rt.n_slots,), dtype=torch.int64)
+    tokens[seq.slot] = 17
+    with torch.no_grad():
+        logits, _ = S.decode_step(cfg, rt.params, tokens, rt.caches, rt.mesh)
+    want = _tree_rwkv_logits(cfg, params, tokens[:, None], cache)
+    assert torch.equal(logits, want)
+
+    rcfg, rparams = _model("recurrentgemma-2b", 3)
+    p = rparams["rglru_blocks"][0]["rec"]
+    rs = np.random.RandomState(5)
+
+    def randn(*shape):
+        return torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+    w = rcfg.rglru.lru_width
+    x, h0, conv = randn(2, 5, rcfg.d_model), randn(2, w), randn(2, 3, w)
+    one = make_engine_mesh(1, 0, "cpu")
+    y, (h,), (c,) = G.rglru_block_apply([p], x, [h0], [conv], one)
+    for a, b in zip((y, h, c), _tree_rglru_block(p, x, h0, conv)):
+        assert torch.equal(a, b)
+    q, k, v = randn(2, 3, 4, 16), randn(2, 9, 2, 16), randn(2, 9, 2, 16)
+    mask = torch.from_numpy(rs.rand(2, 3, 9) > 0.3)
+    whole = L.attention(q, k, v, mask, 50.0)
+    assert torch.equal(L.attention_lse(q, k, v, mask, 50.0)[0], whole)
+    assert torch.equal(S._attend([(q, k, v, mask)], 50.0, one), whole)
+    # two key slices merged by their log-sum-exps: the whole softmax
+    halves = [(q, k[:, a:b], v[:, a:b], mask[..., a:b])
+              for a, b in ((0, 4), (4, 9))]
+    torch.testing.assert_close(
+        S._attend(halves, 50.0, make_engine_mesh(2, 0, "cpu")), whole,
+        rtol=1e-6, atol=1e-6)
