@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only pd     # phases 1 and 5 alone
     python3 chip_smoke.py --only fleet  # phases 1 and 6 alone
     python3 chip_smoke.py --only tp     # phases 1 and 7 alone
+    python3 chip_smoke.py --only train  # phases 1 and 8 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -144,7 +145,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                 resharded at import, the migrated state bit-identical,
                 one migration's device time); a fork of a tp-2 rwkv6 TE
                 onto a new tp-2 TE.
-The last lines are the per-rank kernel rows ({"tp_kernels": [...]}),
+  8. train    — fine-tune jobs. Each launcher, called on CUDA inputs that
+                require grad, raises before it launches (its count
+                unmoved); ``forward(impl="auto")`` under autograd raises on
+                rwkv6 and recurrentgemma, and ``impl="ref"`` gives finite
+                gradients. Then ``train()`` (the entry point of
+                ``launch/train.py``) at full width in bf16 with remat, on
+                packed batches of 8 x 256 at lr 1e-3: qwen3-8b cut to 8 of
+                its 36 layers (12 bytes a param: bf16 weights and grads,
+                fp32 moments) for 10 steps, its loss falling;
+                rwkv6-1.6b and recurrentgemma-2b at every layer for 3
+                steps; every loss and grad norm finite, every leaf moved,
+                no kernel launched (the recurrences' plain versions, by
+                name), step ms (CUDA events, median), tokens/s, the
+                6·N·tokens share of 989 TFLOP/s and peak GiB printed. The
+                smoke fp32 loss-and-grad on the card against the CPU's
+                (qwen3, rwkv6, recurrentgemma); resume equivalence on the
+                card (danube smoke, 8 steps against 4 + checkpoint +
+                resume 4, params within 1e-5); an async checkpoint of an
+                rwkv6 train state at full width, cut to 1 layer (~3.9 GB
+                on disk), restored onto the card bit for bit, with its
+                write and read GB/s.
+The last lines are the training rows ({"train": {...}}), the per-rank
+kernel rows ({"tp_kernels": [...]}),
 the other paged archs' attention rows as JSON ({"arch_kernels": [...]}),
 the kernel table as JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -2701,14 +2724,362 @@ def slot_tp(dev, rows, launches):
     _release()
 
 
+# --------------------------------------------------------------------------
+# phase 8: fine-tune jobs
+# --------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH = 256, 8
+# qwen3-8b's depth cut: 12 bytes a param (bf16 weights and grads, fp32 m
+# and v) over 193 M a layer and 1.24 B of embed + head: 8 of 36 layers are
+# 2.8 B params, ~33.5 GB before activations and the update's temporaries
+TRAIN_CUT = {"qwen3-8b": 8}
+TRAIN_RUNS = (("qwen3-8b", 10), ("rwkv6-1.6b", 3), ("recurrentgemma-2b", 3))
+CKPT_LAYERS = 1                 # rwkv6-1.6b: ~3.9 GB of train state on disk
+
+
+def _grad_calls(dev):
+    """One call of each launcher entry (through ``ops``) on CUDA inputs
+    whose floating tensors require grad."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(0)
+
+    def f(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(dev, dtype) \
+            .requires_grad_()
+    i32 = dict(dtype=torch.int32, device=dev)
+    pages = (f(4, 16, 2, 64), f(4, 16, 2, 64))
+    return {
+        "paged_attention": lambda: ops.paged_attention(
+            f(2, 4, 64), *pages, torch.zeros((2, 2), **i32),
+            torch.ones((2,), **i32)),
+        "flash_prefill (paged)": lambda: ops.paged_prefill(
+            f(8, 4, 64), *pages, torch.tensor([0, 8], **i32),
+            torch.zeros((1, 1), **i32), torch.zeros((1,), **i32),
+            torch.from_numpy(FP.build_tiles([0, 8], 8)).to(dev)),
+        "flash_prefill (dense)": lambda: ops.flash_prefill(
+            f(1, 16, 4, 64), f(1, 16, 2, 64), f(1, 16, 2, 64)),
+        "wkv6": lambda: ops.wkv6(
+            f(1, 4, 2, 64), f(1, 4, 2, 64), f(1, 4, 2, 64),
+            torch.from_numpy(np.full((1, 4, 2, 64), 0.9, np.float32))
+            .to(dev, torch.bfloat16).requires_grad_(),
+            f(2, 64, dtype=torch.float32),
+            torch.zeros((1, 2, 64, 64), device=dev)),
+        "rglru": lambda: ops.rglru(f(1, 4, 64, dtype=torch.float32),
+                                   f(1, 4, 64, dtype=torch.float32),
+                                   torch.zeros((1, 64), device=dev)),
+    }
+
+
+def _smoke_batch(cfg, dev, seq=16, batch=2, seed=0):
+    """The packed corpus's first batch for ``cfg``, as tensors on dev."""
+    import torch
+    from repro_torch.data import DataConfig, PackedDataset
+    ds = PackedDataset(DataConfig(seq_len=seq, batch_size=batch, n_docs=64,
+                                  seed=seed))
+    return [torch.from_numpy(a).to(dev) for a in next(ds.batches())]
+
+
+def train_guard(dev):
+    """Each launcher refuses CUDA inputs that require grad, its count
+    unmoved; a forward on the kernels (impl "auto") under autograd raises
+    on the recurrent towers, and the same loss on the plain versions
+    (impl "ref") gives finite gradients."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_factory import cross_entropy, get_model
+    from repro_torch.training import tree as TR
+    from repro_torch.training.train_loop import value_and_grad
+    for name, call in _grad_calls(dev).items():
+        before = ops.launch_counts()
+        try:
+            call()
+        except RuntimeError as e:
+            assert "no backward" in str(e), e
+        else:
+            raise AssertionError(f"{name} launched under autograd")
+        assert ops.launch_counts() == before, name
+        log(f"  {name}: refuses autograd, no launch counted")
+    for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
+        b = get_model(arch, smoke=True)
+        params = b.init_params(torch.Generator(device=dev).manual_seed(0),
+                               torch.float32, dev)
+        tokens, targets, mask = _smoke_batch(b.cfg, dev)
+
+        def loss(impl):
+            return lambda ps, t, y, m: cross_entropy(
+                b.forward(b.cfg, ps, t, impl=impl, remat=True), y, m,
+                b.cfg.vocab_size)
+        before = ops.launch_counts()
+        try:
+            value_and_grad(loss("auto"), params, tokens, targets, mask)
+        except RuntimeError as e:
+            assert "no backward" in str(e), e
+        else:
+            raise AssertionError(f"{arch}: forward on the kernels ran "
+                                 f"under autograd")
+        assert ops.launch_counts() == before
+        lv, grads = value_and_grad(loss("ref"), params, tokens, targets,
+                                   mask)
+        assert torch.isfinite(lv) and all(
+            torch.isfinite(g).all() for g in TR.leaves(grads))
+        log(f"  {arch}: forward(impl='auto') under autograd raises; "
+            f"impl='ref' loss {float(lv):.4f}, finite grads")
+
+
+def train_run(name, steps, dev):
+    """``train()`` at full width in bf16, remat on, on packed batches of
+    TRAIN_BATCH x TRAIN_SEQ at lr 1e-3 (2 warmup steps): every step's
+    time by CUDA events (from one batch's fetch to the next), losses and
+    grad norms from the log, peak memory, launches (none), and every leaf
+    moved."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, PackedDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_factory import get_model
+    from repro_torch.training import (OptimizerConfig, TrainConfig, train)
+    from repro_torch.training import tree as TR
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_CUT.get(name,
+                                                           full.n_layers))
+    n = cfg.param_count()
+    need = 12 * n
+    cut = "" if cfg.n_layers == full.n_layers else \
+        f", depth cut from {full.n_layers}: 12 B a param (bf16 weights " \
+        f"and grads, fp32 m and v) x {n / 1e9:.2f} B = {need / 1e9:.1f} GB " \
+        f"before activations"
+    log(f"phase 8: train {name} ({cfg.n_layers} layers{cut}; bf16, remat, "
+        f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ}) "
+        f"[{time.monotonic() - T0:.1f} s]")
+    _fits(need, f"{name} train state")
+    bundle = get_model(cfg)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0),
+                                torch.bfloat16, dev)
+    ds = PackedDataset(DataConfig(seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                                  n_docs=2048))
+    marks = []
+
+    def batches():
+        for b in ds.batches(epochs=100):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            yield b
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    new, stats = train(bundle, params, batches(),
+                       TrainConfig(steps=steps, log_every=1,
+                                   ckpt_every=10 ** 9,
+                                   opt=OptimizerConfig(
+                                       lr=1e-3, warmup_steps=2,
+                                       total_steps=steps)),
+                       log=lines.append)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert not any(launches.values()), f"a train step launched {launches}"
+    marks.append(end)
+    ms = [a.elapsed_time(b) for a, b in zip(marks[:steps],
+                                            marks[1:steps + 1])]
+    med = sorted(ms)[len(ms) // 2]
+    losses = [float(s.split("loss=")[1].split()[0]) for s in lines]
+    gnorms = [float(s.split("gnorm=")[1].split()[0]) for s in lines]
+    assert len(losses) == steps and all(
+        math.isfinite(x) for x in losses + gnorms), lines
+    moved = [p for (p, a), b in zip(TR.flatten_with_paths(new),
+                                    TR.leaves(params))
+             if torch.equal(a, b)]
+    assert not moved, f"{name}: leaves that did not move: {moved}"
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row = {"arch": name, "layers": cfg.n_layers, "params": n,
+           "dtype": "bfloat16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": steps, "step_ms": ms, "step_ms_median": med,
+           "tokens_per_s": tokens / (med / 1e3),
+           "six_n_share_of_989tf": 6 * n * tokens / (med / 1e3) / BF16_FLOPS,
+           "peak_gib": peak, "loss_first": stats["loss_first"],
+           "loss_last": stats["loss_last"], "losses": losses,
+           "grad_norms": gnorms, "launches": launches}
+    log(f"  losses {losses}; grad norms {gnorms}")
+    log(f"  step ms median {med:.1f} (all: "
+        f"{', '.join(f'{x:.1f}' for x in ms)}); {row['tokens_per_s']:.0f} "
+        f"tokens/s; 6*N*tokens/step = {row['six_n_share_of_989tf']:.3f} of "
+        f"989 TFLOP/s; peak {peak:.2f} GiB; launches {launches}; every "
+        f"leaf moved")
+    del new, params
+    _release()
+    return row
+
+
+def train_vs_cpu(dev):
+    """The same smoke-width fp32 loss-and-grad (TF32 off) on the card and
+    on the CPU, same weights and batch: loss within 1e-5 relative, grad
+    norm within 1e-4 relative, each leaf within 1e-4 * max|g| + 1e-7."""
+    import torch
+    from repro_torch.models.model_factory import get_model
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import tree as TR
+    from repro_torch.training.train_loop import make_loss_fn, value_and_grad
+    cpu = torch.device("cpu")
+    for arch in ("qwen3-8b", "rwkv6-1.6b", "recurrentgemma-2b"):
+        b = get_model(arch, smoke=True)
+        host = b.init_params(torch.Generator().manual_seed(0),
+                             torch.float32, cpu)
+        out = []
+        for d in (cpu, dev):
+            ps = TR.unflatten(host, [a.to(d) for a in TR.leaves(host)])
+            lv, g = value_and_grad(make_loss_fn(b, True), ps,
+                                   *_smoke_batch(b.cfg, d), {})
+            out.append((float(lv), float(O.global_norm(g)),
+                        [x.cpu() for x in TR.leaves(g)]))
+        (l0, n0, g0), (l1, n1, g1) = out
+        worst = max(float((a - c).abs().max())
+                    / (1e-4 * float(c.abs().max()) + 1e-7)
+                    for a, c in zip(g1, g0))
+        log(f"  {arch} smoke: loss card {l1:.7f} cpu {l0:.7f}; grad norm "
+            f"card {n1:.6f} cpu {n0:.6f}; worst leaf at {worst:.3f} of "
+            f"its bound")
+        assert abs(l1 - l0) <= 1e-5 * abs(l0) and abs(n1 - n0) <= 1e-4 * n0
+        assert worst <= 1.0
+
+
+def train_resume(dev):
+    """Resume equivalence on the card (``tests/test_system.py``'s case,
+    danube smoke): 8 steps straight against 4 + checkpoint + resume 4,
+    params within atol 1e-5."""
+    import tempfile
+    import torch
+    from repro_torch.data import DataConfig, PackedDataset
+    from repro_torch.models.model_factory import get_model
+    from repro_torch.training import (CheckpointManager, OptimizerConfig,
+                                      TrainConfig, train)
+    from repro_torch.training import tree as TR
+    b = get_model("h2o-danube-3-4b", smoke=True)
+    p0 = b.init_params(torch.Generator(device=dev).manual_seed(0),
+                       torch.float32, dev)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+
+    def data():
+        return PackedDataset(DataConfig(seq_len=16, batch_size=2,
+                                        n_docs=64)).batches(epochs=100)
+
+    def tc(steps, every):
+        return TrainConfig(steps=steps, log_every=100, ckpt_every=every,
+                           opt=opt)
+    quiet = lambda s: None  # noqa: E731
+    full, _ = train(b, p0, data(), tc(8, 100), log=quiet)
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d)
+        train(b, p0, data(), tc(4, 4), ckpt=ck, log=quiet)
+        it = data()
+        for _ in range(4):
+            next(it)
+        res, _ = train(b, p0, it, tc(8, 100), ckpt=ck, resume=True,
+                       log=quiet)
+    diff = max(float((x - y).abs().max())
+               for x, y in zip(TR.leaves(full), TR.leaves(res)))
+    log(f"  resume on the card (danube smoke, 8 vs 4 + resume 4): max param "
+        f"difference {diff:.3e} (bound 1e-5)")
+    assert diff <= 1e-5
+
+
+def train_checkpoint(dev):
+    """An async save of an rwkv6-1.6b train state at full width, cut to
+    CKPT_LAYERS layers (params after one train step, and its optimizer
+    state), restored onto the card: every leaf bit-equal; write and read
+    seconds and GB/s (the read follows the write, so the page cache is
+    warm). The directory is deleted."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_factory import get_model
+    from repro_torch.training import (CheckpointManager, OptimizerConfig,
+                                      TrainConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training import tree as TR
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"),
+                              n_layers=CKPT_LAYERS)
+    b = get_model(cfg)
+    params = b.init_params(torch.Generator(device=dev).manual_seed(0),
+                           torch.bfloat16, dev)
+    step = make_train_step(b, TrainConfig(opt=OptimizerConfig(
+        lr=1e-3, warmup_steps=0, total_steps=10)))
+    params, opt, _ = step(params, init_opt_state(params),
+                          *_smoke_batch(cfg, dev, seq=64), {})
+    state = {"params": params, "opt": opt}
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ck = CheckpointManager(d)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ck.save(1, state, blocking=False)
+        t_snap = time.monotonic() - t0
+        ck.wait()
+        t_write = time.monotonic() - t0
+        on_disk = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(d) for f in fs)
+        t0 = time.monotonic()
+        got = ck.restore(state, device=dev)
+        torch.cuda.synchronize()
+        t_read = time.monotonic() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bad = [p for (p, a), c in zip(TR.flatten_with_paths(got),
+                                  TR.leaves(state))
+           if a.dtype != c.dtype or not torch.equal(a, c)]
+    assert not bad, f"restored leaves differ: {bad}"
+    row = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params": cfg.param_count(), "bytes_on_disk": on_disk,
+           "snapshot_s": t_snap, "write_s": t_write,
+           "write_gbps": on_disk / t_write / 1e9, "read_s": t_read,
+           "read_gbps": on_disk / t_read / 1e9, "read_cache": "warm"}
+    log(f"  checkpoint ({cfg.name}, {cfg.n_layers} layer(s), params + opt):"
+        f" {on_disk / 1e9:.2f} GB on disk; async save {t_write:.2f} s "
+        f"(host snapshot {t_snap:.2f} s), {row['write_gbps']:.2f} GB/s; "
+        f"restore onto the card {t_read:.2f} s, {row['read_gbps']:.2f} GB/s "
+        f"(warm page cache); every leaf bit-equal; directory deleted")
+    del got, state, params, opt
+    _release()
+    return row
+
+
+def phase8(dev):
+    """Fine-tune jobs on the card: the launchers refuse autograd; qwen3-8b
+    (depth cut), rwkv6-1.6b and recurrentgemma-2b train at full width in
+    bf16 through ``train()`` with no kernel launched; the smoke train step
+    on the card against the CPU's; resume equivalence; a checkpoint round
+    trip. Returns {"runs": [...], "checkpoint": {...}}."""
+    log(f"phase 8: train — the launchers refuse autograd "
+        f"[{time.monotonic() - T0:.1f} s]")
+    train_guard(dev)
+    runs = [train_run(name, steps, dev) for name, steps in TRAIN_RUNS]
+    q = runs[0]
+    assert q["loss_last"] < q["loss_first"], \
+        f"qwen3 loss did not fall: {q['losses']}"
+    log(f"phase 8: train step card vs CPU, resume, checkpoint "
+        f"[{time.monotonic() - T0:.1f} s]")
+    train_vs_cpu(dev)
+    train_resume(dev)
+    return {"runs": runs, "checkpoint": train_checkpoint(dev)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet",
-                                       "tp"],
+                                       "tp", "train"],
                     default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
                          "new kernel); 'pd' runs phases 1 and 5 alone, "
-                         "'fleet' phases 1 and 6, 'tp' phases 1 and 7")
+                         "'fleet' phases 1 and 6, 'tp' phases 1 and 7, "
+                         "'train' phases 1 and 8")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2731,6 +3102,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
 
+    if args.only == "train":
+        log(json.dumps({"train": phase8(dev)}))
+        log(card)
+        return 0
     if args.only in ("pd", "fleet", "tp"):
         {"pd": phase5, "fleet": phase6, "tp": phase7}[args.only](dev)
         log(card)
@@ -2792,12 +3167,14 @@ def main() -> int:
     pd = phase5(dev)
     fleet = phase6(dev)
     tp_kernels, tp_launches = phase7(dev)
+    train = phase8(dev)
     for r in rows:
         r["launches_pd"] = pd[r["arch"], r["name"]]
         r["launches_fleet"] = fleet[r["arch"], r["name"]]
         r["launches_tp"] = tp_launches.get((r["arch"], r["name"]))
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
+    log(json.dumps({"train": train}))
     log(json.dumps({"tp_kernels": tp_kernels}))
     log(json.dumps({"arch_kernels": arch}))
     log(json.dumps({"kernels": rows}))

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -97,3 +99,17 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a launch of kernel ``what``: a
+    launcher fills its outputs through ctypes, so autograd never sees
+    them and a backward would give no gradient to anything upstream. No
+    kernel has a backward (the reference trains through jnp scans and
+    masked attention, never through a Pallas kernel), so a loss asks for
+    the plain versions by name (``impl="ref"``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward and autograd cannot "
+            f"see its outputs; under autograd call the plain version "
+            f"(impl='ref')")

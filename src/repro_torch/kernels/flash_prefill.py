@@ -76,6 +76,7 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     (NP, P, Hkv, hd); cu_tokens (Sb+1,), entry_bt (Sb, Pb), entry_start
     (Sb,), tiles (n_tiles, 3) from ``build_tiles`` — all int32 on q's
     device. Returns (Tb, H, hd) in q's dtype (padding rows zero)."""
+    _build.refuse_grad("flash_prefill", q, k_pages, v_pages)
     tb, h, hd = q.shape
     _, p, hkv, hd2 = k_pages.shape
     dev = q.device
@@ -134,6 +135,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense entry with the Pallas signature: q (B, S, H, hd), k/v
     (B, S, Hkv, hd) -> (B, S, H, hd). Sequence b is entry b; its K/V rows
     are page run b of a pool with page size gcd(S, 16), so no copy."""
+    _build.refuse_grad("flash_prefill", q, k, v)
     b, s, h, hd = q.shape
     hkv = k.shape[2]
     if k.shape != (b, s, hkv, hd) or v.shape != k.shape:

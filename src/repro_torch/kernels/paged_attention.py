@@ -66,6 +66,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     lengths (B,) int32. ``splits`` overrides ``n_splits`` (tests hold each
     split count against the plain version). Returns (B, H, hd) in q's
     dtype."""
+    _build.refuse_grad("paged_attention", q, k_pages, v_pages)
     b, h, hd = q.shape
     _, p, hkv, hd2 = k_pages.shape
     dev = q.device

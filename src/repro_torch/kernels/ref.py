@@ -200,10 +200,12 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, hd, hd) fp32 mapping the k-dim to the v-dim (zeros if None).
     Per token: y = r . (S + (u * k) v^T), then S <- diag(w) S + k v^T.
     Returns (y (B, T, H, hd) in r's dtype, final state); ``state`` itself
-    is not modified."""
+    is not modified, and is copied, not aliased: ``ops.wkv6`` writes the
+    final state over it, and autograd must keep the initial state it
+    saved (a recomputed block would otherwise read the final one)."""
     b, t, h, hd = r.shape
     s = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device) \
-        if state is None else state.float()
+        if state is None else state.to(torch.float32, copy=True)
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     uf = u.float()[None, :, :, None]
     ys = []

@@ -46,6 +46,7 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """Launch the recurrence ``h_t = a_t * h_{t-1} + b_t``. a, b: (B, T, W)
     in one dtype (fp32 on the engine path, bf16 also taken); h0: (B, W)
     fp32. Returns (h (B, T, W) in a's dtype, h_last (B, W) fp32)."""
+    _build.refuse_grad("rglru", a, b, h0)
     bsz, t, w = a.shape
     dev = a.device
     if dev.type != "cuda":

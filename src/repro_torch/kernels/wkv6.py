@@ -49,6 +49,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     or bf16), T >= 1; u: (H, hd) fp32; state: (B, H, hd, hd) fp32 (k-dim
     by v-dim). The state after the last token is written over ``state``
     IN PLACE. Returns (y (B, T, H, hd) in r's dtype, state)."""
+    _build.refuse_grad("wkv6", r, k, v, w, u, state)
     b, t, h, hd = r.shape
     dev = r.device
     if dev.type != "cuda":

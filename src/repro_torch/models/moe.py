@@ -115,3 +115,18 @@ def _experts(p: dict, xg: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return torch.einsum("gecf,efd->gecd", h, p["w_down"])
+
+
+def moe_aux_loss(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss of the router ``p`` over
+    x (B, S, D), in fp32 (``repro/models/moe.py::moe_aux_loss``): the
+    number of experts times the sum over experts of (share of top-k
+    assignments) x (mean router probability). Neither train loop calls
+    it."""
+    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    _, top_idx = torch.topk(logits, cfg.top_k, dim=-1)
+    frac_routed = F.one_hot(top_idx, cfg.n_experts).float().mean(
+        dim=(0, 1, 2))
+    frac_prob = probs.mean(dim=(0, 1))
+    return cfg.n_experts * (frac_routed * frac_prob).sum()

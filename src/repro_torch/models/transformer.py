@@ -12,10 +12,12 @@ tower keeps per-kind lists ``rglru_blocks`` and ``attn_blocks``, as the
 reference does."""
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -413,33 +415,55 @@ def memory_kv(cfg: ModelConfig, ps_attn: list, mem: torch.Tensor, mesh):
 
 
 def encode(cfg: ModelConfig, ps: list, frames: torch.Tensor,
-           mesh) -> torch.Tensor:
+           mesh, remat: bool = False) -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings (B, F, D)
     (``transformer.py:490-519``) on the ranks' trees ``ps``: each layer's
     heads split as a decoder block's (``block_qkv`` / ``block_out``), with
     naive attention at every length: the reference's chunked flash form
-    past 2048 frames computes the same softmax in another order."""
+    past 2048 frames computes the same softmax in another order. ``remat``
+    recomputes each layer in the backward (``_maybe_remat``)."""
     b, f, _ = frames.shape
     pos = mesh.broadcast(torch.arange(f, device=frames.device).expand(b, f))
-    x = frames
-    for li in range(cfg.encoder.n_layers):
-        lps = [layer(p, li, "enc_blocks") for p in ps]
-        x = block_out(cfg, lps, x, [
+
+    def enc_layer(x, lps):
+        return block_out(cfg, lps, x, [
             L.attention(q, k, v, None, cfg.attn_logit_softcap)
             for q, k, v in block_qkv(cfg, lps, x, pos, mesh)], mesh)
+
+    blk = _maybe_remat(enc_layer, remat)
+    x = frames
+    for li in range(cfg.encoder.n_layers):
+        x = blk(x, [layer(p, li, "enc_blocks") for p in ps])
     return L.apply_norm(x, ps[0]["enc_final_norm"], cfg.norm)
+
+
+def _maybe_remat(fn, remat: bool):
+    """Per-block rematerialization (the reference's ``_maybe_remat``):
+    with ``remat`` the backward keeps only each block's input and
+    recomputes the block. The forward draws no random numbers, so no RNG
+    state is saved."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             vision_embeds: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+            frames: Optional[torch.Tensor] = None, impl: str = "auto",
+            remat: bool = False) -> torch.Tensor:
     """Teacher-forced logits (B, S, padded_vocab) with naive masked
     attention and zero initial recurrent states — the counterpart of
-    ``T.forward(attn_impl="naive")``. A VLM runs its cross blocks only
-    when given ``vision_embeds`` (as the reference's tower choice does);
-    an enc-dec model needs ``frames``. Used by the tests and the on-card
-    greedy oracle."""
+    ``T.forward(attn_impl="naive")``, which equals the reference's "auto"
+    up to 2048 keys. A VLM runs its cross blocks only when given
+    ``vision_embeds`` (as the reference's tower choice does); an enc-dec
+    model needs ``frames``. ``impl`` routes the two recurrences
+    (``ops.wkv6`` / ``ops.rglru``): under autograd pass "ref", since the
+    CUDA kernels have no backward and refuse it. ``remat`` recomputes
+    each block in the backward (a decoder layer with the cross block that
+    follows it, as one). Used by the train loop, the tests and the
+    on-card greedy oracle."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -448,41 +472,65 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     dev = x.device
     if cfg.attn_kind == "rwkv":
         nh, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
-        for li in range(cfg.n_layers):
+
+        def rwkv_layer(x, lp):
+            # the zero states are made inside the block: the recurrence
+            # advances its state in place, and a recomputed block must
+            # start from zeros again
             state = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
                                 device=dev)
             last = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=dev)
-            x, _, _ = rwkv_block_apply(cfg, [layer(params, li)], x,
-                                       [state], last, last, mesh)
+            return rwkv_block_apply(cfg, [lp], x, [state], last, last, mesh,
+                                    impl=impl)[0]
+
+        blk = _maybe_remat(rwkv_layer, remat)
+        for li in range(cfg.n_layers):
+            x = blk(x, layer(params, li))
     elif cfg.attn_kind == "hybrid_rglru":
         w, cw = cfg.rglru.lru_width, cfg.rglru.conv1d_width
+
+        def rglru_layer(x, lp):
+            return rglru_block_apply(
+                cfg, [lp], x,
+                [torch.zeros((b, w), dtype=torch.float32, device=dev)],
+                [torch.zeros((b, cw - 1, w), dtype=x.dtype, device=dev)],
+                mesh, impl=impl)[0]
+
+        def attn_layer(x, lp):
+            return attn_block_apply(cfg, lp, x, positions,
+                                    cfg.window or GLOBAL_WINDOW)
+
+        rec_blk = _maybe_remat(rglru_layer, remat)
+        att_blk = _maybe_remat(attn_layer, remat)
         ri = ai = 0
         for kind in cfg.layer_kinds():
             if kind == "rglru":
-                x, _, _ = rglru_block_apply(
-                    cfg, [params["rglru_blocks"][ri]], x,
-                    [torch.zeros((b, w), dtype=torch.float32, device=dev)],
-                    [torch.zeros((b, cw - 1, w), dtype=x.dtype, device=dev)],
-                    mesh)
+                x = rec_blk(x, params["rglru_blocks"][ri])
                 ri += 1
             else:
-                x = attn_block_apply(cfg, params["attn_blocks"][ai], x,
-                                     positions, cfg.window or GLOBAL_WINDOW)
+                x = att_blk(x, params["attn_blocks"][ai])
                 ai += 1
     else:
         mem, cross = vision_embeds, cross_schedule(cfg)
         if cfg.encoder is not None:
             if frames is None:
                 raise ValueError(f"{cfg.name}: an enc-dec model needs frames")
-            mem = encode(cfg, [params], frames, mesh)
+            mem = encode(cfg, [params], frames, mesh, remat=remat)
+
+        def dec_layer(x, lp, win, pc, gated):
+            x = attn_block_apply(cfg, lp, x, positions, win)
+            if pc is None:
+                return x
+            return cross_block_apply(cfg, [pc], x,
+                                     *memory_kv(cfg, [pc["attn"]], mem, mesh),
+                                     gated, mesh)
+
+        blk = _maybe_remat(dec_layer, remat)
         for li, win in enumerate(window_schedule(cfg)):
-            x = attn_block_apply(cfg, layer(params, li), x, positions, win)
-            if li in cross and mem is not None:
-                ci, gated = cross[li]
-                pc = layer(params, ci, "cross_blocks")
-                x = cross_block_apply(cfg, [pc], x,
-                                      *memory_kv(cfg, [pc["attn"]], mem,
-                                                 mesh), gated, mesh)
+            ci, gated = cross.get(li, (None, False))
+            pc = None if ci is None or mem is None \
+                else layer(params, ci, "cross_blocks")
+            x = blk(x, layer(params, li), win, pc, gated)
     return unembed(cfg, [params], x, mesh)
 
 

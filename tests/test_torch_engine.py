@@ -246,17 +246,25 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
     assert len(mods) >= 20                   # the whole port was imported
-    # the fleet control plane's modules among them
+    # the fleet control plane's and the fine-tune jobs' modules among them
     assert {f"repro_torch.core.{m}" for m in (
         "abstractions", "cluster", "faults", "fleet", "scaling",
         "serving_plane")} <= mods
+    assert {"repro_torch.training.optimizer", "repro_torch.training.tree",
+            "repro_torch.training.checkpoint",
+            "repro_torch.training.train_loop", "repro_torch.data.pipeline",
+            "repro_torch.models.model_factory",
+            "repro_torch.launch.train"} <= mods
 
 
 def test_port_source_has_no_reference_imports():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "finetune_torch.py"]
     assert len(files) > 20
-    assert ROOT / "src" / "repro_torch" / "core" / "serving_plane.py" in files
+    for f in ("core/serving_plane.py", "training/train_loop.py",
+              "data/pipeline.py", "models/model_factory.py",
+              "launch/train.py"):
+        assert ROOT / "src" / "repro_torch" / f in files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders

@@ -1031,3 +1031,143 @@ def test_threaded_plane_gives_the_serial_tokens(cuda):
         finally:
             je.close()
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# fine-tune jobs: the kernels refuse autograd; a train step runs the plain
+# recurrences, gives the CPU step's numbers and makes no host sync
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["qwen3-8b", "rwkv6-1.6b", "recurrentgemma-2b"]
+
+
+def _grad_launches(dev):
+    """Each launcher entry (through ``ops``) on CUDA inputs whose floating
+    tensors require grad."""
+    g = torch.Generator().manual_seed(0)
+
+    def f(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(dev, dtype) \
+            .requires_grad_()
+    i32 = dict(dtype=torch.int32, device=dev)
+    pages = (f(4, 16, 2, 64), f(4, 16, 2, 64))
+    return {
+        "paged_attention": lambda: ops.paged_attention(
+            f(2, 4, 64), *pages, torch.zeros((2, 2), **i32),
+            torch.ones((2,), **i32)),
+        "paged_prefill": lambda: ops.paged_prefill(
+            f(8, 4, 64), *pages, torch.tensor([0, 8], **i32),
+            torch.zeros((1, 1), **i32), torch.zeros((1,), **i32),
+            torch.from_numpy(FP.build_tiles([0, 8], 8)).to(dev)),
+        "flash_prefill": lambda: ops.flash_prefill(
+            f(1, 16, 4, 64), f(1, 16, 2, 64), f(1, 16, 2, 64)),
+        "wkv6": lambda: ops.wkv6(
+            f(1, 4, 2, 64), f(1, 4, 2, 64), f(1, 4, 2, 64),
+            torch.rand((1, 4, 2, 64), generator=g).to(dev, torch.bfloat16)
+            .requires_grad_(), f(2, 64, dtype=torch.float32),
+            torch.zeros((1, 2, 64, 64), device=dev)),
+        "rglru": lambda: ops.rglru(f(1, 4, 64, dtype=torch.float32),
+                                   f(1, 4, 64, dtype=torch.float32),
+                                   torch.zeros((1, 64), device=dev)),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["paged_attention", "paged_prefill",
+                                   "flash_prefill", "wkv6", "rglru"])
+def test_launchers_refuse_autograd_on_the_card(cuda, entry):
+    """An input that requires grad makes a launcher raise before it launches
+    (its count does not move); under no_grad the same call launches."""
+    from repro_torch.kernels import counts
+    calls = _grad_launches(cuda)
+    before = counts.totals()
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[entry]()
+    assert counts.totals() == before
+    with torch.no_grad():
+        calls[entry]()
+    torch.cuda.synchronize()
+    name = "flash_prefill" if entry == "paged_prefill" else entry
+    assert counts.totals()[name] == before[name] + 1
+
+
+def _smoke_train_inputs(arch, dev):
+    """The smoke model's fp32 params (drawn on the host, copied to
+    ``dev``) and a seeded (tokens, targets, mask) batch of 2 x 16."""
+    from repro_torch.models.model_factory import get_model
+    bundle = get_model(arch, smoke=True)
+    params = bundle.init_params(torch.Generator().manual_seed(0),
+                                torch.float32, "cpu")
+    rs = np.random.RandomState(1)
+    tokens, targets = (torch.from_numpy(rs.randint(
+        0, bundle.cfg.vocab_size, (2, 16)).astype(np.int32)) for _ in "tt")
+    mask = torch.ones((2, 16))
+    mask[1, 11:] = 0
+
+    def to(x):
+        return {k: to(v) for k, v in x.items()} if isinstance(x, dict) \
+            else [to(v) for v in x] if isinstance(x, list) else x.to(dev)
+    return bundle, to(params), to(tokens), to(targets), to(mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_gives_the_cpu_step(cuda, arch):
+    """The same smoke fp32 loss-and-grad (TF32 off) on the card and on the
+    CPU: loss within 1e-5 relative, grad norm within 1e-4 relative, each
+    leaf within 1e-4 * max|g_leaf| + 1e-7 (the CPU tests' bound against
+    the reference)."""
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import tree as TR
+    from repro_torch.training.train_loop import make_loss_fn, value_and_grad
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        bundle, params, tokens, targets, mask = _smoke_train_inputs(arch,
+                                                                    dev)
+        loss, grads = value_and_grad(make_loss_fn(bundle, True), params,
+                                     tokens, targets, mask, {})
+        out.append((float(loss), float(O.global_norm(grads)),
+                    [g.cpu() for g in TR.leaves(grads)]))
+    (l0, n0, g0), (l1, n1, g1) = out
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(n1 - n0) <= 1e-4 * n0
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(
+            b.abs().max()) + 1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_launches_no_kernel_and_never_syncs(cuda, arch):
+    """A whole train step (forward, backward, AdamW) on the card launches
+    no hand-written kernel and makes no host sync under sync-debug
+    "warn". The one sync a train loop makes per step is listed: reading
+    the loss for the log."""
+    import warnings
+    from repro_torch.kernels import counts
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    bundle, params, tokens, targets, mask = _smoke_train_inputs(arch, cuda)
+    step = make_train_step(bundle, TrainConfig(opt=O.OptimizerConfig(
+        lr=1e-3, warmup_steps=2, total_steps=10)))
+    state = O.init_opt_state(params)
+    params, state, _ = step(params, state, tokens, targets, mask, {})  # warm
+    torch.cuda.synchronize()
+    before = counts.totals()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as in_step:
+            warnings.simplefilter("always")
+            params, state, metrics = step(params, state, tokens, targets,
+                                          mask, {})
+        with warnings.catch_warnings(record=True) as in_log:
+            warnings.simplefilter("always")
+            loss = float(metrics["loss"])              # the log's read
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert counts.totals() == before
+    syncs = [str(w.message) for w in in_step if "synchroniz" in
+             str(w.message)]
+    assert not syncs, syncs
+    assert any("synchroniz" in str(w.message) for w in in_log)
+    assert np.isfinite(loss)
