@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only fleet  # phases 1 and 6 alone
     python3 chip_smoke.py --only tp     # phases 1 and 7 alone
     python3 chip_smoke.py --only train  # phases 1 and 8 alone
+    python3 chip_smoke.py --only long   # phases 1 and 9 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -166,7 +167,40 @@ Phases, in order; any failure raises and the script exits non-zero:
                 rwkv6 train state at full width, cut to 1 layer (~3.9 GB
                 on disk), restored onto the card bit for bit, with its
                 write and read GB/s.
-The last lines are the training rows ({"train": {...}}), the per-rank
+  9. long     — the reference's long-context shapes (``SHAPES``) through
+                ``launch/steps.py`` at full width: (a) the from-scratch
+                prefill at 8192 tokens on the kernel (one dense
+                ``flash_prefill`` launch per layer) against the plain
+                blockwise function, qwen3-8b, h2o-danube-3-4b (window
+                4096) and gemma2-9b (softcap; one local, one global
+                layer) cut to 2 fp32 layers: logits and K/V within 1e-4
+                + 1e-5 |plain|, the greedy token equal; then the dense
+                entry's bf16 body against the plain blockwise function
+                at qwen3's and danube's 32k layers (whole) and at
+                recurrentgemma's 524,288-token layer (row blocks);
+                (b) prefill_32k,
+                qwen3-8b (36 layers) and h2o-danube-3-4b (24) in bf16 at
+                B 1 of 32: wall and device time, launches (one
+                flash_prefill per attention layer, nothing else), peak
+                memory, the cache's bytes; (c) decode_32k, qwen3-8b at B
+                8 of 128 (each row holding (b)'s K/V): 16 greedy steps'
+                device ms over the dense cache (no kernel), and at 2 fp32
+                layers the tokens after the kernel prefill equal to those
+                after the plain one; (d) long_500k: rwkv6-1.6b and
+                recurrentgemma-2b prefill 524,288 tokens from scratch
+                (WKV6 / RG-LRU, and recurrentgemma's local attention
+                through flash_prefill at window 2048), then 16 greedy
+                decode steps, recurrentgemma's on a ring cache of 2304
+                slots (the last positions at slot t mod 2304) with the
+                tokens of a linear cache with room (up to a bf16 tie);
+                danube, mixtral and gemma2 not run, each with its bytes;
+                (e) train_4k, qwen3-8b at 8 layers, 2 x 4096 tokens in 2
+                microbatches, remat, through the plain blockwise flash and
+                through the naive form: step ms and peak memory, no
+                launch. Phase 9 runs in a process of its own whose
+                allocator maps expandable segments (``phase9_process``).
+The last lines are the long-context rows ({"long": {...}}), the training
+rows ({"train": {...}}), the per-rank
 kernel rows ({"tp_kernels": [...]}),
 the other paged archs' attention rows as JSON ({"arch_kernels": [...]}),
 the kernel table as JSON, the card's name and power limit, and
@@ -3071,20 +3105,699 @@ def phase8(dev):
     return {"runs": runs, "checkpoint": train_checkpoint(dev)}
 
 
+# --------------------------------------------------------------------------
+# phase 9: the reference's long-context shapes
+# --------------------------------------------------------------------------
+
+# (a) the steps prefill on the kernel against the plain blockwise function:
+# full width cut to 2 fp32 layers (gemma2's: one local, one global)
+LONG_PARITY = (("qwen3-8b", 2), ("h2o-danube-3-4b", 2), ("gemma2-9b", 2))
+LONG_PARITY_S = 8192
+# fp32 logits and K/V of the two routes: the blockwise sums run in another
+# order (|logit| up to ~30 under gemma2's final softcap)
+LONG_ATOL, LONG_RTOL = 1e-4, 1e-5
+# (b) prefill_32k at B 1 (the reference's 32 sequences: 32 x 4.83 GB of
+# qwen3 K/V alone); (c) decode_32k at B 8 (128 sequences: 618 GB of KV)
+PREFILL_S, PREFILL_ARCHS = 32768, ("qwen3-8b", "h2o-danube-3-4b")
+DECODE_B, DECODE_STEPS, DECODE_PARITY_LAYERS = 8, 16, 2
+# (d) long_500k at B 1; (e) train_4k: qwen3-8b at 8 of 36 layers (its 36
+# with fp32 moments need 98 GB), 2 sequences of 4096 (the reference's 256)
+LONG_S = 524288
+TRAIN4K_ARCH, TRAIN4K_LAYERS, TRAIN4K_B, TRAIN4K_S = "qwen3-8b", 8, 2, 4096
+# two microbatches of one sequence: the fp32 logits of 8192 tokens over
+# qwen3's 152k vocab are 5 GB a copy, beside 33.5 GB of train state
+TRAIN4K_STEPS, TRAIN4K_MICRO = 3, 2
+WARM_S = 4096                   # a short call first: kernels, maps, plans
+
+
+def _long_params(cfg, dev, dtype, seed=9):
+    import torch
+    from repro_torch.models import transformer as T
+    return T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dtype, dev)
+
+
+def _long_tokens(cfg, b, s, dev, seed=9):
+    import torch
+    return torch.randint(3, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed))
+
+
+def _kv_bytes_per_token(cfg, layers=None, dtype_size=2):
+    from repro_torch.models import serving as S
+    la = S.attn_layer_count(cfg) if layers is None else layers
+    return la * 2 * cfg.n_kv_heads * cfg.head_dim * dtype_size
+
+
+def _launched():
+    """The kernels launched since the last reset, with their counts."""
+    from repro_torch.kernels import ops
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def _timed_call(fn):
+    """(result, host wall s, device ms by CUDA events) of one call."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t, _ev_ms(ev)
+
+
+def long_parity(name, n_layers, dev):
+    """(a) the from-scratch prefill of ``launch/steps.py`` at
+    LONG_PARITY_S tokens on the kernel (one ``flash_prefill`` launch per
+    layer) and on the plain blockwise function: logits and every layer's
+    K/V within LONG_ATOL + LONG_RTOL |plain|, the greedy next token
+    equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    params = _long_params(cfg, dev, torch.float32)
+    toks = _long_tokens(cfg, 1, LONG_PARITY_S, dev)
+    with torch.no_grad():
+        ops.reset_launches()
+        lk, ck = ST.build_prefill_step(cfg)(params, toks, {})
+        n = _launched()
+        lr, cr = ST.build_prefill_step(cfg, impl="ref")(params, toks, {})
+    assert n == {"flash_prefill": n_layers}, n
+    tag = f"{name} x{n_layers} fp32 S {LONG_PARITY_S}"
+    e = close(f"{tag} logits kernel vs plain", lk, lr, LONG_ATOL, LONG_RTOL)
+    ekv = max(close(f"{tag} cache {k}", ck[k], cr[k], LONG_ATOL, LONG_RTOL)
+              for k in ("k", "v"))
+    v = cfg.vocab_size
+    top2 = lr[0, :v].float().topk(2).values
+    same = int(lk[0, :v].argmax()) == int(lr[0, :v].argmax())
+    log(f"  {tag}: greedy next token kernel {int(lk[0, :v].argmax())} "
+        f"plain {int(lr[0, :v].argmax())} identical={same} (top-2 gap "
+        f"{float(top2[0] - top2[1]):.3e}); flash_prefill launches {n}")
+    assert same, "kernel and plain prefill give other greedy tokens"
+    del params, ck, cr
+    _release()
+    return {"arch": name, "layers": n_layers, "seq": LONG_PARITY_S,
+            "max_abs_err_logits": e, "max_abs_err_kv": ekv,
+            "greedy_identical": same, "launches": n}
+
+
+def long_kernel_row(dev):
+    """The dense ``flash_prefill`` entry at prefill_32k's attention shape
+    (qwen3-8b: one sequence of PREFILL_S tokens, H 32 / Hkv 8, hd 128,
+    bf16, causal): its time (CUDA events) against the plain blockwise
+    function it replaces on this path (``layers.flash_attention``; the
+    dense plain version's (S, S) scores would take 137 GB) and against
+    one ``scaled_dot_product_attention`` call (causal, GQA), its largest
+    error against the plain function, and the card's least time for the
+    causal pairs' products."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen3-8b")
+    s, h, hkv, hd = PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn((1, s, h, hd), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, s, hkv, hd), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(s, device=dev)[None]
+    with torch.no_grad():
+        out = ops.flash_prefill(q, k, v)
+        plain = L.flash_attention(q, k, v, pos, pos)
+        e = check_main_path(f"flash_prefill dense S {s} vs plain blockwise",
+                            out, plain, True)
+        kernel_ms = time_ms(lambda: ops.flash_prefill(q, k, v), iters=5,
+                            warmup=1)
+        plain_ms = time_ms(lambda: L.flash_attention(q, k, v, pos, pos),
+                           iters=1, warmup=0)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=5, warmup=1)
+    nbytes = 2 * (2 * s * h * hd) + 2 * 2 * s * hkv * hd
+    flops = 4 * h * hd * s * (s + 1) // 2
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
+        else "operations"
+    log(f"  flash_prefill dense at prefill_32k ({s} tokens, H {h} / Hkv "
+        f"{hkv}, hd {hd}, bf16): kernel_ms {kernel_ms:.3f}; plain_ms "
+        f"{plain_ms:.3f}; library_ms (SDPA) {library_ms:.3f}; bound_ms "
+        f"{bound:.3f} ({by}); bound / kernel {bound / kernel_ms:.3f}")
+    del q, k, v, out, plain
+    _release()
+    return {"name": "flash_prefill", "entry": "dense", "seq": s,
+            "heads": [h, hkv], "head_dim": hd, "dtype": "bfloat16",
+            "max_abs_err": e, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
+
+# the other long shapes the dense entry's bf16 body runs at: danube's 32k
+# layer whole; recurrentgemma's 524,288-token layer in row blocks of this
+# many rows (the plain chunk scan over all its keys for every row would
+# take 524,288^2 scores a head)
+LONG_ROW_BLOCK = 1024
+LONG_KERNEL_SHAPES = (("h2o-danube-3-4b", PREFILL_S),
+                      ("recurrentgemma-2b", LONG_S))
+
+
+def long_kernel_checks(dev):
+    """The dense ``flash_prefill`` entry in bf16 (the ``wgmma`` body the
+    long prefills launch) at the attention shapes of danube's prefill_32k
+    (H 32 / Hkv 8, hd 120 padded to 128, window 4096: the whole output)
+    and recurrentgemma's long_500k (H 10 / Hkv 1, hd 256, window 2048: row
+    blocks at the start, across the first window's edge, in the middle
+    and at the end, each against the plain blockwise function over its
+    rows and the keys they see), at ``check_main_path``'s tolerance; the
+    kernel's time at each shape (CUDA events)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    out = []
+    for name, s in LONG_KERNEL_SHAPES:
+        cfg = get_config(name)
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        win, cap = cfg.window, cfg.attn_logit_softcap
+        g = torch.Generator(device=dev).manual_seed(23)
+        q = torch.randn((1, s, h, hd), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((1, s, hkv, hd), generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        n = LONG_ROW_BLOCK
+        blocks = [(0, s)] if s == PREFILL_S else [
+            (0, n), (win - n // 2, win + n // 2),
+            (s // 2 - n // 2, s // 2 + n // 2), (s - n, s)]
+        tag = (f"flash_prefill dense {name} S {s} (H {h} / Hkv {hkv}, hd "
+               f"{hd}, window {win}, softcap {cap}, bf16)")
+        errs = []
+        with torch.no_grad():
+            got = ops.flash_prefill(q, k, v, cap, win)
+            for a, b in blocks:
+                lo = max(0, a - win + 1)
+                want = L.flash_attention(
+                    q[:, a:b], k[:, lo:b], v[:, lo:b],
+                    torch.arange(a, b, device=dev)[None],
+                    torch.arange(lo, b, device=dev)[None], win, cap)
+                errs.append(check_main_path(
+                    f"{tag} rows {a}..{b - 1} vs plain blockwise",
+                    got[:, a:b], want, True))
+                del want
+            ms = time_ms(lambda: ops.flash_prefill(q, k, v, cap, win),
+                         iters=3, warmup=1)
+        log(f"  {tag}: {len(blocks)} row blocks agree; kernel_ms {ms:.3f}")
+        out.append({"arch": name, "seq": s, "heads": [h, hkv],
+                    "head_dim": hd, "window": win, "softcap": cap,
+                    "row_blocks": blocks, "max_abs_err": max(errs),
+                    "ms": ms})
+        del q, k, v, got
+        _release()
+    return out
+
+
+def prefill_32k(name, dev):
+    """(b) prefill_32k through ``build_prefill_step`` at full width and
+    depth, bf16, one sequence: host wall and device time, launches (one
+    ``flash_prefill`` per layer and nothing else), peak memory and the
+    stacked cache's bytes. Returns (row, params, logits, cache)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import serving as S
+    cfg = get_config(name)
+    params = _long_params(cfg, dev, torch.bfloat16)
+    pre = ST.build_prefill_step(cfg)
+    with torch.no_grad():
+        pre(params, _long_tokens(cfg, 1, WARM_S, dev, seed=1), {})
+        toks = _long_tokens(cfg, 1, PREFILL_S, dev)
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        (logits, cache), wall, dev_ms = _timed_call(
+            lambda: pre(params, toks, {}))
+    launches = _launched()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    la = S.attn_layer_count(cfg)
+    assert launches == {"flash_prefill": la}, launches
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    nbytes = cache["k"].nbytes + cache["v"].nbytes
+    assert nbytes == PREFILL_S * _kv_bytes_per_token(cfg)
+    row = {"arch": name, "layers": cfg.n_layers, "batch": 1,
+           "seq": PREFILL_S, "dtype": "bfloat16", "wall_s": wall,
+           "device_ms": dev_ms, "tokens_per_s": PREFILL_S / wall,
+           "launches": launches, "peak_gib": peak, "cache_bytes": nbytes,
+           "cache_bytes_per_token": nbytes // PREFILL_S}
+    log(f"  prefill_32k {name}: {cfg.n_layers} layers x {PREFILL_S} tokens "
+        f"in {wall * 1e3:.1f} ms wall, {dev_ms:.1f} ms device; "
+        f"launches {launches} (= {la} attention layers); peak "
+        f"{peak:.2f} GiB; cache {nbytes / 1e9:.2f} GB "
+        f"({nbytes // PREFILL_S} B a token)")
+    return row, params, logits, cache
+
+
+def _fill_decode(cfg, cache, b, steps, dev):
+    """A decode cache of ``b`` rows with room for ``steps`` tokens past the
+    prefill's S, every row holding the one prefilled sequence's K/V."""
+    import torch
+    from repro_torch.launch.mesh import one_rank
+    from repro_torch.models import serving as S
+    s = cache["k"].shape[2]
+    dc, = S.init_cache(cfg, b, s + steps, cache["k"].dtype, one_rank(dev))
+    for key in ("k", "v"):
+        dc[key][:, :, :s] = cache[key]          # broadcast over the rows
+    dc["length"].fill_(s)
+    return dc
+
+
+def _first_tokens(cfg, logits, b, dev):
+    """Row 0 decodes the prefill's greedy token, the other rows seeded
+    random ones, so the rows' sequences part."""
+    import torch
+    tok = _long_tokens(cfg, 1, b, dev, seed=13)[0]
+    tok[0] = logits[0, :cfg.vocab_size].argmax()
+    return tok
+
+
+def decode_32k(cfg, params, logits, cache, dev):
+    """(c) decode_32k at full width and depth in bf16: DECODE_B rows each
+    holding the 32k prefill's K/V, DECODE_STEPS greedy steps through
+    ``build_decode_step`` (plain masked attention over the dense cache:
+    no kernel launched); each step's device time."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    dc = _fill_decode(cfg, cache, DECODE_B, DECODE_STEPS, dev)
+    del cache
+    _release()
+    dec = ST.build_decode_step(cfg)
+    tok = _first_tokens(cfg, logits, DECODE_B, dev)
+    ms, toks = [], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with torch.no_grad():
+        for _ in range(DECODE_STEPS):
+            (lg, dc), _, d = _timed_call(lambda: dec(params, tok, dc))
+            tok = lg[:, :cfg.vocab_size].argmax(-1)
+            ms.append(d)
+            toks.append(tok.tolist())
+    launches = _launched()
+    assert not any(launches.values()), launches
+    assert all(0 <= t < cfg.vocab_size for row in toks for t in row)
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    kv = dc["k"].nbytes + dc["v"].nbytes
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  decode_32k {cfg.name}: B {DECODE_B} x {DECODE_STEPS} greedy "
+        f"steps over {PREFILL_S} + n tokens: step ms median {med:.2f} "
+        f"(first {ms[0]:.2f}); KV {kv / 1e9:.1f} GB read a step "
+        f"({kv / (med / 1e3) / 1e12:.2f} TB/s); peak {peak:.2f} GiB; "
+        f"launches {launches}")
+    del dc
+    _release()
+    return {"arch": cfg.name, "batch": DECODE_B, "context": PREFILL_S,
+            "steps": DECODE_STEPS, "step_ms": ms, "step_ms_median": med,
+            "kv_bytes": kv, "peak_gib": peak, "tokens_row0": [
+                t[0] for t in toks]}
+
+
+def decode_parity(name, dev):
+    """(c) the tokens of the decode_32k chain against the plain path's, at
+    full width cut to DECODE_PARITY_LAYERS fp32 layers: the 32k prefill
+    on the kernel and on the plain blockwise function, each cache placed
+    in DECODE_B rows, then DECODE_STEPS greedy steps each; every row's
+    tokens identical."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    cfg = dataclasses.replace(get_config(name),
+                              n_layers=DECODE_PARITY_LAYERS)
+    params = _long_params(cfg, dev, torch.float32)
+    toks = _long_tokens(cfg, 1, PREFILL_S, dev)
+    dec = ST.build_decode_step(cfg)
+    got, last = {}, {}
+    with torch.no_grad():
+        for impl in ("auto", "ref"):
+            lg, cache = ST.build_prefill_step(cfg, impl=impl)(params, toks,
+                                                               {})
+            dc = _fill_decode(cfg, cache, DECODE_B, DECODE_STEPS, dev)
+            del cache
+            tok = _first_tokens(cfg, lg, DECODE_B, dev)
+            seq = []
+            for _ in range(DECODE_STEPS):
+                lg, dc = dec(params, tok, dc)
+                tok = lg[:, :cfg.vocab_size].argmax(-1)
+                seq.append(tok.tolist())
+            got[impl], last[impl] = seq, lg
+            del dc
+            _release()
+    same = got["auto"] == got["ref"]
+    d = float((last["auto"] - last["ref"]).abs().max())
+    log(f"  decode_32k parity {name} x{DECODE_PARITY_LAYERS} fp32: "
+        f"{DECODE_B} rows x {DECODE_STEPS} greedy tokens after the kernel "
+        f"prefill and after the plain one identical={same} (last step's "
+        f"largest logit difference {d:.3e})")
+    assert same, "decode after the kernel prefill differs from the plain"
+    del params
+    _release()
+    return {"arch": name, "layers": DECODE_PARITY_LAYERS,
+            "identical": same, "max_logit_diff_last": d}
+
+
+def _greedy_or_tie(ref_logits, other_logits, vocab):
+    """The other run's greedy token equals the reference run's, or both
+    are the reference's top two within one bf16 step of its largest logit
+    (bf16 logits tie there). Returns the near-tie's gap, or None."""
+    r = ref_logits[:vocab].float()
+    o = int(other_logits[:vocab].argmax())
+    top = r.topk(2)
+    if o == int(top.indices[0]):
+        return None
+    gap = float(top.values[0] - top.values[1])
+    assert o == int(top.indices[1]) and \
+        gap <= abs(float(top.values[0])) * 2.0 ** -7, (o, top, gap)
+    return gap
+
+
+def long_500k_rwkv(dev):
+    """(d) rwkv6-1.6b: a LONG_S-token prefill from scratch through the
+    rwkv builder (24 WKV6 launches), then DECODE_STEPS greedy steps on
+    its state (24 each)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    cfg = get_config("rwkv6-1.6b")
+    params = _long_params(cfg, dev, torch.bfloat16)
+    pre, dec = ST.build_prefill_step(cfg), ST.build_decode_step(cfg)
+    with torch.no_grad():
+        pre(params, _long_tokens(cfg, 1, WARM_S, dev, seed=1), {})
+        toks = _long_tokens(cfg, 1, LONG_S, dev)
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        (lg, cache), wall, dev_ms = _timed_call(
+            lambda: pre(params, toks, {}))
+        n_pre = _launched()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del toks
+        assert n_pre == {"wkv6": cfg.n_layers}, n_pre
+        state = sum(cache[k].nbytes for k in ("state", "last_tm", "last_cm"))
+        ops.reset_launches()
+        tok, ms, seq = lg[:, :cfg.vocab_size].argmax(-1), [], []
+        for _ in range(DECODE_STEPS):
+            (lg, cache), _, d = _timed_call(lambda: dec(params, tok, cache))
+            tok = lg[:, :cfg.vocab_size].argmax(-1)
+            ms.append(d)
+            seq.append(int(tok[0]))
+        n_dec = _launched()
+    assert n_dec == {"wkv6": cfg.n_layers * DECODE_STEPS}, n_dec
+    assert bool(torch.isfinite(lg).all()) and int(cache["length"][0]) == \
+        LONG_S + DECODE_STEPS
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    log(f"  long_500k rwkv6-1.6b: prefill {LONG_S} tokens in "
+        f"{wall * 1e3:.1f} ms wall, {dev_ms:.1f} ms device, peak "
+        f"{peak:.2f} GiB, launches {n_pre}; state {state / 1e6:.2f} MB; "
+        f"{DECODE_STEPS} greedy steps at context {LONG_S}: step ms median "
+        f"{med:.2f}, launches {n_dec}; tokens {seq}")
+    del params, cache
+    _release()
+    return {"arch": cfg.name, "seq": LONG_S, "prefill_wall_s": wall,
+            "prefill_device_ms": dev_ms, "peak_gib": peak,
+            "launches_prefill": n_pre, "launches_decode": n_dec,
+            "state_bytes": state, "decode_step_ms": ms,
+            "decode_step_ms_median": med, "tokens": seq}
+
+
+def long_500k_hybrid(dev):
+    """(d) recurrentgemma-2b: a LONG_S-token prefill from scratch (18
+    RG-LRU launches, its 8 local attention layers through
+    ``flash_prefill`` at window 2048), the last ring_len positions placed
+    at slot t mod ring_len of a ring cache and all of them in a linear
+    cache with room; DECODE_STEPS greedy steps on the ring, the linear
+    cache fed the same tokens: its greedy token equal at every step (up
+    to a bf16 tie, each logged)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import serving as S
+    cfg = get_config("recurrentgemma-2b")
+    params = _long_params(cfg, dev, torch.bfloat16)
+    pre, dec = ST.build_prefill_step(cfg), ST.build_decode_step(cfg)
+    la = S.attn_layer_count(cfg)
+    with torch.no_grad():
+        pre(params, _long_tokens(cfg, 1, WARM_S, dev, seed=1), {})
+        toks = _long_tokens(cfg, 1, LONG_S, dev)
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        (lg, cache), wall, dev_ms = _timed_call(
+            lambda: pre(params, toks, {}))
+        n_pre = _launched()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del toks
+        assert n_pre == {"rglru": cfg.n_layers - la, "flash_prefill": la}, \
+            n_pre
+        ring = ST.decode_cache(cfg, cache, LONG_S + DECODE_STEPS, ring=True)
+        lin = ST.decode_cache(cfg, cache, LONG_S + DECODE_STEPS)
+        del cache
+        _release()
+        rb, lb = (c["k"].nbytes + c["v"].nbytes for c in (ring, lin))
+        ops.reset_launches()
+        tok, ms, seq, ties = lg[:, :cfg.vocab_size].argmax(-1), [], [], []
+        for i in range(DECODE_STEPS):
+            (lr, ring), _, d = _timed_call(lambda: dec(params, tok, ring))
+            (ll, lin), _, d_lin = _timed_call(lambda: dec(params, tok, lin))
+            gap = _greedy_or_tie(lr[0], ll[0], cfg.vocab_size)
+            if gap is not None:
+                ties.append({"step": i, "gap": gap})
+                log(f"  step {i}: the linear cache's greedy token is the "
+                    f"ring's second, a bf16 tie (gap {gap:.3e})")
+            tok = lr[:, :cfg.vocab_size].argmax(-1)
+            ms.append((d, d_lin))
+            seq.append(int(tok[0]))
+        n_dec = _launched()
+    assert n_dec == {"rglru": 2 * (cfg.n_layers - la) * DECODE_STEPS}, n_dec
+    assert ring["k"].shape[2] == S.ring_len(cfg) and \
+        int(ring["length"][0]) == LONG_S + DECODE_STEPS
+    assert len(ties) <= 1, ties
+    med = sorted(m[0] for m in ms[1:])[len(ms[1:]) // 2]
+    med_lin = sorted(m[1] for m in ms[1:])[len(ms[1:]) // 2]
+    log(f"  long_500k recurrentgemma-2b: prefill {LONG_S} tokens in "
+        f"{wall * 1e3:.1f} ms wall, {dev_ms:.1f} ms device, peak "
+        f"{peak:.2f} GiB, launches {n_pre}; ring of {S.ring_len(cfg)} "
+        f"slots {rb / 1e6:.1f} MB vs linear {lb / 1e9:.2f} GB; "
+        f"{DECODE_STEPS} greedy steps: ring step ms median {med:.2f}, "
+        f"linear {med_lin:.2f}; tokens equal the linear cache's "
+        f"(near-ties {ties}); launches {n_dec}")
+    del params, ring, lin
+    _release()
+    return {"arch": cfg.name, "seq": LONG_S, "prefill_wall_s": wall,
+            "prefill_device_ms": dev_ms, "peak_gib": peak,
+            "launches_prefill": n_pre, "launches_decode": n_dec,
+            "ring_slots": S.ring_len(cfg), "ring_kv_bytes": rb,
+            "linear_kv_bytes": lb, "decode_step_ms_ring": [m[0] for m in ms],
+            "decode_step_ms_linear": [m[1] for m in ms],
+            "decode_step_ms_median_ring": med,
+            "decode_step_ms_median_linear": med_lin, "tokens": seq,
+            "near_ties": ties}
+
+
+def long_500k_skipped():
+    """(d) the windowed archs long_500k is not run for on one card, each
+    with the bytes that keep it off (computed from the configs)."""
+    from repro_torch.configs import get_config
+    out = []
+    for name in ("h2o-danube-3-4b", "mixtral-8x7b", "gemma2-9b"):
+        cfg = get_config(name)
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT.get(name,
+                                                              cfg.n_layers))
+        weights = cfg.param_count() * 2 / 1e9
+        if name == "gemma2-9b":
+            glob = sum(k == "attn_global" for k in cfg.layer_kinds())
+            gb = LONG_S * _kv_bytes_per_token(cfg, glob) / 1e9
+            why = (f"{gb:.1f} GB of cache for its {glob} global layers "
+                   f"alone")
+        else:
+            gb = LONG_S * _kv_bytes_per_token(cfg) / 1e9
+            why = (f"{gb:.1f} GB of the builder's stacked K/V "
+                   f"({cfg.n_layers} layers) beside {weights:.1f} GB of bf16 "
+                   f"weights and {LONG_S * cfg.d_ff * 2 / 1e9:.1f} GB a "
+                   f"tensor of MLP activations")
+        log(f"  long_500k {name}: not run on one 80 GB card: {why}")
+        out.append({"arch": name, "layers": cfg.n_layers, "kv_gb": gb,
+                    "weights_gb": weights, "reason": why})
+    return out
+
+
+def train_4k(dev):
+    """(e) train_4k's step (``training/train_loop.py::make_train_step``,
+    remat on) on TRAIN4K_B x TRAIN4K_S tokens in bf16 at full width cut
+    to TRAIN4K_LAYERS layers: attention past 2048 keys through the plain
+    blockwise flash (the kernels refuse autograd; no launch), then the
+    same step with ``attn_impl="naive"``; step ms (CUDA events, median)
+    and peak memory of each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.model_factory import get_model
+    from repro_torch.training import OptimizerConfig, TrainConfig
+    from repro_torch.training.optimizer import init_opt_state
+    cfg = dataclasses.replace(get_config(TRAIN4K_ARCH),
+                              n_layers=TRAIN4K_LAYERS)
+    bundle = get_model(cfg)
+    params = _long_params(cfg, dev, torch.bfloat16)
+    seq = _long_tokens(cfg, TRAIN4K_B, TRAIN4K_S + 1, dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=dev)
+    n = cfg.param_count()
+    rows = []
+    for attn_impl in ("auto", "naive"):
+        step = ST.build_train_step(bundle, TrainConfig(
+            remat=True, attn_impl=attn_impl, microbatches=TRAIN4K_MICRO,
+            opt=OptimizerConfig(lr=1e-4, warmup_steps=1,
+                                total_steps=TRAIN4K_STEPS + 1)))
+        opt = init_opt_state(params)
+        p = params
+        ms, losses = [], []
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        for _ in range(TRAIN4K_STEPS + 1):
+            (p, opt, m), _, d = _timed_call(
+                lambda: step(p, opt, tokens, targets, mask, {}))
+            ms.append(d)
+            losses.append(float(m["loss"]))
+        launches = _launched()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert not any(launches.values()), launches
+        assert all(x == x and abs(x) < 1e4 for x in losses), losses
+        med = sorted(ms[1:])[len(ms[1:]) // 2]
+        tok = TRAIN4K_B * TRAIN4K_S
+        rows.append({"arch": cfg.name, "layers": cfg.n_layers,
+                     "batch": TRAIN4K_B, "seq": TRAIN4K_S,
+                     "microbatches": TRAIN4K_MICRO,
+                     "attn_impl": attn_impl, "step_ms": ms,
+                     "step_ms_median": med, "tokens_per_s": tok / med * 1e3,
+                     "six_n_share_of_989tf":
+                         6 * n * tok / (med / 1e3) / BF16_FLOPS,
+                     "peak_gib": peak, "losses": losses,
+                     "launches": launches})
+        log(f"  train_4k {cfg.name} x{cfg.n_layers} ({TRAIN4K_B} x "
+            f"{TRAIN4K_S} in {TRAIN4K_MICRO} microbatches, remat, "
+            f"attn_impl={attn_impl!r}): step ms median "
+            f"{med:.1f} (first {ms[0]:.1f}); {rows[-1]['tokens_per_s']:.0f} "
+            f"tokens/s; 6*N share {rows[-1]['six_n_share_of_989tf']:.3f}; "
+            f"peak {peak:.2f} GiB; losses {losses}; launches {launches}")
+        del opt, p, step
+    del params
+    _release()
+    return rows
+
+
+def phase9(dev):
+    """The reference's long-context shapes on the card, (a)-(e); every
+    cut printed. Returns the {"long": ...} row, with the launches of the
+    long path's kernels (the qwen3 32k prefill, the 524k prefills and
+    decodes)."""
+    from repro_torch.configs import SHAPES, get_config
+    log(f"phase 9: long — cuts: prefill_32k B 1 of "
+        f"{SHAPES['prefill_32k'].global_batch}; decode_32k B {DECODE_B} of "
+        f"{SHAPES['decode_32k'].global_batch} ({DECODE_STEPS} steps); "
+        f"long_500k B 1 ({DECODE_STEPS} steps); train_4k "
+        f"{TRAIN4K_ARCH} at {TRAIN4K_LAYERS} layers, B {TRAIN4K_B} of "
+        f"{SHAPES['train_4k'].global_batch} in {TRAIN4K_MICRO} "
+        f"microbatches; kernel-vs-plain rows at "
+        f"{LONG_PARITY_S} tokens, 2 fp32 layers [{time.monotonic() - T0:.1f} "
+        f"s]")
+    out = {"parity": [long_parity(n, k, dev) for n, k in LONG_PARITY]}
+    log(f"phase 9: prefill_32k / decode_32k [{time.monotonic() - T0:.1f} s]")
+    out["kernel_32k"] = long_kernel_row(dev)
+    out["kernel_checks"] = long_kernel_checks(dev)
+    out["prefill_32k"], out["decode_32k"] = [], None
+    for name in PREFILL_ARCHS:
+        row, params, logits, cache = prefill_32k(name, dev)
+        out["prefill_32k"].append(row)
+        if name == "qwen3-8b":
+            out["decode_32k"] = decode_32k(get_config(name), params, logits,
+                                           cache, dev)
+        del params, logits, cache
+        _release()
+    out["decode_32k_parity"] = decode_parity("qwen3-8b", dev)
+    log(f"phase 9: long_500k [{time.monotonic() - T0:.1f} s]")
+    out["long_500k"] = [long_500k_rwkv(dev), long_500k_hybrid(dev)]
+    out["long_500k_not_run"] = long_500k_skipped()
+    log(f"phase 9: train_4k [{time.monotonic() - T0:.1f} s]")
+    out["train_4k"] = train_4k(dev)
+    rw, rg = out["long_500k"]
+    launches = {
+        "flash_prefill": out["prefill_32k"][0]["launches"]["flash_prefill"]
+        + rg["launches_prefill"]["flash_prefill"],
+        "wkv6": rw["launches_prefill"]["wkv6"] + rw["launches_decode"]["wkv6"],
+        "rglru": rg["launches_prefill"]["rglru"]
+        + rg["launches_decode"]["rglru"]}
+    out["launches"] = launches
+    log(f"phase 9 done: launches on the long path {launches} "
+        f"[{time.monotonic() - T0:.1f} s]")
+    return out
+
+
+LONG_MARK = "phase 9 row: "
+
+
+def phase9_process():
+    """Phase 9 in a process of its own, whose caching allocator maps
+    expandable segments: a 524,288-token prefill frees and makes tensors
+    of 2.7, 5.4 and 8 GB in turn, and with fixed segments the card ran
+    out of memory with 23 GB of them cached but unallocated. The child
+    finds the kernels phase 1 built; its log lines pass through, and its
+    row comes back on a marked line."""
+    _release()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--only", "long-process"],
+                            stdout=subprocess.PIPE, text=True, env=env)
+    row = None
+    for line in proc.stdout:
+        if line.startswith(LONG_MARK):
+            row = json.loads(line[len(LONG_MARK):])
+        else:
+            print(line, end="", flush=True)
+    rc = proc.wait()
+    if rc != 0 or row is None:
+        raise RuntimeError(f"phase 9 failed in its process (rc {rc})")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet",
-                                       "tp", "train"],
+                                       "tp", "train", "long",
+                                       "long-process"],
                     default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
                          "new kernel); 'pd' runs phases 1 and 5 alone, "
                          "'fleet' phases 1 and 6, 'tp' phases 1 and 7, "
-                         "'train' phases 1 and 8")
+                         "'train' phases 1 and 8, 'long' phases 1 and 9 "
+                         "('long-process': phase 9 alone, the process "
+                         "phase9_process starts)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    if args.only == "long-process":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        row = phase9(torch.device("cuda"))
+        print(LONG_MARK + json.dumps(row), flush=True)
+        return 0
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3104,6 +3817,10 @@ def main() -> int:
 
     if args.only == "train":
         log(json.dumps({"train": phase8(dev)}))
+        log(card)
+        return 0
+    if args.only == "long":
+        log(json.dumps({"long": phase9_process()}))
         log(card)
         return 0
     if args.only in ("pd", "fleet", "tp"):
@@ -3168,12 +3885,15 @@ def main() -> int:
     fleet = phase6(dev)
     tp_kernels, tp_launches = phase7(dev)
     train = phase8(dev)
+    longctx = phase9_process()
     for r in rows:
         r["launches_pd"] = pd[r["arch"], r["name"]]
         r["launches_fleet"] = fleet[r["arch"], r["name"]]
         r["launches_tp"] = tp_launches.get((r["arch"], r["name"]))
+        r["launches_long"] = longctx["launches"].get(r["name"], 0)
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
+    log(json.dumps({"long": longctx}))
     log(json.dumps({"train": train}))
     log(json.dumps({"tp_kernels": tp_kernels}))
     log(json.dumps({"arch_kernels": arch}))

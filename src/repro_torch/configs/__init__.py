@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (  # noqa: F401
-    EncoderConfig, ModelConfig, MoEConfig, RGLRUConfig, RWKVConfig,
-    VisionConfig, get_config, list_configs, register, smoke_config,
+    SHAPES, EncoderConfig, ModelConfig, MoEConfig, RGLRUConfig, RWKVConfig,
+    ShapeConfig, VisionConfig, get_config, list_configs, register,
+    shape_applicable, smoke_config,
 )

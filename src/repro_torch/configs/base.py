@@ -91,6 +91,14 @@ class ModelConfig:
     source: str = ""
 
     @property
+    def subquadratic(self) -> bool:
+        """True when a 500k-token decode context has bounded (or
+        mesh-shardable-bounded) attention state: SSM / hybrid / SWA /
+        alternating local-global."""
+        return self.attn_kind in ("rwkv", "hybrid_rglru", "swa",
+                                  "local_global")
+
+    @property
     def is_encdec(self) -> bool:
         return self.encoder is not None
 
@@ -179,6 +187,36 @@ class ModelConfig:
         """The query heads split evenly over ``tp`` ranks (the reference's
         ``tp_heads_ok``, ``configs/base.py:205``)."""
         return self.n_heads % tp == 0
+
+
+# ---------------------------------------------------------------------------
+# Input shapes: every LM-family arch is paired with these four (the
+# reference's ``configs/base.py:216-238``).
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, and why not when skipped."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: 500k decode context "
+                       "skipped per assignment")
+    return True, ""
 
 
 _REGISTRY: dict = {}

@@ -39,8 +39,11 @@
 //    64-column box), P rows x 128 bytes, through 2-D tensor maps over the
 //    whole K and V pools (kernels/tma.py, built once per pool; a layer is
 //    a row offset). Full / empty mbarriers hand the stages between the
-//    producer and the consumer warps. The producer reads its entry's
-//    block-table row itself, once, into shared memory. A tile's key
+//    producer and the consumer warps. The producer reads each key
+//    block's page ids from its entry's block-table row in global memory
+//    as it issues the block's copies (a shared-memory copy of the row
+//    grew with the entry: 128 KB at 524,288 tokens of 16-row pages,
+//    past the card's 227 KB with hd 256's ring). A tile's key
 //    blocks start on a page boundary; pages past the entry's last one
 //    repeat it (finite values, masked out). TMA, because 16-byte
 //    `cp.async` copies issued by threads capped the copy rate at about 8
@@ -468,11 +471,10 @@ struct Geom {
   static constexpr int QBYTES = 64 * HDP * 2;   // one warpgroup's Q rows
   static constexpr int KBYTES = KH * HALF;      // one K stage
   static constexpr int VBYTES = VH * HALF;      // one V stage
-  // (1024-byte alignment slack) K/V ring, Q tiles, barriers, then the
-  // entry's page ids (Pb ints)
-  static constexpr size_t smem(int pb) {
+  // (1024-byte alignment slack) K/V ring, Q tiles, barriers
+  static constexpr size_t smem() {
     return 1024 + (size_t)STAGES * (KBYTES + VBYTES) + (size_t)NWG * QBYTES +
-           128 + sizeof(int) * (size_t)pb;
+           128;
   }
 };
 
@@ -572,7 +574,6 @@ prefill_bf16_kernel(const bf16* __restrict__ q,
   uint64_t* full = reinterpret_cast<uint64_t*>(sQ + NWG * Gm::QBYTES);
   uint64_t* empty = full + ST;                              // [ST] data used
   uint64_t* qbar = empty + ST;                              // Q in
-  int* s_pg = reinterpret_cast<int*>(sQ + NWG * Gm::QBYTES + 128);
 
   const int pos0 = entry_start[entry] + (t0 - cu_tokens[entry]);
   const int pos_last = pos0 + n - 1;
@@ -597,9 +598,7 @@ prefill_bf16_kernel(const bf16* __restrict__ q,
 
   if (wg == NWG) {
     // ---- producer warp: the K/V ring by TMA, ST - 1 blocks ahead ----
-    for (int i = lane; i < n_pg; i += 32)
-      s_pg[i] = entry_bt[(long long)entry * Pb + pg_lo + i];
-    __syncwarp();
+    const int* bt_row = entry_bt + (long long)entry * Pb + pg_lo;
     const int pps = KB / P;                    // pages per key block
     constexpr int per_page = Gm::KH + Gm::VH;  // TMA loads per page
     for (int it = 0; it < nblk; ++it) {
@@ -615,7 +614,7 @@ prefill_bf16_kernel(const bf16* __restrict__ q,
       // Pages past the entry's last one repeat it (finite, masked out).
       for (int t = lane; t < pps * per_page; t += 32) {
         const int jp = t / per_page, h = t - jp * per_page;
-        const int page = s_pg[min(it * pps + jp, n_pg - 1)];
+        const int page = __ldg(bt_row + min(it * pps + jp, n_pg - 1));
         if (h < Gm::KH)
           tma_load_2d(sK + st * Gm::KBYTES + h * HALF + jp * P * 128, &k_map,
                       kvh * hd + h * 64, k_row0 + page * P, &full[st]);
@@ -773,7 +772,7 @@ int launch_bf16_hd(const void* q, const CUtensorMap& km,
                    cudaStream_t stream) {
   const int G = H / Hkv;
   const int n_hc = (G + 3) / 4;                // 4 query heads per block
-  const size_t smem = Geom<HDP>::smem(Pb);
+  const size_t smem = Geom<HDP>::smem();
   static size_t configured = 0;                // max smem set so far
   if (smem > configured) {
     cudaError_t err = cudaFuncSetAttribute(

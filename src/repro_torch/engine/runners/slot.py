@@ -74,6 +74,14 @@ class SlotRunner:
         self.impl = impl                    # "auto" (kernels) | "ref"
         self.mesh = mesh
         self.device = mesh.device           # activations and sampling
+        if S.attn_layer_count(cfg) and max_len > S.JOINT_PREFILL_MAX:
+            # past it the reference's prefill takes the single-shot
+            # branch, which ignores the cached prefix: a sequence's
+            # second chunk would lose its first
+            raise ValueError(
+                f"slot max_len {max_len} > {S.JOINT_PREFILL_MAX}: chunked "
+                f"prefill attends jointly over at most that many cached "
+                f"positions")
         self.caches = S.init_cache(cfg, n_slots, max_len, dtype, mesh)
         self.cache_specs = SH.engine_cache_specs(
             cfg, S.cache_like(cfg, n_slots, max_len, dtype), mesh.tp)

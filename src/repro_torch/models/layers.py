@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 NEG = -1e30
+POS_PAD = 2 ** 30           # position of a pad key (the reference's sentinel)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -114,13 +115,101 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _weigh(s, v, q), lse
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_positions: torch.Tensor, k_positions: torch.Tensor,
+                    window: Optional[int] = None,
+                    cap: Optional[float] = None, chunk: int = 1024,
+                    causal: bool = True) -> torch.Tensor:
+    """Memory-efficient attention (``layers.py:125-178``): a running
+    (max, sum, acc) triple in fp32 over key chunks of ``chunk``, so the
+    (Sq, Sk) score matrix is never materialised; keys padded to whole
+    chunks sit at position ``POS_PAD``. Positions give absolute token
+    indices (causal, window); a non-causal call attends to every real
+    key. Plain PyTorch, differentiable under autograd. q: (B,Sq,H,hd);
+    k,v: (B,Sk,Hkv,hd); positions (B,Sq) / (B,Sk)."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    n_rep = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    n_chunks = max(1, -(-sk // chunk))
+    pad = n_chunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_positions = F.pad(k_positions, (0, pad), value=POS_PAD)
+    qf = q.reshape(b, sq, hkv, n_rep, hd).float()         # grouped-query
+    m = torch.full((b, hkv, n_rep, sq), -math.inf, device=q.device)
+    den = torch.zeros((b, hkv, n_rep, sq), device=q.device)
+    acc = torch.zeros((b, hkv, n_rep, sq, hd), device=q.device)
+    for c in range(n_chunks):
+        cols = slice(c * chunk, (c + 1) * chunk)
+        kb, vb, pb = k[:, cols], v[:, cols], k_positions[:, cols]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb.float()) * scale
+        s = softcap(s, cap)
+        if causal:
+            msk = causal_mask(q_positions, pb, window)      # (B, Sq, C)
+        else:
+            msk = (pb < POS_PAD)[:, None, :]
+        s = torch.where(msk[:, None, None], s, torch.full_like(s, NEG))
+        m_cur = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_cur[..., None])
+        corr = torch.exp(m - m_cur)
+        den = den * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p, vb.float())
+        m = m_cur
+    out = acc / den.clamp_min(1e-30)[..., None]            # (B,Hkv,G,Sq,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def banded_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         window: int, cap: Optional[float] = None,
+                         q_block: int = 1024) -> torch.Tensor:
+    """Sliding-window self-attention over a gathered diagonal band
+    (``layers.py:181-224``): query block i attends keys [i·Q - window,
+    i·Q + Q), so the work scales with S·(window + Q), not S². A
+    from-scratch prefill (positions 0..S-1) with S a multiple of the
+    query block. Plain PyTorch, differentiable under autograd. q:
+    (B,S,H,hd); k,v: (B,S,Hkv,hd)."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qb = min(q_block, s)
+    if s % qb:
+        raise ValueError(f"sequence {s} is no multiple of the query block "
+                         f"{qb}")
+    nb = s // qb
+    band = window + qb
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    idx = (torch.arange(nb, device=dev) * qb - window)[:, None] \
+        + torch.arange(band, device=dev)[None, :]          # (nb, band)
+    idx_c = idx.clamp(0, s - 1)
+    kb, vb = k[:, idx_c], v[:, idx_c]                      # (B,nb,band,..)
+    qg = q.reshape(b, nb, qb, hkv, g, hd)
+    sc = torch.einsum("bnqhgd,bnkhd->bnhgqk", qg.float(), kb.float()) * scale
+    sc = softcap(sc, cap)
+    qpos = (torch.arange(nb, device=dev) * qb)[:, None] \
+        + torch.arange(qb, device=dev)[None, :]            # (nb, qb)
+    mask = idx[:, None, :] <= qpos[:, :, None]             # causal
+    mask &= idx[:, None, :] > (qpos[:, :, None] - window)  # window
+    mask &= (idx >= 0)[:, None, :]
+    sc = torch.where(mask[None, :, None, None], sc, torch.full_like(sc, NEG))
+    pr = torch.softmax(sc, dim=-1).to(q.dtype)
+    o = torch.einsum("bnhgqk,bnkhd->bnqhgd", pr, vb)
+    return o.reshape(b, s, h, hd)
+
+
 def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if act in ("swiglu", "geglu"):
+        # the gate's activation before the up projection: three (T, d_ff)
+        # tensors live at once, not four (8 GB each at 524,288 tokens of
+        # recurrentgemma-2b)
         gate = x @ p["w_gate"]
-        up = x @ p["w_up"]
         g = F.silu(gate) if act == "swiglu" \
             else F.gelu(gate, approximate="tanh")
-        hmid = g * up
+        del gate
+        hmid = g * (x @ p["w_up"])
     elif act == "sqrelu":
         hmid = torch.relu(x @ p["w_up"]).square()
     else:

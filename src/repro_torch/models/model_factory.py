@@ -1,6 +1,7 @@
 """Bundle a ModelConfig into the callables the launchers, the train loop
 and the tests use (the counterpart of ``repro/models/model_factory.py``).
-The serving entry points are ``models/serving.py``'s own."""
+The serving entry points are ``models/serving.py``'s own; the bundle's
+``decode_step`` refuses a full linear cache first (``serving.check_room``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -54,6 +55,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return nll.sum() / mask.sum().clamp_min(1.0)
 
 
+def decode_step(cfg: ModelConfig, ps: list, token: torch.Tensor,
+                caches: list, mesh, impl: str = "auto"):
+    """``serving.decode_step`` after ``serving.check_room``."""
+    S.check_room(cfg, caches)
+    return S.decode_step(cfg, ps, token, caches, mesh, impl)
+
+
 def get_model(name_or_cfg, smoke: bool = False) -> ModelBundle:
     cfg = name_or_cfg if isinstance(name_or_cfg, ModelConfig) \
         else get_config(name_or_cfg)
@@ -65,8 +73,9 @@ def get_model(name_or_cfg, smoke: bool = False) -> ModelBundle:
             T.init_params(cfg, gen, dtype, device),
         forward=T.forward,
         init_cache=lambda batch, max_len, dtype=torch.bfloat16,
-            device="cuda": S.init_cache(cfg, batch, max_len, dtype,
-                                        one_rank(resolve_device(device))),
+            device="cuda", ring=False: S.init_cache(
+                cfg, batch, max_len, dtype, one_rank(resolve_device(device)),
+                ring=ring),
         prefill=S.prefill,
-        decode_step=S.decode_step,
+        decode_step=decode_step,
     )

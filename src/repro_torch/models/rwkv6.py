@@ -159,14 +159,16 @@ def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
     k -> 0) and new_last_x is taken at n_valid-1."""
     b, t, d = x.shape
     p0 = ps[0]
-    xs = _token_shift(x, last_x)
-    delta = (xs - x).float()
-    # data-dependent lerp (ddlerp): mix = base + lora(x)
-    lora = x @ p0["mix_lora_a"]
-    mixes = p0["mix_base"][:, None, None, :] + torch.einsum(
-        "btr,mrd->mbtd", torch.tanh(lora.float()).to(x.dtype),
-        p0["mix_lora_b"]).float()
-    xr, xk, xv, xw, xg = (x.float() + delta * mixes[i] for i in range(5))
+    delta = (_token_shift(x, last_x) - x).float()
+    # data-dependent lerp (ddlerp): mix_i = base_i + lora(x)_i, each mixed
+    # input made as its projection needs it and dropped after (an fp32
+    # copy of x each: 4.3 GB at 524,288 tokens of rwkv6-1.6b)
+    lora = torch.einsum("btr,mrd->mbtd",
+                        torch.tanh((x @ p0["mix_lora_a"]).float()).to(x.dtype),
+                        p0["mix_lora_b"])
+
+    def mixed(i):
+        return x.float() + delta * (p0["mix_base"][i] + lora[i].float())
     hr = states[0].shape[1]                 # heads of a state part
     parts = split_ranks(states, d // head_dim, hr)
     cols = hr * head_dim
@@ -178,10 +180,11 @@ def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
             mesh.broadcast(a.to(x.dtype)))]
         return mesh.regroup(out, len(parts), -1)
 
-    rs, ks, vs = (proj(a, n) for a, n in ((xr, "wr"), (xk, "wk"),
-                                          (xv, "wv")))
-    gs = [F.silu(g) for g in proj(xg, "wg")]
-    dls = mesh.broadcast(xw.to(x.dtype) @ p0["decay_lora_a"])
+    rs, ks, vs = (proj(mixed(i), n) for i, n in ((0, "wr"), (1, "wk"),
+                                                 (2, "wv")))
+    gs = [F.silu(g) for g in proj(mixed(4), "wg")]
+    dls = mesh.broadcast(mixed(3).to(x.dtype) @ p0["decay_lora_a"])
+    del lora, delta
     valid = None
     if n_valid is not None and n_valid < t:
         valid = (torch.arange(t, device=x.device) < n_valid)[None, :, None,

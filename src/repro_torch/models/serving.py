@@ -1,7 +1,10 @@
-"""Serving entry points of the slot family: cache init, prefill and
-decode_step for the rwkv, hybrid-rglru and cross-attention (enc-dec, VLM)
-towers (the counterpart of those halves of ``repro/models/serving.py``),
-over the ranks of a TE's ``launch.mesh.EngineMesh``.
+"""Serving entry points over dense caches: cache init, prefill and
+decode_step for every tower of the configs (the counterpart of
+``repro/models/serving.py``): global, sliding-window and local/global
+attention (dense or MoE), rwkv, hybrid-rglru and the cross-attention
+(enc-dec, VLM) towers, over the ranks of a TE's ``launch.mesh.EngineMesh``.
+The slot runner serves the last four through them; ``get_model`` and
+``launch/steps.py`` expose them for every arch.
 
 Caches are dense per-slot tensors with the reference's layouts:
 ``length`` (B,) int32; rwkv ``state`` (L, B, H, hd, hd) fp32 and
@@ -26,12 +29,31 @@ log-sum-exp combine on rank 0: the reference's flash-decode via GSPMD
 psum (``sharding.py:11-13``). A merge of one part is the identity, so a
 tp-1 TE computes what one tree on one device computes, bit for bit.
 
-Ported branches: the engine's joint-over-cache chunked prefill
-(``Smax <= 2048``) and the ring-buffer decode, which is the reference's
-linear-cache decode while a sequence is shorter than Smax (the engine
-refuses a request that would outgrow its slot). The single-shot long
-prefill branch (``Smax > 2048``) has no caller in the engine and is not
-ported: ``init_cache`` refuses an attention cache longer than 2048.
+The reference's branches, all ported:
+  * prefill into a cache of ``Smax <= 2048`` attends jointly over the
+    cache after writing the chunk's K/V (the engine's chunked prefill);
+    past 2048 the single-shot branch attends over the chunk's fresh K/V
+    by ``transformer.self_attention`` (the ``flash_prefill`` kernel on the
+    card) and writes the cache apart. That branch ignores the cached
+    prefix, so the port refuses it for a cache whose length is not 0
+    (the reference would silently drop the prefix).
+  * decode writes the new token at ``length`` of a linear cache, or at
+    ``length mod Smax`` of a rotating buffer: the reference's choice
+    (``serving.py:343-346``) takes the ring for ``swa`` and
+    ``hybrid_rglru`` caches of at most ``ring_len(cfg)`` slots, which
+    ``init_cache(..., ring=True)`` makes. With ``perf_flags.
+    windowed_decode`` a linear windowed cache attends only its trailing
+    window + 1 slots. The step reads nothing on the host: on a full
+    linear cache the new token's K/V are dropped, as the reference's
+    scatter drops them. ``check_room`` refuses that case; the entry points
+    a user calls (``get_model(...).decode_step``, ``steps.
+    build_decode_step``) call it first, while the slot engine refuses a
+    request that would outgrow its slot at admission.
+  * decode attention stays plain masked attention: the reference runs no
+    Pallas kernel there.
+At tp > 1 only the slot engine's caches are ported (``global`` and
+``hybrid_rglru`` attention of at most 2048 positions, no ring); the rest
+raises (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -43,15 +65,34 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import EngineMesh
 from repro_torch.models import layers as L
+from repro_torch.models import perf_flags as PF
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import GLOBAL_WINDOW
 
 Cache = Dict[str, Any]
 JOINT_PREFILL_MAX = 2048      # the reference's joint-over-cache limit
+TP_TODO = "ROADMAP Queue 1 item 10 (the long-context path at tp > 1)"
 
 
 def attn_layer_count(cfg: ModelConfig) -> int:
     return sum(1 for k in cfg.layer_kinds() if k.startswith("attn"))
+
+
+def ring_len(cfg: ModelConfig, align: int = 256) -> int:
+    """Ring-buffer length of a windowed arch: the window plus one aligned
+    chunk of slack (``serving.py:38-43``)."""
+    if cfg.window is None:
+        raise ValueError(f"{cfg.name} has no window")
+    return ((cfg.window + align + align - 1) // align) * align
+
+
+def is_ring(cfg: ModelConfig, smax: int) -> bool:
+    """Whether decode treats an attention cache of ``smax`` slots as a
+    rotating buffer: the reference's choice (``serving.py:343-346``),
+    ``swa`` and ``hybrid_rglru`` caches of at most ``ring_len`` slots."""
+    return (cfg.attn_kind in ("swa", "hybrid_rglru")
+            and cfg.window is not None and cfg.window < 2 ** 20
+            and smax <= ring_len(cfg))
 
 
 def extra_inputs(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -71,14 +112,20 @@ def extra_inputs(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 
 
 def cache_like(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype, device="meta") -> Cache:
+               dtype: torch.dtype, device="meta", ring: bool = False
+               ) -> Cache:
     """The whole dense cache for ``batch`` slots of ``max_len`` tokens,
     zeroed on ``device`` (on the meta device, the default: its leaves'
-    shapes and dtypes alone)."""
-    if cfg.attn_kind not in ("rwkv", "hybrid_rglru", "global"):
-        raise NotImplementedError(
-            f"the port's slot caches cover rwkv, hybrid_rglru and global "
-            f"attention towers, not {cfg.attn_kind!r}")
+    shapes and dtypes alone). With ``ring`` (``swa`` and
+    ``hybrid_rglru`` only) the attention cache is a rotating buffer of
+    ``min(max_len, ring_len(cfg))`` slots, sized by the window and not by
+    the context (``serving.py:45-57``)."""
+    if cfg.attn_kind not in ("rwkv", "hybrid_rglru", "global", "swa",
+                             "local_global"):
+        raise NotImplementedError(f"attn_kind {cfg.attn_kind!r}")
+    if ring and cfg.attn_kind not in ("swa", "hybrid_rglru"):
+        raise ValueError(f"a ring cache needs an swa or hybrid_rglru arch, "
+                         f"not {cfg.attn_kind!r}")
     cache: Cache = {"length": torch.zeros((batch,), dtype=torch.int32,
                                           device=device)}
     d = cfg.d_model
@@ -90,13 +137,10 @@ def cache_like(cfg: ModelConfig, batch: int, max_len: int,
                                        device=device)
         cache["last_cm"] = torch.zeros_like(cache["last_tm"])
         return cache
-    if max_len > JOINT_PREFILL_MAX:
-        raise NotImplementedError(
-            f"max_len {max_len} > {JOINT_PREFILL_MAX}: the reference's "
-            f"single-shot prefill branch is not ported")
+    s_alloc = min(max_len, ring_len(cfg)) if ring else max_len
     la = attn_layer_count(cfg)
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
-    cache["k"] = torch.zeros((la, batch, max_len, hkv, hd), dtype=dtype,
+    cache["k"] = torch.zeros((la, batch, s_alloc, hkv, hd), dtype=dtype,
                              device=device)
     cache["v"] = torch.zeros_like(cache["k"])
     if cfg.attn_kind == "hybrid_rglru":
@@ -119,12 +163,22 @@ def cache_like(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype, mesh: EngineMesh) -> List[Cache]:
-    """Zeroed dense caches for ``batch`` slots of ``max_len`` tokens, one
-    per rank of ``mesh``, split by ``engine_cache_specs``: each rank's
-    part in storage of its own on its device (the kernels take a rank's
-    state as a whole tensor), a replicated leaf once on rank 0's."""
-    like = cache_like(cfg, batch, max_len, dtype)
+               dtype: torch.dtype, mesh: EngineMesh,
+               ring: bool = False) -> List[Cache]:
+    """Zeroed dense caches for ``batch`` slots of ``max_len`` tokens (a
+    rotating buffer of ``ring_len`` slots with ``ring``), one per rank of
+    ``mesh``, split by ``engine_cache_specs``: each rank's part in
+    storage of its own on its device (the kernels take a rank's state as
+    a whole tensor), a replicated leaf once on rank 0's. At tp > 1 the
+    windowed towers, the ring and an attention cache past 2048 positions
+    are not ported."""
+    like = cache_like(cfg, batch, max_len, dtype, ring=ring)
+    if mesh.tp > 1 and (cfg.attn_kind in ("swa", "local_global") or ring
+                        or ("k" in like
+                            and like["k"].shape[2] > JOINT_PREFILL_MAX)):
+        raise NotImplementedError(
+            f"{cfg.name} at tp {mesh.tp} (attn_kind {cfg.attn_kind!r}, "
+            f"max_len {max_len}, ring={ring}): {TP_TODO}")
     specs = SH.engine_cache_specs(cfg, like, mesh.tp)
     parts = {k: SH.rank_zeros(v.shape, v.dtype, specs[k], mesh)
              for k, v in like.items()}
@@ -140,7 +194,7 @@ def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
             caches: List[Cache], mesh: EngineMesh,
             n_valid: Optional[int] = None, impl: str = "auto",
             vision_embeds: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None
+            frames: Optional[torch.Tensor] = None, attn_impl: str = "auto"
             ) -> Tuple[torch.Tensor, List[Cache]]:
     """Process a prompt chunk starting at the cache's length (per
     sequence) on the ranks' weights trees ``ps`` and caches ``caches``.
@@ -157,7 +211,14 @@ def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
     memory at every chunk, as the reference does (``serving.py:113-118``):
     a VLM from ``vision_embeds`` (its cross cache is kept when they are
     None), an enc-dec model from ``frames`` run through the whole encoder
-    each time."""
+    each time.
+
+    A cache of more than 2048 positions takes the reference's single-shot
+    branch (module docstring): attention over the chunk's fresh K/V by
+    ``transformer.self_attention`` at ``attn_impl`` (past 2048 tokens the
+    ``flash_prefill`` kernel on the card, under ``impl="auto"``); it
+    raises unless every sequence starts at length 0. MoE blocks take the
+    reference's capacity groups over the chunk's B x s rows."""
     b, s = tokens.shape
     nv = s if n_valid is None else n_valid
     c0 = caches[0]
@@ -170,14 +231,30 @@ def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
     if cfg.encoder is not None:
         if frames is None:
             raise ValueError(f"{cfg.name}: an enc-dec prefill needs frames")
-        _fill_cross_cache(cfg, ps, T.encode(cfg, ps, frames, mesh), c0,
-                          mesh)
+        _fill_cross_cache(cfg, ps, T.encode(cfg, ps, frames, mesh,
+                                            attn_impl=attn_impl), c0, mesh)
 
-    plan = _prefill_plan(caches, positions, s, mesh) if "k" in c0 else None
+    plan, fresh = None, None
+    if "k" in c0:
+        plan = _prefill_plan(caches, positions, s, mesh)
+        smax = _cache_len(caches)
+        if smax > JOINT_PREFILL_MAX:
+            if mesh.tp > 1:
+                raise NotImplementedError(
+                    f"a cache of {smax} positions at tp {mesh.tp}: {TP_TODO}")
+            if bool((start != 0).any()):
+                raise ValueError(
+                    f"a cache of {smax} > {JOINT_PREFILL_MAX} positions "
+                    f"takes the single-shot prefill, which attends only "
+                    f"over the chunk's own K/V: every sequence must start "
+                    f"at length 0, got lengths {start.tolist()}")
+            fresh = (attn_impl, impl)
+    groups = T.moe_groups(b * s)
 
     def attend(lps, x, ai, win):
         return T.block_out(cfg, lps, x, _seq_attention(
-            cfg, lps, x, positions, plan, ai, win, mesh), mesh)
+            cfg, lps, x, positions, plan, ai, win, mesh, fresh), mesh,
+            groups=groups)
     x = _tower(cfg, ps, x, caches, mesh, attend, n_valid, impl)
     c0["length"].add_(nv)
     logits = T.unembed(cfg, ps, x[:, nv - 1:nv, :], mesh)
@@ -239,6 +316,12 @@ def _held_kv(caches):
     distinct part of the attention layers' sequence, and Sr."""
     ks = SH.held([c["k"] for c in caches])
     return ks, SH.held([c["v"] for c in caches]), ks[0].shape[2]
+
+
+def _cache_len(caches) -> int:
+    """Smax: the attention cache's positions over all its parts."""
+    ks, _, sr = _held_kv(caches)
+    return sr * len(ks)
 
 
 def _cache_kpos(lo: int, n: int, start: torch.Tensor,
@@ -321,13 +404,16 @@ def _attend(items, cap, mesh) -> torch.Tensor:
     return (w * o).sum(0).to(outs[0][0].dtype)
 
 
-def _seq_attention(cfg, lps, x, positions, plan, ai, win, mesh):
+def _seq_attention(cfg, lps, x, positions, plan, ai, win, mesh,
+                   fresh=None):
     """One self-attention block's attention over attention layer ``ai``'s
     sequence-split cache, prefill or decode alike: its q/k/v heads
     gathered from ``block_qkv``'s ranks, the new K/V written into the
-    parts (``plan``), each rank's queries over its part. Returns the
-    heads' output as ``block_qkv``'s ranks hold it, before the output
-    projection."""
+    parts (``plan``), each rank's queries over its part (the gathered
+    trailing window of a windowed decode's). ``fresh`` = (attn_impl,
+    impl): the single-shot prefill, whose queries attend over the chunk's
+    own K/V instead (one rank). Returns the heads' output as
+    ``block_qkv``'s ranks hold it, before the output projection."""
     qkv = T.block_qkv(cfg, lps, x, mesh.broadcast(positions), mesh)
     q, k_new, v_new = (mesh.all_gather(list(t), 2) for t in zip(*qkv))
     items = []
@@ -336,9 +422,18 @@ def _seq_attention(cfg, lps, x, positions, plan, ai, win, mesh):
         ck, cv = part["k"][ai], part["v"][ai]
         _write(ck, kr, part)
         _write(cv, vr, part)
+        if fresh is not None:
+            continue
+        if part.get("cols") is not None:
+            at = (part["bidx"], part["cols"])
+            ck, cv = ck[at], cv[at]
         items.append((qr, ck.to(q.dtype), cv.to(q.dtype), _mask(part, win)))
-    return mesh.scatter(_attend(items, cfg.attn_logit_softcap, mesh),
-                        len(qkv), 2)
+    if fresh is None:
+        o = _attend(items, cfg.attn_logit_softcap, mesh)
+    else:
+        o = T.self_attention(cfg, q, k_new, v_new, positions, positions, win,
+                             fresh[0], impl=fresh[1], from_scratch=True)
+    return mesh.scatter(o, len(qkv), 2)
 
 
 def _fill_cross_cache(cfg, ps, mem, c0, mesh) -> None:
@@ -370,17 +465,35 @@ def _cross_after(cfg, ps, block, x, c0, mesh):
 # ---------------------------------------------------------------------------
 
 
+def check_room(cfg: ModelConfig, caches: List[Cache]) -> None:
+    """Raise if a linear attention cache has a sequence at its last
+    position: a decode step would drop the new token's K/V (reference
+    defect 2). Reads the lengths on the host."""
+    if "k" not in caches[0]:
+        return
+    smax = _cache_len(caches)
+    lengths = caches[0]["length"]
+    if not is_ring(cfg, smax) and int(lengths.max()) >= smax:
+        raise ValueError(
+            f"the linear cache of {smax} positions is full (lengths "
+            f"{lengths.tolist()}): decoding would drop the new token's "
+            f"K/V; allocate room or a ring (init_cache(ring=True))")
+
+
 def decode_step(cfg: ModelConfig, ps: list, token: torch.Tensor,
                 caches: List[Cache], mesh: EngineMesh,
                 impl: str = "auto") -> Tuple[torch.Tensor, List[Cache]]:
     """One decode step for every slot. token: (B,) int. Returns (logits
-    (B, Vp) on rank 0, the caches updated in place)."""
+    (B, Vp) on rank 0, the caches updated in place). Nothing is read on
+    the host: a row at the last position of a linear cache has its write
+    dropped, as the reference's scatter drops it (``check_room`` refuses
+    that case)."""
     lengths = caches[0]["length"]
     positions = lengths[:, None]                                  # (B,1)
     x = T.embed(cfg, ps, token[:, None].long(), mesh)
 
-    plan = _decode_plan(caches, positions, mesh) if "k" in caches[0] \
-        else None
+    plan = _decode_plan(cfg, caches, positions, mesh) \
+        if "k" in caches[0] else None
 
     def attend(lps, x, ai, win):
         return T.block_out(cfg, lps, x, _seq_attention(
@@ -391,30 +504,52 @@ def decode_step(cfg: ModelConfig, ps: list, token: torch.Tensor,
     return logits[:, 0, :], caches
 
 
-def _decode_plan(caches, positions, mesh) -> List[dict]:
-    """``_prefill_plan`` for a decode step over a rotating buffer
-    (``serving.py:352-371``): slot j holds the newest token t = j (mod
-    Smax); the whole buffer is attended and masks do the rest. While a
-    sequence is shorter than Smax this is the plain linear cache
-    (``serving.py:373-384``). The new token's K/V land in the rank
-    holding its ring slot; the other ranks write their slot's own value
+def _decode_plan(cfg, caches, positions, mesh) -> List[dict]:
+    """``_prefill_plan`` for a decode step (``serving.py:322-384``). The
+    new token at position lm1 goes to slot lm1 of a linear cache (dropped
+    past its end) or to slot lm1 mod Smax of a rotating buffer
+    (``is_ring``), where slot j holds the newest token t = j (mod Smax);
+    the whole cache is attended and masks do the rest, or, with
+    ``perf_flags.windowed_decode`` on a linear windowed cache, only its
+    trailing window + 1 slots (tp 1). The new token's K/V land in the
+    rank holding its slot; the other ranks write their slot's own value
     back."""
     ks, vs, sr = _held_kv(caches)
     smax = sr * len(ks)
+    ring = is_ring(cfg, smax)
+    static_win = cfg.window if cfg.attn_kind in ("swa", "hybrid_rglru") \
+        else None
+    span = None
+    if (PF.get().windowed_decode and not ring and static_win is not None
+            and static_win + 1 < smax):
+        if mesh.tp > 1:
+            raise NotImplementedError(f"windowed decode at tp {mesh.tp}: "
+                                      f"{TP_TODO}")
+        span = static_win + 1
     plan = []
     for r, (k, v, pos) in enumerate(zip(ks, vs, mesh.broadcast(positions))):
         lo = r * sr
         pos = pos.long()
         lm1 = pos[:, 0]                          # position of the new token
-        ring = lm1 % smax
+        at = lm1 % smax if ring else lm1         # its slot
         j = lo + torch.arange(sr, device=pos.device)[None, :]
-        t = lm1[:, None] - torch.remainder(lm1[:, None] - j, smax)
-        plan.append(dict(
-            k=k, v=v, pos=pos, masks={}, src=None,
+        if ring:
+            t = lm1[:, None] - torch.remainder(lm1[:, None] - j, smax)
+        else:
+            t = torch.where(j <= lm1[:, None], j, torch.full_like(j, -1))
+        part = dict(
+            k=k, v=v, pos=pos, masks={}, src=None, cols=None,
             bidx=torch.arange(pos.shape[0], device=pos.device)[:, None],
-            local=(ring - lo).clamp(0, sr - 1)[:, None],
-            keep=((ring < lo) | (ring >= lo + sr))[:, None, None, None],
+            local=(at - lo).clamp(0, sr - 1)[:, None],
+            keep=((at < lo) | (at >= lo + sr))[:, None, None, None],
             # the token id each slot holds
             k_pos=torch.where(t >= 0, t, torch.full_like(t,
-                                                         GLOBAL_WINDOW + 1))))
+                                                         GLOBAL_WINDOW + 1)))
+        if span is not None:
+            cols = (lm1 - static_win).clamp(0, smax - span)[:, None] \
+                + torch.arange(span, device=pos.device)[None, :]
+            part.update(cols=cols, k_pos=torch.where(
+                cols <= lm1[:, None], cols,
+                torch.full_like(cols, GLOBAL_WINDOW + 1)))
+        plan.append(part)
     return plan

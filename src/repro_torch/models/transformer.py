@@ -3,7 +3,10 @@ parameter init with the reference's distributions, embedding /
 unembedding, the per-layer window schedule, the two halves of an attention
 block that the runners wrap around their attention kernels, the rwkv and
 rglru blocks, the cross-attention blocks and the bidirectional encoder of
-the enc-dec and VLM towers, and a teacher-forced ``forward`` for the tests.
+the enc-dec and VLM towers, the reference's self-attention switch
+(``self_attention``: naive up to 2048 keys, blockwise flash past them, the
+dense ``flash_prefill`` kernel on the card) and a teacher-forced
+``forward``.
 
 Parameters are a plain dict mirroring the JAX pytree: per-layer tensors
 are stacked on a leading layer axis under ``blocks`` (dense, rwkv, enc-dec
@@ -21,13 +24,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import one_rank, split_ranks
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import perf_flags as PF
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 
 GLOBAL_WINDOW = 2 ** 30  # sentinel "window" meaning full causal attention
+FLASH_SWITCH = 2048      # keys past which "auto" attention goes blockwise
+FLASH_CHUNK = 1024       # keys per chunk of the blockwise form
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
@@ -306,16 +313,64 @@ def _ffn(cfg: ModelConfig, ps: list, h: torch.Tensor, mesh,
                                              mesh.broadcast(h))])
 
 
+def self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
+                   window: Optional[int], attn_impl: str = "auto",
+                   causal: bool = True, impl: str = "auto",
+                   from_scratch: bool = False) -> torch.Tensor:
+    """Self-attention of q (B,Sq,H,hd) over k/v (B,Sk,Hkv,hd) by the
+    reference's switch (``transformer.py:148-175``): ``attn_impl`` "naive"
+    (masked, materialised scores), "flash" (blockwise), or "auto" (naive
+    up to ``FLASH_SWITCH`` keys, blockwise past them; with
+    ``perf_flags.banded_swa_prefill`` an ``swa`` arch's causal prefill
+    takes the banded form instead). A non-causal call (the encoder)
+    attends to every key.
+
+    The blockwise route is the Pallas ``flash_prefill``'s function: a
+    causal ``from_scratch`` attention (q and k at positions 0..S-1) on
+    CUDA tensors under ``impl="auto"`` launches the dense ``flash_prefill``
+    kernel, with the window and the softcap (it refuses autograd: a loss
+    passes ``impl="ref"``), and raises for other positions; ``impl="ref"``
+    and CPU tensors run the plain blockwise function. The kernel is
+    causal only, so a non-causal call past the switch is plain at every
+    route."""
+    if attn_impl not in ("naive", "flash", "auto"):
+        raise ValueError(f"attn_impl must be 'naive', 'flash' or 'auto', "
+                         f"got {attn_impl!r}")
+    sk = k.shape[1]
+    cap = cfg.attn_logit_softcap
+    if attn_impl == "naive" or (attn_impl == "auto" and sk <= FLASH_SWITCH):
+        mask = L.causal_mask(q_pos, k_pos, window) if causal else None
+        return L.attention(q, k, v, mask, cap)
+    if causal and ops._route(q, impl) == "cuda":
+        if not from_scratch:
+            raise NotImplementedError(
+                "the flash_prefill kernel attends positions 0..S-1 of a "
+                "from-scratch prefill; pass impl='ref' for other positions")
+        return ops.flash_prefill(
+            q, k, v, softcap=cap,
+            window=None if window is None or window >= GLOBAL_WINDOW
+            else window)
+    if (PF.get().banded_swa_prefill and cfg.attn_kind == "swa" and causal
+            and cfg.window is not None and cfg.window + 1024 < sk
+            and q.shape[1] == sk):
+        return L.banded_swa_attention(q, k, v, cfg.window, cap)
+    return L.flash_attention(q, k, v, q_pos, k_pos, window, cap,
+                             chunk=min(FLASH_CHUNK, sk), causal=causal)
+
+
 def attn_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                     positions: torch.Tensor, window: int) -> torch.Tensor:
-    """A whole attention block with naive masked attention over the
-    block's own tokens (the teacher-forced path)."""
+                     positions: torch.Tensor, window: int,
+                     attn_impl: str = "auto", impl: str = "auto",
+                     from_scratch: bool = False) -> torch.Tensor:
+    """A whole attention block over the block's own tokens (the
+    teacher-forced path), its attention by ``self_attention``."""
     mesh = one_rank(x.device)
     (q, k, v), = block_qkv(cfg, [p], x, [positions], mesh)
-    mask = L.causal_mask(positions, positions, window)
-    return block_out(cfg, [p], x, [L.attention(q, k, v, mask,
-                                               cfg.attn_logit_softcap)],
-                     mesh, groups=moe_groups(x.shape[0] * x.shape[1]))
+    o = self_attention(cfg, q, k, v, positions, positions, window,
+                       attn_impl, impl=impl, from_scratch=from_scratch)
+    return block_out(cfg, [p], x, [o], mesh,
+                     groups=moe_groups(x.shape[0] * x.shape[1]))
 
 
 def moe_groups(tokens: int) -> int:
@@ -415,20 +470,24 @@ def memory_kv(cfg: ModelConfig, ps_attn: list, mem: torch.Tensor, mesh):
 
 
 def encode(cfg: ModelConfig, ps: list, frames: torch.Tensor,
-           mesh, remat: bool = False) -> torch.Tensor:
+           mesh, remat: bool = False, attn_impl: str = "auto"
+           ) -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings (B, F, D)
     (``transformer.py:490-519``) on the ranks' trees ``ps``: each layer's
-    heads split as a decoder block's (``block_qkv`` / ``block_out``), with
-    naive attention at every length: the reference's chunked flash form
-    past 2048 frames computes the same softmax in another order. ``remat``
-    recomputes each layer in the backward (``_maybe_remat``)."""
+    heads split as a decoder block's (``block_qkv`` / ``block_out``), its
+    attention non-causal by ``self_attention`` (naive up to 2048 frames,
+    the plain blockwise form past them at every route: the kernel is
+    causal only). ``remat`` recomputes each layer in the backward
+    (``_maybe_remat``)."""
     b, f, _ = frames.shape
     pos = mesh.broadcast(torch.arange(f, device=frames.device).expand(b, f))
 
     def enc_layer(x, lps):
         return block_out(cfg, lps, x, [
-            L.attention(q, k, v, None, cfg.attn_logit_softcap)
-            for q, k, v in block_qkv(cfg, lps, x, pos, mesh)], mesh)
+            self_attention(cfg, q, k, v, p, p, None, attn_impl,
+                           causal=False)
+            for (q, k, v), p in zip(block_qkv(cfg, lps, x, pos, mesh), pos)],
+            mesh)
 
     blk = _maybe_remat(enc_layer, remat)
     x = frames
@@ -451,20 +510,23 @@ def _maybe_remat(fn, remat: bool):
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             vision_embeds: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None, impl: str = "auto",
-            remat: bool = False) -> torch.Tensor:
-    """Teacher-forced logits (B, S, padded_vocab) with naive masked
-    attention and zero initial recurrent states — the counterpart of
-    ``T.forward(attn_impl="naive")``, which equals the reference's "auto"
-    up to 2048 keys. A VLM runs its cross blocks only when given
-    ``vision_embeds`` (as the reference's tower choice does); an enc-dec
-    model needs ``frames``. ``impl`` routes the two recurrences
-    (``ops.wkv6`` / ``ops.rglru``): under autograd pass "ref", since the
-    CUDA kernels have no backward and refuse it. ``remat`` recomputes
-    each block in the backward (a decoder layer with the cross block that
-    follows it, as one). Used by the train loop, the tests and the
-    on-card greedy oracle."""
+            frames: Optional[torch.Tensor] = None, attn_impl: str = "auto",
+            impl: str = "auto", remat: bool = False) -> torch.Tensor:
+    """Teacher-forced logits (B, S, padded_vocab) with zero initial
+    recurrent states — the counterpart of ``T.forward``, its
+    self-attention by ``attn_impl`` ("naive", "flash" or "auto": naive up
+    to 2048 keys, blockwise past them; ``self_attention``). A VLM runs
+    its cross blocks only when given ``vision_embeds`` (as the reference's
+    tower choice does); an enc-dec model needs ``frames``. ``impl``
+    routes the two recurrences (``ops.wkv6`` / ``ops.rglru``) and the
+    blockwise attention (the ``flash_prefill`` kernel on CUDA tensors
+    when ``positions`` is left to its default 0..S-1): under autograd
+    pass "ref", since the CUDA kernels have no backward and refuse it.
+    ``remat`` recomputes each block in the backward (a decoder layer with
+    the cross block that follows it, as one). Used by the train loop, the
+    tests and the on-card greedy oracle."""
     b, s = tokens.shape
+    from_scratch = positions is None
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     mesh = one_rank(tokens.device)
@@ -498,7 +560,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
 
         def attn_layer(x, lp):
             return attn_block_apply(cfg, lp, x, positions,
-                                    cfg.window or GLOBAL_WINDOW)
+                                    cfg.window or GLOBAL_WINDOW, attn_impl,
+                                    impl, from_scratch)
 
         rec_blk = _maybe_remat(rglru_layer, remat)
         att_blk = _maybe_remat(attn_layer, remat)
@@ -515,10 +578,12 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
         if cfg.encoder is not None:
             if frames is None:
                 raise ValueError(f"{cfg.name}: an enc-dec model needs frames")
-            mem = encode(cfg, [params], frames, mesh, remat=remat)
+            mem = encode(cfg, [params], frames, mesh, remat=remat,
+                         attn_impl=attn_impl)
 
         def dec_layer(x, lp, win, pc, gated):
-            x = attn_block_apply(cfg, lp, x, positions, win)
+            x = attn_block_apply(cfg, lp, x, positions, win, attn_impl, impl,
+                                 from_scratch)
             if pc is None:
                 return x
             return cross_block_apply(cfg, [pc], x,

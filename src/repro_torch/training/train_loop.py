@@ -3,9 +3,11 @@ counterpart of ``repro/training/train_loop.py``.
 
 train_step = forward (each block recomputed in the backward) -> grads ->
 AdamW, optionally over microbatches whose gradients are summed in fp32
-and averaged. The forward asks for the two recurrences' plain versions
-by name (``impl="ref"``), as the reference trains through jnp scans: the
-CUDA kernels have no backward and refuse autograd, so a train step
+and averaged. The forward takes the reference's ``attn_impl="auto"``
+(naive attention up to 2048 keys, the plain blockwise flash past them)
+and asks for the plain versions of the recurrences and of the blockwise
+attention by name (``impl="ref"``), as the reference trains through jnp:
+the CUDA kernels have no backward and refuse autograd, so a train step
 launches no hand-written kernel."""
 from __future__ import annotations
 
@@ -29,15 +31,17 @@ class TrainConfig:
     ckpt_every: int = 50
     microbatches: int = 1
     remat: bool = True
+    attn_impl: str = "auto"     # "naive" | "flash" | "auto"
     opt: OptimizerConfig = field(default_factory=OptimizerConfig)
 
 
-def make_loss_fn(bundle: ModelBundle, remat: bool = True):
+def make_loss_fn(bundle: ModelBundle, remat: bool = True,
+                 attn_impl: str = "auto"):
     cfg = bundle.cfg
 
     def loss_fn(params, tokens, targets, mask, extra):
-        logits = bundle.forward(cfg, params, tokens, impl="ref",
-                                remat=remat, **extra)
+        logits = bundle.forward(cfg, params, tokens, attn_impl=attn_impl,
+                                impl="ref", remat=remat, **extra)
         return cross_entropy(logits, targets, mask, cfg.vocab_size)
 
     return loss_fn
@@ -56,7 +60,7 @@ def value_and_grad(loss_fn, params, *args):
 
 
 def make_train_step(bundle: ModelBundle, tcfg: TrainConfig):
-    loss_fn = make_loss_fn(bundle, tcfg.remat)
+    loss_fn = make_loss_fn(bundle, tcfg.remat, tcfg.attn_impl)
 
     def train_step(params, opt_state, tokens, targets, mask, extra):
         n = tcfg.microbatches

@@ -9,7 +9,9 @@ tensor-parallel rank's shapes (qwen3-8b at tp 2, granite-moe at tp 4, on
 a layer view of a rank's pool), both recurrences on one tp-2 rank's cache
 storage (rwkv6-1.6b's 16 heads, recurrentgemma-2b's 1280 channels), and
 the bf16 tensor-core prefill at G =
-1-8 and hd 64-256 (hd 120 padded to 128); the hot loop under sync-debug
+1-8 and hd 64-256 (hd 120 padded to 128), and the dense prefill entry at
+32,768 and 524,288 tokens (row blocks against the plain blockwise
+function); the hot loop under sync-debug
 "error", the cross-attention towers' prefill chunk and decode and a tp-2
 slot decode_sample included;
 and the fleet control plane: a fork's weights bit-equal in new storage, a
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 # (b, h, hkv, hd, page, npages): the test_kernels.py sweep, then the other
 # paged archs' decode shapes: gemma2 (G 2, hd 256), granite (G 3, hd 64),
@@ -111,6 +114,54 @@ def test_paged_prefill_kernel_ragged(cuda, dtype):
         _close(ops.paged_prefill(q, kp, vp, *meta, softcap, window),
                ops.paged_prefill(q, kp, vp, *meta, softcap, window,
                                  impl="ref"), dtype)
+
+
+def _long_prefill(cuda, s, h, hkv, hd, window, softcap, starts, n=256):
+    """The dense ``flash_prefill`` entry on one bf16 sequence of ``s``
+    tokens: its rows a..a+n-1 for each a in ``starts`` against the plain
+    blockwise function over those rows and the keys they see (the dense
+    plain version's (S, S) scores do not fit at these lengths), within
+    bf16's 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((1, s, h, hd), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, s, hkv, hd), generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    out = ops.flash_prefill(q, k, v, softcap, window)
+    torch.cuda.synchronize()
+    for a in starts:
+        lo = 0 if window is None else max(0, a - window + 1)
+        qp = torch.arange(a, a + n, device=cuda)[None]
+        kp = torch.arange(lo, a + n, device=cuda)[None]
+        _close(out[:, a:a + n],
+               L.flash_attention(q[:, a:a + n], k[:, lo:a + n],
+                                 v[:, lo:a + n], qp, kp, window, softcap),
+               torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", [(None, None), (4096, 50.0)])
+def test_flash_prefill_dense_32k(cuda, window, softcap):
+    """prefill_32k's attention (qwen3-8b: H 32, Hkv 8, hd 128; 2048 pages
+    of 16 rows in one entry), global and windowed with a softcap: row
+    blocks at the start, the middle and the end of the sequence."""
+    _long_prefill(cuda, 32768, 32, 8, 128, window, softcap,
+                  (0, 16384 - 128, 32768 - 256))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,hd,window", [(32, 8, 128, 4096),
+                                             (10, 1, 256, 2048)])
+def test_flash_prefill_dense_524k(cuda, h, hkv, hd, window):
+    """long_500k's length: 524,288 tokens in one entry (32,768 pages of
+    16 rows, a 16,386-row tile list). At H 32 x hd 128 q holds 2^31
+    elements (the kernel's offsets are 64-bit); (10, 1, 256) is
+    recurrentgemma-2b's local attention at its 2048 window. Both failed
+    to launch while the kernel kept the entry's page list in shared
+    memory (128 KB at this length, past the card's 227 KB)."""
+    assert 524288 * 32 * 128 == 2 ** 31
+    _long_prefill(cuda, 524288, h, hkv, hd, window, None,
+                  (0, 262144 - 128, 524288 - 256))
 
 
 # one tensor-parallel rank's attention shapes: qwen3-8b at tp 2 (H 16,
