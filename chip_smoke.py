@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only tp     # phases 1 and 7 alone
     python3 chip_smoke.py --only train  # phases 1 and 8 alone
     python3 chip_smoke.py --only long   # phases 1 and 9 alone
+    python3 chip_smoke.py --only switches  # phases 1 and 10 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -199,7 +200,44 @@ Phases, in order; any failure raises and the script exits non-zero:
                 through the naive form: step ms and peak memory, no
                 launch. Phase 9 runs in a process of its own whose
                 allocator maps expandable segments (``phase9_process``).
-The last lines are the long-context rows ({"long": {...}}), the training
+ 10. switches — the reference engine's switches through the entry points,
+                at full width and depth, each against the engine's
+                defaults: qwen3-8b on 8 greedy requests of 64-1024 random
+                ids, 32 new tokens, with batched_prefill=False (the
+                per-sequence prefill: 36 flash_prefill launches per
+                sequence chunk, no first-token fetch), async_sched=False,
+                enable_prefix_cache=False, fused_decode=False (36
+                paged_attention launches per decode step, the host
+                sampling each) and decode_horizon=1; rwkv6-1.6b and
+                recurrentgemma-2b on 6 requests of 64-512 ids, each
+                prefilled in one chunk of the first step, with
+                fused_decode=False and the raw-length prefill
+                (bucket_prefill=False: T no power of two, nor for WKV6 a
+                multiple of its 16-token chunk). In bf16, after a warm-up
+                run: every kernel of the path launched once per layer per
+                pass, TTFT p50 and TPOT printed, the requests whose tokens
+                equal the default's counted; the switches that keep the
+                default's arithmetic (sync scheduling, no prefix cache,
+                horizon 1, the slot family's unfused step) give its tokens
+                exactly. The others change batch shapes, which bf16 rounds
+                differently: in fp32 they give the default's greedy tokens
+                up to near-ties, the default's the teacher-forced
+                forward's. Then the RTC on qwen3-8b: a 1024-token prompt,
+                the same again, one sharing its first 768 tokens, and a
+                1032-token prompt twice (its repeat recomputes exactly the
+                cold run's last pass): hits and tokens reused counted,
+                TTFTs printed, the 1032-token hit's tokens and first logits
+                the cold run's bit for bit in both dtypes, in fp32 the
+                1024-token hit's tokens the cold run's. In bf16 the paged
+                varlen entry is held against its plain version at every
+                (start, length) the per-sequence run gave it (one entry,
+                the stream unpadded), and the rounding is measured: the
+                last prompt position's logits of the per-sequence and the
+                batched prefill, and of the 1024-token hit and its cold
+                run, against the fp32 forward of the same bf16 weights,
+                each pair within twice the default path's own error.
+The last lines are the switch rows ({"switches": {...}}), the
+long-context rows ({"long": {...}}), the training
 rows ({"train": {...}}), the per-rank
 kernel rows ({"tp_kernels": [...]}),
 the other paged archs' attention rows as JSON ({"arch_kernels": [...]}),
@@ -2291,27 +2329,32 @@ def _greedy_gaps(cfg, params, dev, prompt, toks):
             (top2.values[:, 0] - top2.values[:, 1]).tolist())
 
 
+def _greedy_run(cfg, params, dev, prompt, run, what):
+    """Every token of ``run`` is the teacher-forced forward's greedy
+    choice after its own prefix, or the other half of a near-tie (a top-2
+    gap below ``NEAR_TIE``), at most one such near-tie taken in the run."""
+    top2, gaps = _greedy_gaps(cfg, params, dev, prompt, run)
+    for k, tok in enumerate(run):
+        assert tok == top2[k][0] or (
+            tok in top2[k] and gaps[k] < NEAR_TIE), \
+            (what, k, tok, top2[k], gaps[k])
+    taken = [k for k, tok in enumerate(run) if tok != top2[k][0]]
+    assert len(taken) <= 1, (what, taken)
+
+
 def _same_tokens(cfg, params, dev, reqs, a, b, what):
     """Runs ``a`` and ``b`` (tokens per request) give the same greedy
     tokens, except where a request's first difference falls on a near-tie
     (a top-2 gap below ``NEAR_TIE`` in the teacher-forced forward); such a
     request's tokens must then be the forward's greedy choice in both runs
-    (each token the argmax after its own prefix, or the other half of a
-    near-tie). Returns the near-ties taken, each logged."""
+    (``_greedy_run``). Returns the near-ties taken, each logged."""
     ties = []
     for i, (r, x, y) in enumerate(zip(reqs, a, b)):
         if x == y:
             continue
         j = next(k for k in range(len(x)) if x[k] != y[k])
         for run in (x, y):
-            top2, gaps = _greedy_gaps(cfg, params, dev, r.prompt_tokens, run)
-            for k, tok in enumerate(run):
-                assert tok == top2[k][0] or (
-                    tok in top2[k] and gaps[k] < NEAR_TIE), \
-                    (what, i, k, tok, top2[k], gaps[k])
-            # at most one near-tie taken in a run
-            taken = [k for k, tok in enumerate(run) if tok != top2[k][0]]
-            assert len(taken) <= 1, (what, i, taken)
+            _greedy_run(cfg, params, dev, r.prompt_tokens, run, (what, i))
         ties.append(dict(request=i, token=j, tokens=(x[j], y[j]),
                          gap=_greedy_gaps(cfg, params, dev, r.prompt_tokens,
                                           x[:j + 1])[1][j]))
@@ -3775,18 +3818,489 @@ def phase9_process():
     return row
 
 
+# phase 10: the reference engine's switches. Each run is one TE of one
+# configuration; "default" is the engine's defaults (_engine_config)
+PAGED_SWITCHES = (("batched_prefill", False), ("async_sched", False),
+                  ("enable_prefix_cache", False), ("fused_decode", False),
+                  ("decode_horizon", 1))
+SLOT_SWITCHES = (("fused_decode", False), ("bucket_prefill", False))
+# the switches that keep the default's arithmetic: the same passes over the
+# same batch shapes (the slot family's unfused step is the fused step's
+# decode, its argmax taken on the host)
+PAGED_SAME = (("async_sched", False), ("enable_prefix_cache", False),
+              ("decode_horizon", 1))
+SLOT_SAME = (("fused_decode", False),)
+SWITCH_SLOT_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
+# the slot runs prefill every prompt (64-512 ids) in one chunk of the first
+# step, so the teacher-forced forward is their oracle (the all-slot decode
+# step also advances a slot still mid-prefill: a reference defect kept
+# for parity, see oracle_parity)
+SLOT_SWITCH_ECFG = dict(max_batch_tokens=4096, chunk_size=512)
+PREFIX_LEN, PREFIX_SHARED = 1024, 768
+# whole 256-token chunks, then a 7-token tail and the last token: a repeat
+# reuses 1024 tokens (whole pages up to n_prompt - 1) and recomputes
+# exactly the cold run's last pass, so its tokens and its first logits
+# must equal the cold run's bit for bit, in bf16 too
+PREFIX_ALIGNED = 1032
+# the bf16 logits of two paths that round differently are held to twice
+# the default path's own error against the exact result (the fp32 forward
+# of the same bf16 weights): rounding, measured on this run's inputs
+ROUNDING_FACTOR = 2.0
+
+
+def _switch_te(cfg, params, dev, dtype, switch, **ecfg_kw):
+    """A TE on ``_engine_config`` (with ``ecfg_kw``) with one switch set
+    (``bucket_prefill`` is the slot runner's; the others are
+    ``EngineConfig`` fields)."""
+    from repro_torch.engine import FlowServe
+    ecfg = dataclasses.replace(_engine_config(cfg, dtype), **ecfg_kw)
+    name, value = switch or (None, None)
+    if name is not None and name != "bucket_prefill":
+        ecfg = dataclasses.replace(ecfg, **{name: value})
+    te = FlowServe(cfg, params, ecfg, device=dev)
+    if name == "bucket_prefill":
+        te.runner.bucket_prefill = value
+    return te
+
+
+def switch_run(cfg, params, dev, dtype, make_reqs, switch=None,
+               **ecfg_kw):
+    """Serve ``make_reqs()`` (made just before they arrive) on a TE with
+    ``switch``; the launches are counted from just before the first
+    request to just after the last completion. Returns the tokens in
+    request order and what the run counted and took."""
+    import torch
+    from repro_torch.kernels import ops
+    te = _switch_te(cfg, params, dev, dtype, switch, **ecfg_kw)
+    chunks = []
+    if switch == ("batched_prefill", False):
+        # the (start, length) of every per-sequence pass, for the kernel
+        # check at the shapes this run gave the paged varlen entry
+        pre = te.runner.prefill
+        one = pre.prefill_chunk
+
+        def record(seq, chunk):
+            chunks.append((seq.n_cached, len(chunk)))
+            return one(seq, chunk)
+        pre.prefill_chunk = record
+    reqs = make_reqs()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    for r in reqs:
+        te.add_request(r)
+    comps = []
+    while te.has_work():
+        assert te.steps < 4000, "serving did not converge"
+        comps += te.step()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    _check_comps(comps, reqs, cfg)
+    by_id = {c.req_id: c for c in comps}
+    ttft = sorted(c.ttft * 1e3 for c in comps)
+    out = dict(switch=f"{switch[0]}={switch[1]}" if switch else "default",
+               tokens=[by_id[r.req_id].tokens for r in reqs], wall_s=wall,
+               ttft_ms_p50=ttft[len(ttft) // 2],
+               tpot_ms_mean=_mean([c.tpot * 1e3 for c in comps]),
+               launches=launches, steps=te.steps,
+               prefill_passes=te.prefill_dispatches,
+               prefill_syncs=te.prefill_syncs,
+               decode_iterations=te.decode_steps,
+               sampler_dispatches=te.sampler_dispatches,
+               prefix_cache=te.prefix_cache_stats(), chunks=chunks)
+    del te
+    _release()
+    return out, reqs
+
+
+def _hold_launches(cfg, row):
+    """Each kernel of the path launched once per layer (and rank) for every
+    pass that runs it: a paged TE's flash_prefill per prefill pass (one
+    per sequence chunk on the per-sequence path) and paged_attention per
+    decode iteration; a slot TE's recurrence per prefill dispatch and
+    decode step."""
+    launches, kinds = row["launches"], cfg.layer_kinds()
+    if PATH_KERNELS[cfg.name] == PAGED:
+        assert launches["flash_prefill"] == \
+            cfg.n_layers * row["prefill_passes"] > 0 \
+            and launches["paged_attention"] == \
+            cfg.n_layers * row["decode_iterations"] > 0, (row["switch"],
+                                                           launches)
+        return
+    (name,) = PATH_KERNELS[cfg.name]
+    per = sum(k == ("rwkv" if name == "wkv6" else "rglru") for k in kinds)
+    assert launches[name] == per * (row["prefill_passes"]
+                                    + row["decode_iterations"]) > 0, \
+        (row["switch"], launches, per)
+
+
+def switch_set(cfg, dev, switches, same, n_req, max_prompt=1024,
+               **ecfg_kw):
+    """The default and every switch of ``switches`` on ``cfg`` at full
+    width and depth, ``n_req`` greedy requests of 64-``max_prompt`` random
+    ids, in bf16 after a warm-up run: launches held, TTFT and TPOT
+    recorded. A switch in ``same`` runs the default's arithmetic (the same
+    passes over the same batch shapes), so its bf16 tokens must equal the
+    default's exactly. The others change batch shapes, which bf16 rounds
+    differently, so they run again in fp32 beside the default: their
+    greedy tokens held to the default's up to near-ties (``_same_tokens``,
+    an fp32 threshold), the default's to the teacher-forced forward's
+    greedy choice. Returns the bf16 rows and the fp32 near-ties."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import Request, SamplingParams
+    from repro_torch.models import transformer as T
+
+    def make_reqs():
+        rng = np.random.RandomState(41)
+        sp = SamplingParams(temperature=0.0, max_new_tokens=32,
+                            stop_on_eos=False)
+        return [Request(prompt_tokens=[int(t) for t in rng.randint(
+                    3, cfg.vocab_size, int(rng.randint(64, max_prompt + 1)))],
+                        sampling=sp, req_id=f"s{i}") for i in range(n_req)]
+
+    def check_counters(runs):
+        for row, _ in runs:
+            if ecfg_kw:
+                # every prompt prefilled in one chunk of the first step
+                assert row["prefill_passes"] == n_req, row
+            if row["switch"] == "batched_prefill=False":
+                # one pass per sequence chunk, the first token from decode
+                assert row["prefill_passes"] >= n_req \
+                    and row["prefill_syncs"] == 0, row
+            if row["switch"] == "fused_decode=False":
+                # the host samples every decode iteration's logits
+                assert row["sampler_dispatches"] == \
+                    row["decode_iterations"] > 0, row
+
+    rows, fp32 = [], {}
+    other = [sw for sw in switches if sw not in same]
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = T.init_params(cfg, gen, dtype, dev)
+        bf16 = dtype == torch.bfloat16
+        if bf16:
+            # first use of the card's libraries and allocator: not timed
+            switch_run(cfg, params, dev, dtype, lambda: make_reqs()[:2],
+                       **ecfg_kw)
+        sws = (None, *(switches if bf16 else other))
+        runs = [switch_run(cfg, params, dev, dtype, make_reqs, sw, **ecfg_kw)
+                for sw in sws]
+        check_counters(runs)
+        (base, reqs) = runs[0]
+        if bf16:
+            for (row, _), sw in zip(runs, sws):
+                _hold_launches(cfg, row)
+                row["same_tokens_as_default"] = sum(
+                    x == y for x, y in zip(row["tokens"], base["tokens"]))
+                log(f"  switches {cfg.name} bf16 {row['switch']}: TTFT p50 "
+                    f"{row['ttft_ms_p50']:.1f} ms, TPOT "
+                    f"{row['tpot_ms_mean']:.2f} ms, launches "
+                    f"{row['launches']}, prefill passes "
+                    f"{row['prefill_passes']}, decode iterations "
+                    f"{row['decode_iterations']}, requests with the "
+                    f"default's tokens {row['same_tokens_as_default']} of "
+                    f"{n_req} ({card_line()})")
+                if sw in same:
+                    assert row["tokens"] == base["tokens"], row["switch"]
+                rows.append({k: v for k, v in row.items()
+                             if k not in ("tokens", "chunks")})
+        else:
+            for r, toks in zip(reqs, base["tokens"]):
+                _greedy_run(cfg, params, dev, r.prompt_tokens, toks,
+                            ("default", r.req_id))
+            for row, _ in runs[1:]:
+                fp32[row["switch"]] = _same_tokens(
+                    cfg, params, dev, reqs, base["tokens"], row["tokens"],
+                    f"{cfg.name} fp32 {row['switch']}")
+            log(f"  switches {cfg.name}: {[f'{k}={v}' for k, v in same]} "
+                f"give the default's bf16 tokens exactly; in fp32 the others "
+                f"give them up to near-ties {fp32}")
+        if PATH_KERNELS[cfg.name] == PAGED:
+            prefix = prefix_check(cfg, params, dev, dtype)
+            if bf16:
+                per_seq = next(row for row, _ in runs
+                               if row["switch"] == "batched_prefill=False")
+                rows.append(per_seq_kernel_check(cfg, dev, per_seq["chunks"]))
+                rows.append(bf16_rounding(
+                    cfg, params, dev, [r.prompt_tokens for r in reqs],
+                    prefix))
+                rows.append(prefix)
+            else:
+                fp32["prefix_cache_hits"] = prefix["near_ties"]
+        log(f"  switches {cfg.name} {str(dtype)[6:]} done "
+            f"[{time.monotonic() - T0:.1f} s]")
+        del params, runs
+        _release()
+    return rows, fp32
+
+
+def prefix_check(cfg, params, dev, dtype):
+    """On the default TE, each prompt served alone: a ``PREFIX_LEN``-token
+    prompt cold, the same prompt again, one sharing its first
+    ``PREFIX_SHARED`` tokens, then a ``PREFIX_ALIGNED``-token prompt cold
+    and again. The RTC counts the hits. The aligned repeat recomputes the
+    cold run's last pass, so its tokens and first-token logits equal the
+    cold run's exactly. The ``PREFIX_LEN`` repeat recomputes its last
+    partial page in a 16-row pass where the cold run's was 256 rows: in
+    fp32 its tokens equal the cold run's up to near-ties (the shared
+    prompt's are held to the forward); in bf16 its first-token logits are
+    returned (``first_logits``, cold and hit) for ``bf16_rounding``."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import Request, SamplingParams
+    te = _switch_te(cfg, params, dev, dtype, None)
+    rng = np.random.RandomState(43)
+    base = [int(t) for t in rng.randint(3, cfg.vocab_size, PREFIX_LEN)]
+    shared = base[:PREFIX_SHARED] + [
+        int(t) for t in rng.randint(3, cfg.vocab_size,
+                                    PREFIX_LEN - PREFIX_SHARED)]
+    aligned = [int(t) for t in rng.randint(3, cfg.vocab_size,
+                                           PREFIX_ALIGNED)]
+    # a prompt served alone is row 0 of every pass; its last pass samples
+    # the first token
+    first = []
+    pre = te.runner.prefill
+    ragged = pre.prefill_ragged
+
+    def keep(*a, **kw):
+        logits, toks = ragged(*a, **kw)
+        first.append(logits[0])
+        return logits, toks
+    pre.prefill_ragged = keep
+    sp = SamplingParams(temperature=0.0, max_new_tokens=32,
+                        stop_on_eos=False)
+    out = dict(switch="prefix_cache_hits", ttft_ms=[], card=card_line())
+    toks, reqs, logits = [], [], []
+    for i, p in enumerate((base, base, shared, aligned, aligned)):
+        reqs.append(Request(prompt_tokens=p, sampling=sp, req_id=f"x{i}"))
+        te.add_request(reqs[-1])
+        (c,) = te.run_to_completion()
+        torch.cuda.synchronize()
+        toks.append(c.tokens)
+        logits.append(first[-1])
+        out["ttft_ms"].append(c.ttft * 1e3)
+    stats = te.prefix_cache_stats()
+    out.update(hits=stats["hits"], tokens_reused=stats["tokens_reused"],
+               hit_tokens_equal_cold=toks[1] == toks[0],
+               aligned_hit_tokens_equal_cold=toks[4] == toks[3])
+    ps = te.pool.page_size
+    # whole pages up to n_prompt - 1 of each repeat, the shared prefix
+    reused = ((PREFIX_LEN - 1) // ps + (PREFIX_ALIGNED - 1) // ps) * ps \
+        + PREFIX_SHARED
+    assert stats["hits"] == 3 and stats["tokens_reused"] == reused, stats
+    assert toks[4] == toks[3] and torch.equal(logits[4], logits[3]), \
+        ("aligned prefix hit", str(dtype))
+    if dtype == torch.float32:
+        out["near_ties"] = _same_tokens(cfg, params, dev, reqs[:2], toks[:1],
+                                        toks[1:2], "prefix hit")
+        _greedy_run(cfg, params, dev, shared, toks[2], "shared prefix")
+    else:
+        out["first_logits"] = (base, logits[0], logits[1])
+    log(f"  prefix cache {cfg.name} {str(dtype)[6:]}: cold / hit / shared / "
+        f"aligned cold / aligned hit TTFT "
+        f"{[round(t, 1) for t in out['ttft_ms']]} ms, hits {stats['hits']}, "
+        f"tokens reused {stats['tokens_reused']}, hit tokens equal cold "
+        f"{out['hit_tokens_equal_cold']}, aligned hit tokens and first "
+        f"logits equal cold True")
+    del te
+    _release()
+    return out
+
+
+def per_seq_kernel_check(cfg, dev, chunks):
+    """The paged varlen entry of ``flash_prefill`` in bf16 at every
+    (start, length) the per-sequence run gave it: one entry, the query
+    stream unpadded (Tb = the chunk's length), its cached prefix over a
+    shuffled pool of 16-token pages, the arch's heads, head dim, windows
+    and softcap; each against the plain version at ``check_main_path``'s
+    tolerance (an entry from position 0 holds rows over a few keys, so it
+    takes the arch rows' bf16 step of the plain output on top)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(29)
+    h, hkv, hd, p = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16
+    cap = cfg.attn_logit_softcap
+    windows = sorted({w if w < T.GLOBAL_WINDOW else None
+                      for w in T.window_schedule(cfg)},
+                     key=lambda w: w or 0)
+    shapes = sorted(set(chunks))
+    errs = []
+    for start, c in shapes:
+        for win in windows:
+            q, kp, vp, meta, _ = ragged_pack(
+                gen, dev, torch.bfloat16, [c], [start], c, p, hkv, hd, h,
+                n_pool=max(128, 2 * -(-(start + c) // p)))
+            got = ops.paged_prefill(q, kp, vp, *meta, cap, win)
+            want = ops.paged_prefill(q, kp, vp, *meta, cap, win, impl="ref")
+            torch.cuda.synchronize()
+            errs.append(check_main_path(
+                f"flash_prefill per-sequence {cfg.name} Tb {c} from {start} "
+                f"H{h}/{hkv} hd{hd} P{p} cap={cap} win={win} bf16",
+                got, want, start == 0))
+    log(f"  per-sequence prefill shapes {shapes}: the kernel agrees with "
+        f"its plain version at all {len(errs)}, max_abs_err {max(errs):.3e}")
+    return dict(switch="per_seq_kernel_check", shapes=shapes,
+                max_abs_err=max(errs))
+
+
+def prefill_logits(cfg, params, dev, prompts):
+    """The last prompt position's logits of each prompt on one TE's
+    runner, in the weights' dtype, by the two paged prefill paths: per
+    sequence (``prefill_chunk`` over the engine's 256-token chunks, the
+    last one returning the logits) and batched (``prefill_ragged``: every
+    prompt whole, one entry each, in one pass). Returns two lists of
+    (vocab,) fp32 tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.engine.hotloop import pow2_bucket, upload_i32
+    from repro_torch.engine.kv_cache import pages_needed
+    from repro_torch.engine.runners.base import SequenceState
+    from repro_torch.kernels import flash_prefill as FP
+    dtype = params["embed"].dtype
+    te = _switch_te(cfg, params, dev, dtype, None)
+    rt, pool = te.runner, te.pool
+    ps, chunk, v = pool.page_size, te.ecfg.chunk_size, cfg.vocab_size
+    per_seq = []
+    for i, p in enumerate(prompts):
+        seq = SequenceState(f"p{i}", tokens=list(p), n_prompt=len(p))
+        seq.pages = pool.alloc(pages_needed(len(p), ps))
+        for a in range(0, len(p), chunk):
+            lg = rt.prefill_chunk(seq, p[a:a + chunk])
+        per_seq.append(lg[:v].float())
+        pool.release(seq.pages)
+    pages = [pool.alloc(pages_needed(len(p), ps)) for p in prompts]
+    sb, scratch = len(prompts), pool.scratch_page()
+    pb = pow2_bucket(max(len(pg) for pg in pages))
+    bt = np.full((sb, pb), scratch, np.int32)
+    flat, pos, cu = [], [], [0]
+    for i, (p, pg) in enumerate(zip(prompts, pages)):
+        bt[i, :len(pg)] = pg
+        flat += p
+        pos += range(len(p))
+        cu.append(len(flat))
+    tb = pow2_bucket(len(flat))
+    pos = np.asarray(pos + [0] * (tb - len(flat)))
+    slots = np.where(np.arange(tb) < len(flat), pos % ps, 0)
+    pgs = np.concatenate([np.asarray(pg)[np.arange(len(p)) // ps]
+                          for p, pg in zip(prompts, pages)]
+                         + [np.full(tb - len(flat), scratch)])
+    logits, _ = rt.prefill_ragged(
+        *upload_i32(dev, flat + [0] * (tb - len(flat)), pos, pgs, slots, cu,
+                    bt, np.zeros(sb), FP.build_tiles(cu, tb),
+                    np.asarray(cu[1:]) - 1),
+        None, None, True, None)
+    batched = [row[:v].float() for row in logits]
+    for pg in pages:
+        pool.release(pg)
+    del te
+    _release()
+    return per_seq, batched
+
+
+def fp32_last_logits(cfg, params, dev, prompts):
+    """The exact answer of the bf16 model: the teacher-forced ``forward``
+    in fp32 over an fp32 copy of the same bf16 weights, the last prompt
+    position's (vocab,) logits of each prompt."""
+    import torch
+    from repro_torch.engine.distflow import tree_map
+    from repro_torch.models import transformer as T
+    p32 = tree_map(lambda t: t.float() if torch.is_tensor(t) else t, params)
+    out = []
+    with torch.no_grad():
+        for p in prompts:
+            lg = T.forward(cfg, p32, torch.tensor([p], device=dev))
+            out.append(lg[0, -1, :cfg.vocab_size].float())
+            del lg
+    del p32
+    _release()
+    return out
+
+
+def bf16_rounding(cfg, params, dev, prompts, prefix):
+    """Measures, on this run's bf16 weights and prompts, the rounding that
+    the switch runs' token differences are put down to. The last prompt
+    position's logits of the per-sequence and the batched prefill
+    (``prefill_logits``), and of the RTC hit and its cold run
+    (``prefix_check``), each against the exact answer
+    (``fp32_last_logits``): the per-sequence path (the hit) must be within
+    ``ROUNDING_FACTOR`` x the batched path's (the cold run's) own error,
+    and the two paths within that of each other."""
+    base, cold, hit = prefix.pop("first_logits")
+    per_seq, batched = prefill_logits(cfg, params, dev, prompts)
+    ref = fp32_last_logits(cfg, params, dev, [*prompts, base])
+    v = cfg.vocab_size
+    cold, hit = cold[:v].float(), hit[:v].float()
+    e_b = max(err(b, r) for b, r in zip(batched, ref))
+    e_s = max(err(s, r) for s, r in zip(per_seq, ref))
+    d = max(err(s, b) for s, b in zip(per_seq, batched))
+    e_c, e_h, d_h = err(cold, ref[-1]), err(hit, ref[-1]), err(hit, cold)
+    scale = max(float(r.abs().max()) for r in ref)
+    same = sum(int(s.argmax()) == int(b.argmax())
+               for s, b in zip(per_seq, batched))
+    out = dict(switch="bf16_rounding", max_abs_logit=scale,
+               batched_vs_fp32=e_b, per_seq_vs_fp32=e_s,
+               per_seq_vs_batched=d, cold_vs_fp32=e_c, hit_vs_fp32=e_h,
+               hit_vs_cold=d_h, same_first_token=same,
+               hit_same_first_token=int(hit.argmax()) == int(cold.argmax()),
+               factor=ROUNDING_FACTOR)
+    log(f"  bf16 rounding {cfg.name}, last prompt position's logits (max "
+        f"|logit| {scale:.3f}): batched vs fp32 {e_b:.4f}, per-sequence vs "
+        f"fp32 {e_s:.4f}, per-sequence vs batched {d:.4f}, first tokens "
+        f"equal {same} of {len(prompts)}; RTC cold vs fp32 {e_c:.4f}, hit "
+        f"vs fp32 {e_h:.4f}, hit vs cold {d_h:.4f} (tol "
+        f"{ROUNDING_FACTOR:g} x the batched / cold error; {card_line()})")
+    assert e_s <= ROUNDING_FACTOR * e_b and d <= ROUNDING_FACTOR * e_b, out
+    assert e_h <= ROUNDING_FACTOR * e_c and d_h <= ROUNDING_FACTOR * e_c, out
+    return out
+
+
+def phase10(dev):
+    """The reference engine's switches at full width and depth: qwen3-8b
+    with each paged switch off against the default, the RTC on repeated
+    and shared prefixes; rwkv6-1.6b and recurrentgemma-2b with the unfused
+    decode and the raw-length prefill. Returns the rows, the fp32
+    near-ties and each kernel's launches over the bf16 runs."""
+    from repro_torch.configs import get_config
+    log(f"phase 10: switches [{time.monotonic() - T0:.1f} s]")
+    out = {"rows": [], "near_ties": {}}
+    for name in ("qwen3-8b", *SWITCH_SLOT_ARCHS):
+        if name == "qwen3-8b":
+            rows, ties = switch_set(get_config(name), dev, PAGED_SWITCHES,
+                                    PAGED_SAME, 8)
+        else:
+            rows, ties = switch_set(get_config(name), dev, SLOT_SWITCHES,
+                                    SLOT_SAME, 6, max_prompt=512,
+                                    **SLOT_SWITCH_ECFG)
+        for r in rows:
+            r["arch"] = name
+        out["rows"] += rows
+        out["near_ties"][name] = ties
+    launches = {}
+    for r in out["rows"]:
+        for k, n in r.get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    log(f"phase 10 done: launches {launches} [{time.monotonic() - T0:.1f} s]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet",
                                        "tp", "train", "long",
-                                       "long-process"],
+                                       "long-process", "switches"],
                     default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
                          "new kernel); 'pd' runs phases 1 and 5 alone, "
                          "'fleet' phases 1 and 6, 'tp' phases 1 and 7, "
                          "'train' phases 1 and 8, 'long' phases 1 and 9 "
                          "('long-process': phase 9 alone, the process "
-                         "phase9_process starts)")
+                         "phase9_process starts), 'switches' phases 1 and "
+                         "10")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3821,6 +4335,10 @@ def main() -> int:
         return 0
     if args.only == "long":
         log(json.dumps({"long": phase9_process()}))
+        log(card)
+        return 0
+    if args.only == "switches":
+        log(json.dumps({"switches": phase10(dev)}))
         log(card)
         return 0
     if args.only in ("pd", "fleet", "tp"):
@@ -3886,13 +4404,16 @@ def main() -> int:
     tp_kernels, tp_launches = phase7(dev)
     train = phase8(dev)
     longctx = phase9_process()
+    switches = phase10(dev)
     for r in rows:
         r["launches_pd"] = pd[r["arch"], r["name"]]
         r["launches_fleet"] = fleet[r["arch"], r["name"]]
         r["launches_tp"] = tp_launches.get((r["arch"], r["name"]))
         r["launches_long"] = longctx["launches"].get(r["name"], 0)
+        r["launches_switches"] = switches["launches"][r["name"]]
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
+    log(json.dumps({"switches": switches}))
     log(json.dumps({"long": longctx}))
     log(json.dumps({"train": train}))
     log(json.dumps({"tp_kernels": tp_kernels}))

@@ -17,6 +17,16 @@ plane.
     reuse restores a state checkpoint taken when an earlier request
     released its slot.
 
+The reference's switches, each read from ``ecfg`` at every step and each
+on by default, give the baselines its tests and benchmarks compare
+against: ``enable_prefix_cache=False`` runs a paged TE without an RTC (no
+prefix reuse, no DRAM tier) and a slot TE without state checkpoints;
+``async_sched=False`` plans each step at its start instead of while the
+previous one runs; ``batched_prefill=False`` gives a paged TE one prefill
+pass per sequence per chunk (the first token then comes from the decode
+path); ``fused_decode=False`` runs one decode step per iteration and
+samples its logits on the host (``_commit_tokens``), for both families.
+
 Modes (§4.5): "colocated" (chunked prefill and decode in one TE),
 "prefill" (a P-TE: prefill only; a finished prompt waits in
 ``pop_migratable`` for ``migrate_out``) and "decode" (a D-TE: decode only,
@@ -66,7 +76,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.distflow import (BufferInfo, DistFlow, TransferFault,
                                          _nbytes, tree_leaves)
 from repro_torch.engine.hotloop import (DecodeHotState, pow2_bucket, pow2s,
-                                        to_device)
+                                        to_device, upload_i32)
 from repro_torch.engine.kv_cache import (OutOfPagesError, PagedKVPool,
                                          pages_needed)
 from repro_torch.engine.rtc import RelationalTensorCache, RTCCostModel
@@ -128,27 +138,15 @@ class EngineConfig:
     max_decode_batch: int = 8
     chunk_size: int = 16
     max_prefill_seqs: int = 8           # concurrent mid-prefill sequences
+    enable_prefix_cache: bool = True
+    async_sched: bool = True
     fused_decode: bool = True           # K-step decode horizons (DESIGN §8)
     decode_horizon: int = 8             # max fused multi-step K (1 = off)
+    batched_prefill: bool = True        # one-dispatch ragged prefill (§12)
     dtype: torch.dtype = torch.float32  # KV pool / slot cache dtype
     seed: int = 0
     kernel_impl: str = "auto"           # "auto" = the kernels on CUDA |
                                         # "ref" = their plain versions
-
-
-def _upload_i32(device, *arrays) -> List[torch.Tensor]:
-    """Host int32 arrays -> device views, in ONE host-to-device copy that
-    does not drain the stream."""
-    flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
-                           for a in arrays])
-    buf = to_device(flat, device)
-    out, off = [], 0
-    for a in arrays:
-        shape = np.shape(a)
-        n = int(np.prod(shape))
-        out.append(buf[off:off + n].view(shape))
-        off += n
-    return out
 
 
 def _executor_safe(fn):
@@ -225,7 +223,8 @@ class FlowServe:
             self.pool = PagedKVPool(cfg, ecfg.n_pages, ecfg.page_size,
                                     ecfg.dtype, self.mesh)
             cm = RTCCostModel(flops_per_token=2.0 * cfg.active_param_count())
-            self.rtc = RelationalTensorCache(self.pool, cm)
+            self.rtc = RelationalTensorCache(self.pool, cm) \
+                if ecfg.enable_prefix_cache else None
             self.runner = self.family.runner_cls(cfg, ranks, self.pool,
                                                  impl=ecfg.kernel_impl)
         else:
@@ -236,7 +235,8 @@ class FlowServe:
                 self.mesh, impl=ecfg.kernel_impl)
             # token prefix -> slot snapshot of every rank (the recurrent
             # prefix cache)
-            self._state_cache: Dict[tuple, Any] = {}
+            self._state_cache: Optional[Dict[tuple, Any]] = \
+                {} if ecfg.enable_prefix_cache else None
 
         scfg = SchedulerConfig(max_batch_tokens=ecfg.max_batch_tokens,
                                max_decode_batch=ecfg.max_decode_batch,
@@ -395,7 +395,8 @@ class FlowServe:
                     f"{req.req_id}: {seq.n_prompt} prompt + "
                     f"{req.sampling.max_new_tokens} new tokens exceed the "
                     f"slot capacity max_len={self.ecfg.max_len}")
-            self._try_state_reuse(seq)
+            if self._state_cache is not None:
+                self._try_state_reuse(seq)
         self._seqs[req.req_id] = seq
         self._requests[req.req_id] = req
         self.sample_params[req.req_id] = req.sampling
@@ -412,10 +413,12 @@ class FlowServe:
 
     @_executor_safe
     def step(self) -> List[Completion]:
-        """One engine iteration: plan -> ragged prefill -> decode (a fused
-        K-step horizon, or the legacy single step under page pressure) ->
-        commit -> prepare the next plan. The kernels launched in it are
-        added to ``kernel_launches``."""
+        """One engine iteration: plan -> prefill (one ragged pass, or one
+        pass per sequence chunk) -> decode (a fused K-step horizon, or the
+        legacy single step when the fused path is off or under page
+        pressure) -> commit -> prepare the next plan (while the device runs,
+        unless ``async_sched`` is off). The kernels launched in it are added
+        to ``kernel_launches``."""
         if self.fault_plan is not None:
             self.fault_plan.on_step(self)
         before = counts.thread_tally()
@@ -427,8 +430,10 @@ class FlowServe:
     def _step(self) -> List[Completion]:
         self.scheduler.resolve_prefix()
         self.scheduler.pump_prefetch()
-        # the next plan is prepared while the device runs this step (§4.2)
-        plan = self._next_plan or self.scheduler.prepare_next()
+        # the next plan is prepared while the device runs this step (§4.2);
+        # synchronous scheduling ignores it and plans now
+        plan = self._next_plan if (self.ecfg.async_sched and self._next_plan) \
+            else self.scheduler.prepare_next()
         self._next_plan = None
         if self._inflight and (plan.prefill or not plan.decode):
             # prefill page allocation may preempt an in-flight sequence, and
@@ -437,24 +442,23 @@ class FlowServe:
             self._drain_inflight()
 
         if plan.prefill:
-            if self.family.uses_pages:
+            if not self.family.uses_pages:
+                self._prefill_slot(plan.prefill)
+            elif self.ecfg.batched_prefill:
                 self._prefill_batched(plan.prefill)
             else:
-                self._prefill_slot(plan.prefill)
+                self._prefill_per_seq(plan.prefill)
 
-        if plan.decode and not self.family.uses_pages:
-            live = self._refilter(plan.decode)
-            if live:
-                self._land_imports(live)
-                self._decode_slot(live)
-        elif plan.decode:
+        if plan.decode:
             live = self._refilter(plan.decode)
             fused = False
             if live and self.ecfg.fused_decode:
-                fused = self._decode_fused_step(live)
+                fused = self._decode_fused_step(live) \
+                    if self.family.uses_pages else self._decode_slot(live)
             if not fused and live:
                 self._drain_inflight()
                 live = self._refilter(live)
+            if not fused and live and self.family.uses_pages:
                 for s in live:
                     if s in self.scheduler.running:  # not yet preempted
                         self._ensure_pages(s, len(s.tokens))
@@ -467,12 +471,13 @@ class FlowServe:
                 self.decode_steps += 1
                 self.decode_tokens += len(live)
                 self.host_dispatches += 1
-                self._next_plan = self.scheduler.prepare_next()
+                if self.ecfg.async_sched:
+                    self._next_plan = self.scheduler.prepare_next()
                 self._commit_tokens(live, logits)
                 if self._hot is not None:
                     self._hot.reset()   # device rows are stale vs host now
 
-        if self._next_plan is None:
+        if self.ecfg.async_sched and self._next_plan is None:
             self._next_plan = self.scheduler.prepare_next()
         self.steps += 1
         return self._flush_completed()
@@ -555,9 +560,9 @@ class FlowServe:
         flat_sl += [0] * n_pad
 
         dev = self.device
-        ops_i32 = _upload_i32(dev, flat_t, flat_p, flat_pg, flat_sl, cu,
-                              entry_bt, entry_start,
-                              FP.build_tiles(cu, tb), final_idx)
+        ops_i32 = upload_i32(dev, flat_t, flat_p, flat_pg, flat_sl, cu,
+                             entry_bt, entry_start,
+                             FP.build_tiles(cu, tb), final_idx)
         all_greedy = not bool((temps > 0.0).any())
         t_dev = p_dev = None
         if not all_greedy:
@@ -579,6 +584,20 @@ class FlowServe:
                 continue
             self.scheduler.on_prefill_progress(seq, True)
             self._commit_sampled([seq], [int(toks[i])])
+
+    def _prefill_per_seq(self, entries) -> None:
+        """Per-sequence paged prefill (``batched_prefill=False``; the
+        reference's ``_prefill_legacy``, ``flowserve.py:429-464``): one pass
+        per sequence per chunk. The chunk never takes the last prompt
+        token, so the first token comes from the decode path."""
+        for seq, start, chunk in entries:
+            if seq.n_cached != start or seq.seq_id not in self._seqs:
+                continue  # stale plan entry (seq preempted/finished)
+            if chunk:
+                self._ensure_pages(seq, start + len(chunk))
+                self.runner.prefill_chunk(seq, chunk)
+                self.prefill_dispatches += 1
+            self._prefill_progress(seq)
 
     def _prefill_slot(self, entries) -> None:
         """Slot-family prefill: per sequence, one chunk on its slot
@@ -638,12 +657,13 @@ class FlowServe:
             seq.state = best_key
             seq.n_cached = best_len
 
-    def _decode_slot(self, live: List[SequenceState]) -> None:
-        """Slot-family decode (``_decode_slot_fused``,
+    def _decode_slot(self, live: List[SequenceState]) -> bool:
+        """Slot-family fused decode (``_decode_slot_fused``,
         ``flowserve.py:724-753``): one all-slot decode step with sampling
         in the same pass; only the (n_slots,) token vector reaches the
         host. temps/top_ps are slot-indexed and cached on the batch's
-        composition."""
+        composition. Always runs (returns True)."""
+        self._land_imports(live)
         batch_key = tuple((s.seq_id, s.slot) for s in live)
         if self._sp_cache[0] != batch_key:
             temps = np.zeros((self.ecfg.n_slots,), np.float32)
@@ -660,10 +680,12 @@ class FlowServe:
         self.host_dispatches += 1
         # the next plan needs only counts: prepare it before the blocking
         # token fetch (§4.2)
-        self._next_plan = self.scheduler.prepare_next()
+        if self.ecfg.async_sched:
+            self._next_plan = self.scheduler.prepare_next()
         toks = toks_dev.cpu().numpy()
         self.host_syncs += 1
         self._commit_sampled(live, [int(toks[s.slot]) for s in live])
+        return True
 
     # ------------------------------------------------------- decode hot loop
     def warmup_decode(self, max_pages: Optional[int] = None,
@@ -787,7 +809,8 @@ class FlowServe:
             self._inflight.append(
                 (toks, [(hot.slot_of[s.seq_id], s.seq_id) for s in live], k,
                  event))
-            self._next_plan = self.scheduler.prepare_next()
+            if self.ecfg.async_sched:
+                self._next_plan = self.scheduler.prepare_next()
             # fetch the PREVIOUS horizon's block, computed behind the
             # horizon just enqueued
             while len(self._inflight) > 1:
@@ -851,20 +874,27 @@ class FlowServe:
         self.release_request(seq.seq_id)
 
     # ---------------------------------------------------------------- pages
+    def _new_page(self) -> int:
+        """One page: through the RTC (which evicts cached prefixes
+        coherently with its index), or from the pool's free list when the
+        TE runs without a prefix cache."""
+        return self.rtc.append_block() if self.rtc is not None \
+            else self.pool.alloc(1)[0]
+
     def _ensure_pages_no_preempt(self, seq: SequenceState,
                                  n_tokens: int) -> None:
         """Fused-path page growth: evicting cached prefixes is fine,
         preemption is not (it would invalidate in-flight horizons)."""
         need = pages_needed(n_tokens, self.pool.page_size) - len(seq.pages)
         for _ in range(max(0, need)):
-            seq.pages.append(self.rtc.append_block())
+            seq.pages.append(self._new_page())
 
     def _ensure_pages(self, seq: SequenceState, n_tokens: int) -> None:
         need = pages_needed(n_tokens, self.pool.page_size) - len(seq.pages)
         for _ in range(max(0, need)):
             while True:
                 try:
-                    page = self.rtc.append_block()
+                    page = self._new_page()
                     break
                 except OutOfPagesError:
                     victim = self._pick_victim(exclude=seq)
@@ -916,7 +946,7 @@ class FlowServe:
         if not self.family.uses_pages:
             # checkpoint the slot's state under the tokens it covers, then
             # free the slot (flowserve.py:1009-1014)
-            if seq.slot is not None:
+            if self._state_cache is not None and seq.slot is not None:
                 key = tuple(seq.tokens[:seq.n_cached])
                 if key and len(self._state_cache) < 32:
                     self._state_cache[key] = self.runner.snapshot_state(seq)
@@ -924,7 +954,8 @@ class FlowServe:
         elif seq.pages:
             own = seq.pages[seq.reused_pages:]
             shared = seq.pages[:seq.reused_pages]
-            preserve = keep_prefix and seq.n_cached > 0
+            preserve = self.rtc is not None and keep_prefix \
+                and seq.n_cached > 0
             if preserve:
                 self.rtc.preserve_prefix(tuple(seq.tokens[:seq.n_cached]),
                                          seq.pages,
@@ -1095,7 +1126,7 @@ class FlowServe:
         if self.family.uses_pages:
             try:
                 for _ in range(payload["n_pages"]):
-                    seq.pages.append(self.rtc.append_block())
+                    seq.pages.append(self._new_page())
             except OutOfPagesError:
                 self.pool.release(seq.pages)
                 raise
@@ -1120,6 +1151,11 @@ class FlowServe:
             self.runner.import_kv(payload, seq)
         self.scheduler.admit_running(seq)
         return req.req_id
+
+    def prefix_cache_stats(self) -> Dict[str, int]:
+        """The RTC's counters (hits, tokens reused, ...); empty without
+        one."""
+        return dict(self.rtc.stats) if self.rtc is not None else {}
 
     @_executor_safe
     def load_metrics(self) -> Dict[str, float]:

@@ -48,6 +48,21 @@ def to_device(arr, device: torch.device, dtype=None) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def upload_i32(device, *arrays) -> List[torch.Tensor]:
+    """Host int32 arrays -> device views, in ONE host-to-device copy that
+    does not drain the stream."""
+    flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
+                           for a in arrays])
+    buf = to_device(flat, device)
+    out, off = [], 0
+    for a in arrays:
+        shape = np.shape(a)
+        n = int(np.prod(shape))
+        out.append(buf[off:off + n].view(shape))
+        off += n
+    return out
+
+
 def pow2_bucket(n: int) -> int:
     """Smallest power of two >= n (n >= 1)."""
     return 1 << max(0, int(n) - 1).bit_length()

@@ -7,6 +7,9 @@ decode phases, with attention through the port's kernels.
     sequences, attention by the paged varlen prefill kernel over each
     entry's block-table row (where JAX gathers a page run per token), and
     the first token sampled from the chunk-final rows.
+    ``PagedPrefillRunner.prefill_chunk`` is the per-sequence path
+    (``batched_prefill=False``): the same pass over one sequence's chunk,
+    the kernel's varlen entry with a single entry.
   * ``PagedDecodeRunner`` — the decode hot loop: the legacy per-step
     ``decode`` and the fused K-step ``decode_fused`` horizon, attention by
     the paged decode kernel (where the JAX engine calls its jnp oracle).
@@ -35,6 +38,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch.engine.hotloop import upload_i32
 from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.sampling import greedy_core, sample_core
 from repro_torch.kernels import flash_prefill as FP
@@ -79,6 +83,9 @@ class PagedRunner:
 
     def prefill_ragged(self, *args, **kw):
         return self.prefill.prefill_ragged(*args, **kw)
+
+    def prefill_chunk(self, seq: SequenceState, chunk_tokens: List[int]):
+        return self.prefill.prefill_chunk(seq, chunk_tokens)
 
     def warmup_fused(self, batch_buckets, page_buckets, horizons, gen) -> int:
         return self.decoder.warmup_fused(batch_buckets, page_buckets,
@@ -151,6 +158,47 @@ class PagedPrefillRunner:
         ``all_greedy`` is decided on the host from ``temps``. Returns
         (logits (Sb, Vp), sampled tokens (Sb,) int32)."""
         rt = self.rt
+        cfg = rt.cfg
+        x = self._layers(tokens, positions, pages, slots, cu_tokens,
+                         entry_bt, entry_start, tiles)
+        # unembed ONLY the chunk-final rows — (Sb, Vp), not (Tb, Vp)
+        logits = T.unembed(cfg, rt.params, x[final_idx.long()], rt.mesh)[:, 0]
+        if all_greedy:
+            toks = greedy_core(logits, cfg.vocab_size)
+        else:
+            toks = sample_core(logits, temps, top_ps, gen, cfg.vocab_size)
+        return logits, toks
+
+    @torch.no_grad()
+    def prefill_chunk(self, seq: SequenceState, chunk_tokens: List[int]):
+        """One chunk of one sequence (the reference's per-sequence
+        ``prefill_chunk``, ``repro/engine/runners/paged.py:166-235``): its
+        K/V written into the sequence's pages (already allocated), each
+        token attending its prefix and the chunk before it with the layer's
+        window and softcap, through the paged varlen prefill as a single
+        entry. Advances ``n_cached``; returns the last position's (Vp,)
+        logits once the prompt is covered, else None."""
+        rt = self.rt
+        ps = rt.pool.page_size
+        c = len(chunk_tokens)
+        start = seq.n_cached
+        pos = np.arange(start, start + c)
+        bt = np.asarray(seq.pages, np.int32)
+        x = self._layers(*upload_i32(
+            rt.pool.device, chunk_tokens, pos, bt[pos // ps], pos % ps,
+            [0, c], bt[None], [start], FP.build_tiles([0, c], c)))
+        seq.n_cached = start + c
+        if seq.n_cached < seq.n_prompt:
+            return None
+        return T.unembed(rt.cfg, rt.params, x[-1:], rt.mesh)[0, 0]
+
+    def _layers(self, tokens, positions, pages, slots, cu_tokens, entry_bt,
+                entry_start, tiles) -> torch.Tensor:
+        """Every layer over a flat token stream (the operands of
+        ``prefill_ragged``): each rank writes its K/V into its pool and
+        attends through the paged varlen prefill. Returns the final hidden
+        rows (Tb, 1, D)."""
+        rt = self.rt
         cfg, mesh = rt.cfg, rt.mesh
         x = T.embed(cfg, rt.params, tokens[:, None], mesh)    # (Tb,1,D)
         pos_r = mesh.broadcast(positions[:, None])
@@ -171,13 +219,7 @@ class PagedPrefillRunner:
                                       window=rt.windows[li], impl=rt.impl)
                 os.append(o[:, None].to(x.dtype))
             x = T.block_out(cfg, ps, x, os, mesh)
-        # unembed ONLY the chunk-final rows — (Sb, Vp), not (Tb, Vp)
-        logits = T.unembed(cfg, rt.params, x[final_idx.long()], mesh)[:, 0]
-        if all_greedy:
-            toks = greedy_core(logits, cfg.vocab_size)
-        else:
-            toks = sample_core(logits, temps, top_ps, gen, cfg.vocab_size)
-        return logits, toks
+        return x
 
     def warmup_ragged(self, token_buckets, page_buckets, n_rows: int) -> int:
         """Run every token bucket x page bucket once with every token parked

@@ -10,10 +10,13 @@ based (DESIGN.md §4).
   * ``SlotPrefillRunner.prefill_chunk`` — one sequence's chunk through
     ``serving.prefill``, its length bucketed to a power of two with a
     masked tail (``n_valid``: pad steps are exact identities for the
-    recurrences and causally masked for attention), with the sequence's
-    modality inputs (uploaded once, reused by every chunk).
+    recurrences and causally masked for attention), or at its raw length
+    with ``bucket_prefill=False``, with the sequence's modality inputs
+    (uploaded once, reused by every chunk).
   * ``SlotDecodeRunner.decode_sample`` — the all-slot decode step plus
     in-pass sampling; only the (n_slots,) token vector is returned.
+    ``SlotDecodeRunner.decode`` is the unfused step (the engine's
+    ``fused_decode=False``): the live rows' logits, sampled on the host.
 
 Both phases run the recurrences through ``ops.wkv6`` / ``ops.rglru``: the
 port's kernels on a CUDA cache, their plain versions on a CPU one, once
@@ -24,8 +27,9 @@ the ranks' trees and its caches as the list of the ranks' caches
 place (the reference writes a new cache back). A slot snapshot (the state
 checkpoint, and the payload of a PD migration) is one copy per rank of
 the slot's rows with each leaf's split, so a TE of another tp reshards it
-at import. The reference's raw-length prefill (``bucket_prefill=False``)
-and its unfused decode have no caller in the port and are not ported.
+at import. The raw-length prefill and the unfused decode are the
+reference's baselines for the bucketed prefill and the fused decode
+(``repro/engine/runners/slot.py:42-49``, ``:138-146``, ``:202-213``).
 """
 from __future__ import annotations
 
@@ -72,6 +76,9 @@ class SlotRunner:
         self.n_slots = n_slots
         self.max_len = max_len
         self.impl = impl                    # "auto" (kernels) | "ref"
+        # pow2-bucketed prefill chunks with a masked tail; set False to run
+        # each chunk at its raw length (read at every chunk)
+        self.bucket_prefill = True
         self.mesh = mesh
         self.device = mesh.device           # activations and sampling
         if S.attn_layer_count(cfg) and max_len > S.JOINT_PREFILL_MAX:
@@ -128,6 +135,9 @@ class SlotRunner:
                       ) -> torch.Tensor:
         return self.decoder.decode_sample(seqs, temps, top_ps, gen)
 
+    def decode(self, seqs: List[SequenceState]) -> torch.Tensor:
+        return self.decoder.decode(seqs)
+
     # state checkpointing (the prefix cache of recurrent archs)
     def snapshot_state(self, seq: SequenceState) -> SlotSnapshot:
         """A device copy of the slot's rows of every cache tensor on every
@@ -176,12 +186,13 @@ class SlotPrefillRunner:
     @torch.no_grad()
     def prefill_chunk(self, seq: SequenceState, chunk_tokens: List[int]
                       ) -> Optional[torch.Tensor]:
-        """Run one chunk of ``seq`` (pow2-bucketed, masked tail) on its
-        slot. Returns the last real position's logits once the prompt is
-        covered, else None."""
+        """Run one chunk of ``seq`` (pow2-bucketed with a masked tail, or
+        at its raw length without ``bucket_prefill``) on its slot. Returns
+        the last real position's logits once the prompt is covered, else
+        None."""
         rt = self.rt
         c = len(chunk_tokens)
-        cb = pow2_bucket(c)
+        cb = pow2_bucket(c) if rt.bucket_prefill else c
         toks = np.zeros((1, cb), np.int64)
         toks[0, :c] = chunk_tokens
         extra = rt.extra_dev.get(seq.seq_id)
@@ -207,6 +218,29 @@ class SlotDecodeRunner:
     def __init__(self, rt: SlotRunner):
         self.rt = rt
 
+    def _step(self, seqs: List[SequenceState]) -> torch.Tensor:
+        """One decode step of every slot (each live slot fed its sequence's
+        last token); returns the (n_slots, Vp) logits."""
+        rt = self.rt
+        tokens = np.zeros((rt.n_slots,), np.int64)
+        for s in seqs:
+            tokens[s.slot] = s.tokens[-1]
+        logits, _ = S.decode_step(rt.cfg, rt.params,
+                                  to_device(tokens, rt.device),
+                                  rt.caches, rt.mesh, impl=rt.impl)
+        for s in seqs:
+            s.n_cached = len(s.tokens)
+        return logits
+
+    @torch.no_grad()
+    def decode(self, seqs: List[SequenceState]) -> torch.Tensor:
+        """The unfused all-slot step (``repro/engine/runners/slot.py:
+        202-213``): returns the live rows' (B, Vp) logits in ``seqs``
+        order, for the engine's host-side sampler."""
+        rows = to_device(np.asarray([s.slot for s in seqs], np.int64),
+                         self.rt.device)
+        return self._step(seqs).index_select(0, rows)
+
     @torch.no_grad()
     def decode_sample(self, seqs: List[SequenceState], temps: np.ndarray,
                       top_ps: np.ndarray, gen: torch.Generator
@@ -217,19 +251,9 @@ class SlotDecodeRunner:
         on the host. Returns the (n_slots,) int32 token vector on the
         device; the caller reads its live rows by slot."""
         rt = self.rt
-        cfg = rt.cfg
-        tokens = np.zeros((rt.n_slots,), np.int64)
-        for s in seqs:
-            tokens[s.slot] = s.tokens[-1]
-        logits, _ = S.decode_step(cfg, rt.params,
-                                  to_device(tokens, rt.device),
-                                  rt.caches, rt.mesh, impl=rt.impl)
+        logits = self._step(seqs)
         if float(temps.max()) <= 0.0:
-            toks = greedy_core(logits, cfg.vocab_size)
-        else:
-            toks = sample_core(logits, to_device(temps, rt.device),
-                               to_device(top_ps, rt.device), gen,
-                               cfg.vocab_size)
-        for s in seqs:
-            s.n_cached = len(s.tokens)
-        return toks
+            return greedy_core(logits, rt.cfg.vocab_size)
+        return sample_core(logits, to_device(temps, rt.device),
+                           to_device(top_ps, rt.device), gen,
+                           rt.cfg.vocab_size)

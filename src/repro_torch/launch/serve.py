@@ -59,6 +59,11 @@ weights dict; a forked TE owns its copy.
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 \
         --topology pd=1,colo=1
 
+    # the decode baselines: one step per iteration (--horizon 1), and the
+    # unfused step whose logits the host samples (--no-fused-decode)
+    PYTHONPATH=src python -m repro_torch.launch.serve --horizon 1 \
+        --no-fused-decode
+
     # a smoke config on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --device cpu --requests 4 --max-new 8 --mode pd
@@ -88,19 +93,22 @@ from repro_torch.models import transformer as T
 
 
 def engine_config(mode: str, dtype, smoke: bool = False, seed: int = 0,
-                  tp: int = 1) -> EngineConfig:
+                  tp: int = 1, horizon: int = 8,
+                  fused: bool = True) -> EngineConfig:
     return EngineConfig(mode=mode, tp=tp,
                         n_pages=2048 if not smoke else 256,
                         page_size=16, n_slots=8, max_len=2048,
                         max_batch_tokens=512, chunk_size=256,
-                        max_decode_batch=8, decode_horizon=8, dtype=dtype,
-                        seed=seed)
+                        max_decode_batch=8, fused_decode=fused,
+                        decode_horizon=horizon, dtype=dtype, seed=seed)
 
 
 def build_te(cfg, params, mode: str, name: str, device, dtype,
-             smoke: bool = False, seed: int = 0, tp: int = 1) -> FlowServe:
+             smoke: bool = False, seed: int = 0, tp: int = 1,
+             horizon: int = 8, fused: bool = True) -> FlowServe:
     return FlowServe(cfg, params,
-                     engine_config(mode, dtype, smoke, seed, tp),
+                     engine_config(mode, dtype, smoke, seed, tp, horizon,
+                                   fused),
                      name=name, device=device)
 
 
@@ -139,12 +147,13 @@ def run_units(handles: List[TEHandle], max_steps: int = 100000
 
 
 def pd_pair(cfg, params, name: str, device, dtype, smoke: bool = False,
-            seed: int = 0, tp: int = 1) -> TEHandle:
+            seed: int = 0, tp: int = 1, horizon: int = 8,
+            fused: bool = True) -> TEHandle:
     """A live PD pair: a P-TE and a D-TE linked by DistFlow."""
     pe = build_te(cfg, params, "prefill", f"{name}-p", device, dtype, smoke,
-                  seed, tp)
+                  seed, tp, horizon, fused)
     de = build_te(cfg, params, "decode", f"{name}-d", device, dtype, smoke,
-                  seed, tp)
+                  seed, tp, horizon, fused)
     pe.distflow.link_cluster([de.distflow])
     return TEHandle(name, "pd_pair", engine=pe, decode_engine=de)
 
@@ -182,6 +191,12 @@ def main() -> None:
                     help="ranks per TE (tensor parallelism, the paged "
                          "family): rank r on card (r mod the visible "
                          "count), every rank on the one card here")
+    ap.add_argument("--horizon", type=int, default=8,
+                    help="max fused multi-step decode horizon K "
+                         "(DESIGN.md §8; 1 disables multi-step)")
+    ap.add_argument("--no-fused-decode", action="store_true",
+                    help="legacy v1 decode path (per-step host block tables "
+                         "+ standalone sampler dispatch)")
     ap.add_argument("--topology", default=None,
                     help="serve through the serving plane over this fleet: "
                          "'pd=N,colo=N' (N PD pairs and N colocated TEs) or "
@@ -208,8 +223,9 @@ def main() -> None:
     t0 = time.monotonic()
     params = T.init_params(cfg, gen, dtype, dev)
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{dtype}, on {dev}, mode {args.mode} "
-          f"(init {time.monotonic() - t0:.2f} s)")
+          f"{dtype}, on {dev}, mode {args.mode}, decode horizon "
+          f"{args.horizon}, {'unfused' if args.no_fused_decode else 'fused'} "
+          f"decode (init {time.monotonic() - t0:.2f} s)")
 
     def requests() -> List[Request]:
         """The run's requests, made (and so timed from) once every TE is
@@ -222,9 +238,11 @@ def main() -> None:
                         sampling=sp, req_id=f"r{i}")
                 for i in range(args.requests)]
 
+    fused = not args.no_fused_decode
+
     def te(mode, name):
         return build_te(cfg, params, mode, name, dev, dtype, args.smoke,
-                        args.seed, args.tp)
+                        args.seed, args.tp, args.horizon, fused)
 
     if args.topology:
         serve_plane(args, cfg, full, params, dev, dtype, requests)
@@ -236,7 +254,7 @@ def main() -> None:
             handles[0].engine.add_request(r)
     elif args.mode == "pd":
         handles = [pd_pair(cfg, params, "te-pd0", dev, dtype, args.smoke,
-                           args.seed, args.tp)]
+                           args.seed, args.tp, args.horizon, fused)]
         for r in requests():
             handles[0].engine.add_request(r)
     else:
@@ -251,7 +269,7 @@ def main() -> None:
                    TEHandle("te-c1", "colocated",
                             engine=te("colocated", "te-c1")),
                    pd_pair(cfg, params, "te-pd0", dev, dtype, args.smoke,
-                           args.seed, args.tp)]
+                           args.seed, args.tp, args.horizon, fused)]
         ds = DistributedScheduler(handles, hs.combined(), hs.prefill_lens,
                                   hs.decode_ratios,
                                   predictor=DecodeLengthPredictor(pcfg,
@@ -299,7 +317,9 @@ def serve_plane(args, cfg, full, params, dev, dtype, requests) -> None:
         cfg, params, topo,
         heatmap=hs.combined(), prefill_lens=hs.prefill_lens,
         decode_ratios=hs.decode_ratios, policy=args.policy,
-        ecfg=engine_config("colocated", dtype, args.smoke, args.seed),
+        ecfg=engine_config("colocated", dtype, args.smoke, args.seed,
+                           horizon=args.horizon,
+                           fused=not args.no_fused_decode),
         scaler=FastScaler(DRAMPageCache(), warm=warm),
         trigger=LoadSpreadTrigger(), drain_trigger=DrainTrigger(),
         warm_pool=warm, fleet_threads=args.fleet_threads, device=dev)

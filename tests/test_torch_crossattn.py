@@ -48,6 +48,7 @@ from repro_torch.launch.mesh import one_rank
 from repro_torch.models import serving as S
 from repro_torch.models import transformer as T
 from repro_torch.models.bridge import params_from_numpy
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 VLM, ENCDEC = "llama-3.2-vision-11b", "seamless-m4t-large-v2"
 ARCHS = [VLM, ENCDEC]

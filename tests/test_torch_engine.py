@@ -4,10 +4,13 @@ Both engines run identical weights (the JAX smoke init, bridged) with the
 same ``EngineConfig`` values; the torch TE runs with ``device="cpu"``, so
 its attention takes the kernels' plain versions. Greedy tokens must be
 EXACTLY equal over the prompt mixes of ``tests/test_prefill_batching.py``
-and the horizons K in {1, 4, 8} of ``tests/test_hotloop.py``. Also: an
-EOS inside a horizon and page pressure (preemption) keep the greedy
-tokens, a stochastic mix serves valid tokens, a step costs at most one
-prefill pass, and the package never pulls in JAX or the JAX package."""
+and the horizons K in {1, 4, 8} of ``tests/test_hotloop.py``, with
+synchronous scheduling and with the per-sequence prefill (the
+reference's switches, flipped on both engines), through prefix-cache hits
+(both RTCs counting the same hits and reused tokens), and with the prefix
+cache off. Also: the package never pulls in JAX or the JAX package. The
+engine's behaviour alone (EOS inside a horizon, page pressure, ...) is in
+``test_torch_engine_port.py``."""
 import os
 import re
 import subprocess
@@ -18,9 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import repro_torch.engine.flowserve as TFS_MOD
 from repro.engine import EngineConfig as JEngineConfig
 from repro.engine import FlowServe as JFlowServe
 from repro.engine import Request as JRequest
@@ -29,6 +30,7 @@ from repro.models import get_model
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.models.bridge import params_from_numpy
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -60,8 +62,9 @@ def models():
 def pair(models):
     """One (JAX TE, torch TE) pair on the SHARED config, reused across the
     parity tests so the JAX TE compiles its shapes once (both engines read
-    ``decode_horizon`` afresh at every step). Both TEs always see the same
-    traffic in the same order, so their prefix caches stay in step."""
+    ``decode_horizon``, ``async_sched`` and ``batched_prefill`` afresh at
+    every step). Both TEs always see the same traffic in the same order, so
+    their prefix caches stay in step."""
     bundle, jp, cfg, tp = models
     return (JFlowServe(bundle, jp, JEngineConfig(**SHARED)),
             FlowServe(cfg, tp, EngineConfig(**SHARED), device="cpu"))
@@ -103,126 +106,114 @@ def test_greedy_parity_ragged_mix(pair):
     assert got == want
 
 
-def _serve(models, prompts, max_new, stop_on_eos=False, **kw):
-    _, _, cfg, tp = models
-    te = FlowServe(cfg, tp, EngineConfig(**{**SHARED, **kw}), device="cpu")
-    for i, p in enumerate(prompts):
-        te.add_request(Request(prompt_tokens=p, req_id=f"r{i}",
-                               sampling=SamplingParams(
-                                   max_new_tokens=max_new,
-                                   stop_on_eos=stop_on_eos)))
-    comps = {c.req_id: c.tokens for c in te.run_to_completion()}
-    return [comps[f"r{i}"] for i in range(len(prompts))], te
+def _ragged(seed):
+    """RAGGED's lengths (1-token, tiny, one chunk, chunk + 1, long) with
+    fresh ids, so no prompt is served from an earlier case's prefix."""
+    rs = np.random.RandomState(seed)
+    return [[int(x) for x in rs.randint(3, 200, len(p))] for p in RAGGED]
 
 
-def test_eos_mid_horizon_matches_per_step_path(models, monkeypatch):
-    """An EOS sampled inside a horizon stops the sequence there and the
-    tokens sampled after it in the same block are discarded: the fused
-    path equals the legacy per-step path (the JAX suite's own check of
-    its fused path, test_hotloop.py::test_all_eos_mid_horizon_terminates)."""
-    free, _ = _serve(models, _prompts(2), 12)
-    fake_eos = free[0][5]
-    monkeypatch.setattr(TFS_MOD, "EOS_ID", fake_eos)
-    want, _ = _serve(models, _prompts(2), 12, stop_on_eos=True,
-                     fused_decode=False)
-    got, te = _serve(models, _prompts(2), 12, stop_on_eos=True,
-                     decode_horizon=4)
-    assert got == want and len(got[0]) == free[0].index(fake_eos) + 1
-    assert not te._inflight and not te._pending
-
-
-def test_page_pressure_keeps_greedy_tokens(models):
-    """9 pages for 4 sequences that need 4 each: preemption, re-prefill and
-    the legacy decode fallback all run, and the greedy tokens equal the
-    unpressured run's (which the parity tests hold against JAX)."""
-    want, _ = _serve(models, _prompts(4), 16)
-    got, te = _serve(models, _prompts(4), 16, n_pages=9)
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("switch", ["async_sched", "batched_prefill"])
+def test_switch_off_matches_jax(pair, switch, k):
+    """Each reference switch off on both engines: synchronous scheduling
+    (the prepared plan ignored) and the per-sequence paged prefill (one
+    pass per sequence chunk, the first token from the decode path). The
+    greedy tokens equal the JAX engine's over the ragged mix; the
+    per-sequence path counts one prefill pass per non-empty chunk, as the
+    JAX engine's legacy path does, and never fetches a first token."""
+    jte, tte = pair
+    prompts = _ragged(500 + k + (50 if switch == "async_sched" else 0))
+    before = [(te.prefill_dispatches, te.prefill_syncs) for te in pair]
+    for te in pair:
+        setattr(te.ecfg, switch, False)
+    try:
+        got, want, _ = _serve_both(pair, f"{switch}{k}-", prompts,
+                                   decode_horizon=k)
+    finally:
+        for te in pair:
+            setattr(te.ecfg, switch, True)
     assert got == want
-    assert te.sampler_dispatches > 0           # the legacy path did run
+    (jd, js), (td, ts) = [(te.prefill_dispatches - d, te.prefill_syncs - s)
+                          for te, (d, s) in zip(pair, before)]
+    if switch == "batched_prefill":
+        # every prompt but the 1-token one prefills n - 1 tokens in chunks
+        # of at most chunk_size
+        chunks = sum(-(-(len(p) - 1) // SHARED["chunk_size"])
+                     for p in prompts)
+        assert td == jd >= chunks and ts == js == 0
+    else:
+        assert 0 < td and ts > 0               # the batched path ran
 
 
-def test_stochastic_mix_serves_valid_tokens(models):
+def _serve_seq(pair_or_te, tag, prompts):
+    """Serve ``prompts`` one after another (each run to completion before
+    the next arrives), on a (JAX, torch) pair or on one torch TE; returns
+    each engine's tokens per prompt."""
+    out = []
+    for i, p in enumerate(prompts):
+        if isinstance(pair_or_te, tuple):
+            got, want, _ = _serve_both(pair_or_te, f"{tag}{i}-", [p],
+                                       decode_horizon=8)
+            assert got == want
+            out.append(want[0])
+        else:
+            pair_or_te.add_request(Request(
+                prompt_tokens=p, req_id=f"{tag}{i}",
+                sampling=SamplingParams(temperature=0.0, max_new_tokens=8,
+                                        stop_on_eos=False)))
+            (c,) = pair_or_te.run_to_completion()
+            out.append(c.tokens)
+    return out
+
+
+def _hit_prompts(seed):
+    """A 30-token prompt, the same prompt again, and one sharing its first
+    two pages (16 tokens) with a new tail."""
+    base = _prompts(1, length=29, seed0=seed)[0]
+    tail = [int(x) for x in np.random.RandomState(seed + 1).randint(3, 200, 9)]
+    return [base, list(base), base[:2 * SHARED["page_size"]] + tail]
+
+
+@pytest.fixture(scope="module")
+def hit_runs(pair):
+    """The repeated and shared-prefix prompts served one after another on
+    the pair: the prompts, the JAX tokens, and each RTC's hits and reused
+    tokens over the three."""
+    keys = ("hits", "tokens_reused")
+    before = [dict(te.rtc.stats) for te in pair]
+    prompts = _hit_prompts(800)
+    want = _serve_seq(pair, "hit-", prompts)
+    deltas = [{k: te.rtc.stats[k] - b[k] for k in keys}
+              for te, b in zip(pair, before)]
+    totals = [{k: te.rtc.stats[k] for k in keys} for te in pair]
+    return prompts, want, deltas, totals
+
+
+def test_prefix_cache_hits_match_jax(hit_runs):
+    """A repeated prompt and a shared-prefix prompt are served from the RTC
+    on both engines: the greedy tokens equal the JAX engine's (checked as
+    they are served), and both RTCs count the same hits and reused
+    tokens."""
+    prompts, _, (jd, td), (jt, tt) = hit_runs
+    assert jd == td and jt == tt
+    assert td["hits"] >= 2 and td["tokens_reused"] >= len(prompts[0]) // 2
+
+
+def test_prefix_cache_off_gives_jax_tokens(models, hit_runs):
+    """A torch TE without a prefix cache (no RTC, no DRAM tier) serves the
+    repeated and shared-prefix prompts with the tokens the JAX pair gives
+    through its RTC hits (the reference's greedy tokens do not depend on
+    the cache: ``tests/test_system.py:108-120``), reusing nothing and
+    keeping no page once it is empty."""
     _, _, cfg, tp = models
-    te = FlowServe(cfg, tp, EngineConfig(**SHARED), device="cpu")
-    for i, p in enumerate(_prompts(4)):
-        t = 0.9 if i % 2 else 0.0
-        te.add_request(Request(prompt_tokens=p, req_id=f"r{i}",
-                               sampling=SamplingParams(
-                                   temperature=t, top_p=0.9, max_new_tokens=6,
-                                   stop_on_eos=False)))
-    comps = te.run_to_completion()
-    assert len(comps) == 4
-    for c in comps:
-        assert len(c.tokens) == 6
-        assert all(0 <= t < cfg.vocab_size for t in c.tokens)
-
-
-def test_one_prefill_pass_per_step(models):
-    _, _, cfg, tp = models
-    te = FlowServe(cfg, tp, EngineConfig(**SHARED), device="cpu")
-    for i, p in enumerate(RAGGED):
-        te.add_request(Request(prompt_tokens=p, req_id=f"r{i}",
-                               sampling=SamplingParams(max_new_tokens=4,
-                                                       stop_on_eos=False)))
-    per_step = []
-    while te.has_work():
-        before = te.prefill_dispatches
-        te.step()
-        per_step.append(te.prefill_dispatches - before)
-    assert max(per_step) == 1 and sum(per_step) >= 2
-    assert 1 <= te.prefill_syncs <= sum(per_step)   # first-token fetches
-    # prefill samples the first token of every prompt but the 1-token one,
-    # whose prefill is vacuous: decode samples the other 4 * 5 - 4
-    assert te.decode_tokens == 4 * len(RAGGED) - (len(RAGGED) - 1)
-
-
-def test_warmups_leave_live_state_alone(models):
-    _, _, cfg, tp = models
-    te = FlowServe(cfg, tp, EngineConfig(**SHARED), device="cpu")
-    free = te.pool.free_page_count()
-    assert te.warmup_prefill(max_pages=2) == len([1, 2, 4, 8, 16, 32, 64]) * 2
-    assert te.warmup_decode(max_pages=2, horizons=[1, 2]) == 2 * 3 * 2
-    assert te.pool.free_page_count() == free
-    scratch = te.pool.scratch_page()
-    live = [p for p in range(te.pool.n_pages) if p != scratch]
-    assert not te.pool.k[0][:, live].any() and not te.pool.v[0][:, live].any()
-
-
-def test_dram_tier_round_trip(models):
-    """RTC Copy then Populate: a preserved prefix swapped to pinned-host
-    DRAM comes back into fresh pages bit for bit, and a new request that
-    shares it resumes from the populated pages."""
-    from repro_torch.engine.rtc import RTCCostModel
-    _, _, cfg, tp = models
-    te = FlowServe(cfg, tp, EngineConfig(**SHARED), device="cpu")
-    te.rtc.cost = RTCCostModel(fetch_bw_bytes=1e15)   # always fetch
-    prompt = _prompts(1, length=30)[0]
-    te.add_request(Request(prompt_tokens=prompt, req_id="a",
-                           sampling=SamplingParams(max_new_tokens=2,
-                                                   stop_on_eos=False)))
-    te.run_to_completion()
-    (entry,) = [leaf.payload for leaf in te.rtc.tree.leaves_by_lru()]
-    pages = list(entry.pages)
-    k_before = te.pool.k[0][:, pages].clone()
-    te.rtc.copy_to_dram(entry)
-    assert entry.location == "dram" and entry.pages is None
-    te.add_request(Request(prompt_tokens=prompt + [5], req_id="b",
-                           sampling=SamplingParams(max_new_tokens=2,
-                                                   stop_on_eos=False)))
-    te.run_to_completion()
-    assert entry.location == "npu" and te.rtc.stats["populates"] == 1
-    # populate allocates only the pages that hold the entry's tokens
-    n = len(entry.pages)
-    assert n == -(-entry.n_tokens // SHARED["page_size"]) <= len(pages)
-    assert torch.equal(te.pool.k[0][:, entry.pages], k_before[:, :n])
-
-
-def test_flowserve_defaults_to_the_card(models):
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the default device is valid")
-    _, _, cfg, tp = models
-    with pytest.raises(RuntimeError, match="cuda"):
-        FlowServe(cfg, tp, EngineConfig(**SHARED))
+    prompts, want, _, _ = hit_runs
+    te = FlowServe(cfg, tp, EngineConfig(**SHARED, enable_prefix_cache=False),
+                   device="cpu")
+    assert te.rtc is None and te.scheduler.rtc is None
+    assert _serve_seq(te, "off-", prompts) == want
+    assert te.prefix_cache_stats() == {}
+    assert te.pool.free_page_count() == te.pool.n_pages - 1   # all but scratch
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +251,10 @@ def test_port_imports_neither_jax_nor_reference():
 def test_port_source_has_no_reference_imports():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "finetune_torch.py"]
+    files += [ROOT / "chip_smoke.py"] + [
+        ROOT / "examples" / f"{name}_torch.py"
+        for name in ("finetune", "quickstart", "pd_disaggregation",
+                     "autoscale_demo")]
     assert len(files) > 20
     for f in ("core/serving_plane.py", "training/train_loop.py",
               "data/pipeline.py", "models/model_factory.py",

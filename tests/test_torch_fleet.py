@@ -43,6 +43,7 @@ from repro_torch.core.fleet import FleetExecutor, TEState
 from repro_torch.engine import EngineConfig, SamplingParams
 from repro_torch.launch.mesh import make_engine_mesh
 from repro_torch.models import transformer as T
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 # ---------------------------------------------------------------------------

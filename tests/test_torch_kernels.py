@@ -23,6 +23,7 @@ from repro.models import layers as JL
 from repro.models import rwkv6 as JR
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import ops
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 PAGED_SHAPES = [(1, 4, 4, 16, 8, 3),      # MHA
                 (2, 8, 4, 32, 16, 5),     # GQA

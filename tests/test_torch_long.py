@@ -41,6 +41,7 @@ from repro_torch.models import serving as S
 from repro_torch.models import transformer as T
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.models.model_factory import get_model
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = one_rank(torch.device("cpu"))
 ARCHS = list_configs()

@@ -17,6 +17,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.bridge import params_from_numpy
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -17,10 +17,16 @@ plain versions. Held here, with the tolerance stated in each test:
   * the port's ``FlowServe`` against the JAX ``FlowServe``: EXACT greedy
     tokens on the ragged mix of ``tests/test_prefill_batching.py`` (its
     22-token prompt crosses the window) and at the horizons K in {1, 4, 8}
-    of ``tests/test_hotloop.py``.
+    of ``tests/test_hotloop.py``, on the smoke config cut to
+    ``ENGINE_LAYERS`` layers (still one local and one global layer for
+    gemma2; no assertion depends on depth, and the JAX TE compiles its
+    unrolled layer loop once per shape).
 One JAX TE per model serves every engine case, so its shapes compile once.
-``tests/test_torch_moe.py`` runs the same checks for the MoE archs with the
-helpers of this file."""
+``arch_suite`` makes these checks for a list of archs: this file holds
+gemma2's, ``test_torch_paged_danube.py`` and ``test_torch_paged_nemotron.py``
+the other two (one file per arch, so ``--dist loadfile`` spreads them over
+workers), and ``test_torch_moe_granite.py`` / ``test_torch_moe_mixtral.py``
+the MoE archs'."""
 import dataclasses
 
 import jax
@@ -29,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
+from repro.configs import smoke_config as jax_smoke_config
 from repro.engine import EngineConfig as JEngineConfig
 from repro.engine import FlowServe as JFlowServe
 from repro.engine import Request as JRequest
@@ -43,8 +51,10 @@ from repro_torch.engine.runners import PagedRunner, resolve_family
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.models import transformer as T
 from repro_torch.models.bridge import params_from_numpy
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
-ARCHS = ["gemma2-9b", "h2o-danube-3-4b", "nemotron-4-15b"]
+ARCHS = ["gemma2-9b"]
+ENGINE_LAYERS = 2
 SHARED = dict(n_pages=64, page_size=8, max_batch_tokens=32, chunk_size=8,
               max_decode_batch=4)
 CONFIG_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
@@ -66,11 +76,16 @@ RAGGED = [[7], [5, 6, 9], list(range(3, 11)), list(range(3, 12)),
           [1] + [int(x) for x in np.random.RandomState(3).randint(3, 200, 21)]]
 
 
-def load(arch):
-    """(JAX bundle, JAX params, port config, port params) at smoke, fp32."""
-    bundle = get_model(arch, smoke=True)
-    jp = bundle.init_params(jax.random.PRNGKey(0), jnp.float32)
+def load(arch, n_layers=None):
+    """(JAX bundle, JAX params, port config, port params) at smoke, fp32;
+    with ``n_layers``, the smoke config cut to that many layers."""
+    jcfg = jax_smoke_config(jax_get_config(arch))
     cfg = smoke_config(get_config(arch))
+    if n_layers is not None:
+        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    bundle = get_model(jcfg)
+    jp = bundle.init_params(jax.random.PRNGKey(0), jnp.float32)
     tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return bundle, jp, cfg, tp
 
@@ -218,24 +233,66 @@ def prefill_decode_errs(model, s=24, n_prefill=18, page=8):
     return errs
 
 
-@pytest.fixture(scope="module")
-def models():
-    return {arch: load(arch) for arch in ARCHS}
+def arch_suite(archs, config_check=None, bridge_check=None):
+    """The per-arch checks of this file for ``archs``, as the members a
+    test module binds (``globals().update(arch_suite(...))``): the module's
+    ``models`` and ``pairs`` fixtures and its tests, each parametrized over
+    ``archs``. ``config_check`` / ``bridge_check`` (a model -> None) add a
+    family's own assertions to the config and bridge tests."""
+
+    @pytest.fixture(scope="module")
+    def models():
+        return {arch: load(arch) for arch in archs}
+
+    @pytest.fixture(scope="module")
+    def pairs():
+        return {arch: make_pair(load(arch, ENGINE_LAYERS)) for arch in archs}
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_config_matches_reference(models, arch):
+        check_config(models[arch], arch)
+        if config_check is not None:
+            config_check(models[arch])
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_bridge_keeps_tree_and_values(models, arch):
+        check_bridge(models[arch])
+        if bridge_check is not None:
+            bridge_check(models[arch])
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_init_params_matches_reference_layout(models, arch):
+        check_init_layout(models[arch], arch)
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_forward_matches_reference(models, arch):
+        """Teacher-forced logits within 1e-4 (fp32, as qwen3's)."""
+        check_forward(models[arch], 1e-4)
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_prefill_decode_matches_forward(models, arch):
+        errs = prefill_decode_errs(models[arch])
+        assert max(errs) < 2e-3, errs
+
+    @pytest.mark.parametrize("arch", archs)
+    @pytest.mark.parametrize("k", [1, 4, 8])
+    def test_greedy_parity_horizons(pairs, arch, k):
+        # prompts of their own per K, so no case is served from another's
+        # prefix cache
+        got, want = serve_both(pairs[arch], f"h{k}-",
+                               prompts(4, seed0=100 * k), decode_horizon=k)
+        assert got == want
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_greedy_parity_ragged_mix(pairs, arch):
+        got, want = serve_both(pairs[arch], "rag-", RAGGED, decode_horizon=8)
+        assert got == want
+
+    return {k: v for k, v in locals().items()
+            if k.startswith("test_") or k in ("models", "pairs")}
 
 
-@pytest.fixture(scope="module")
-def pairs(models):
-    return {arch: make_pair(m) for arch, m in models.items()}
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_config_matches_reference(models, arch):
-    check_config(models[arch], arch)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_bridge_keeps_tree_and_values(models, arch):
-    check_bridge(models[arch])
+globals().update(arch_suite(ARCHS))
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
@@ -265,34 +322,3 @@ def test_resolve_family_sends_cross_towers_to_slot():
         assert resolve_family(smoke_config(get_config(name))).name == want
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_init_params_matches_reference_layout(models, arch):
-    check_init_layout(models[arch], arch)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_forward_matches_reference(models, arch):
-    """Teacher-forced logits within 1e-4 (fp32, as qwen3's)."""
-    check_forward(models[arch], 1e-4)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_decode_matches_forward(models, arch):
-    errs = prefill_decode_errs(models[arch])
-    assert max(errs) < 2e-3, errs
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("k", [1, 4, 8])
-def test_greedy_parity_horizons(pairs, arch, k):
-    # prompts of their own per K, so no case is served from another's
-    # prefix cache
-    got, want = serve_both(pairs[arch], f"h{k}-", prompts(4, seed0=100 * k),
-                           decode_horizon=k)
-    assert got == want
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_greedy_parity_ragged_mix(pairs, arch):
-    got, want = serve_both(pairs[arch], "rag-", RAGGED, decode_horizon=8)
-    assert got == want

@@ -5,8 +5,9 @@ torch TEs run with ``device="cpu"``, so attention and the recurrences take
 the kernels' plain versions. Held here, all EXACT unless a tolerance is
 stated:
 
-  * qwen3-8b smoke: the port's prefill TE -> decode TE pair gives the JAX
-    P->D pair's greedy tokens and the JAX colocated TE's, on the ragged mix
+  * qwen3-8b smoke (cut to ``N_LAYERS`` layers: no assertion depends on
+    depth): the port's prefill TE -> decode TE pair gives the JAX P->D
+    pair's greedy tokens and the JAX colocated TE's, on the ragged mix
     of ``tests/test_torch_engine.py`` at decode horizons K in {1, 8}, with
     ``load_metrics()`` of both pairs equal after every pump step; and with
     ``overlap=False``, layer chunks 1 and 2, and the v1 host round trip;
@@ -15,33 +16,33 @@ stated:
   * an ``OutOfPagesError`` on import leaves the D-TE untouched and restores
     the sequence at its source; a preempted D-TE sequence drops its
     pending import;
-  * rwkv6-1.6b and recurrentgemma-2b smoke: slot-snapshot migration gives
-    the JAX P->D pair's greedy tokens;
-  * DistFlow's pricing twins of ``tests/test_pd_migration.py``: equal
-    simulated clocks on the same byte counts.
-One JAX engine per role is built per module and reused, so its shapes
-compile once; every case keeps both packages' traffic in step.
+The slot family's migrations and DistFlow's pricing twins are in
+``test_torch_pd_slot.py``. One JAX engine per role is built per module and
+reused, and every JAX TE points its jitted programs at one cache per
+config (``share_jax_programs`` of ``test_torch_fixtures.py``), so each shape
+compiles once; every case keeps both packages' traffic in step.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
+from repro.configs import smoke_config as jax_smoke_config
 from repro.engine import EngineConfig as JEngineConfig
 from repro.engine import FlowServe as JFlowServe
 from repro.engine import Request as JRequest
 from repro.engine import SamplingParams as JSamplingParams
-from repro.engine.distflow import BufferInfo as JBufferInfo
-from repro.engine.distflow import DistFlow as JDistFlow
 from repro.models import get_model
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
-from repro_torch.engine.distflow import BufferInfo, DistFlow
 from repro_torch.engine.kv_cache import OutOfPagesError
-from repro_torch.launch import sharding as SH
-from repro_torch.launch.mesh import make_engine_mesh
 from repro_torch.models.bridge import params_from_numpy
+from test_torch_fixtures import share_jax_programs  # noqa: F401 (autouse)
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 # tests/test_pd_migration.py's engine shape
 SHARED = dict(n_pages=64, page_size=8, n_slots=4, max_len=96,
@@ -49,6 +50,7 @@ SHARED = dict(n_pages=64, page_size=8, n_slots=4, max_len=96,
 RAGGED = [[7], [5, 6, 9], list(range(3, 11)), list(range(3, 12)),
           [1] + [int(x) for x in np.random.RandomState(3).randint(3, 200, 21)]]
 PROMPT = [1] + [int(x) for x in np.random.RandomState(7).randint(3, 200, 14)]
+N_LAYERS = 2
 
 
 def _prompts(n, length=11, seed0=0):
@@ -61,10 +63,16 @@ def _sp(cls, max_new=6):
     return cls(temperature=0.0, max_new_tokens=max_new, stop_on_eos=False)
 
 
-def _bridge(arch):
-    bundle = get_model(arch, smoke=True)
-    jp = bundle.init_params(jax.random.PRNGKey(0), jnp.float32)
+def _bridge(arch, n_layers=None):
+    """Both packages' smoke config of ``arch`` (cut to ``n_layers``) on the
+    same weights: (JAX bundle, JAX params, port config, port params)."""
+    jcfg = jax_smoke_config(jax_get_config(arch))
     cfg = smoke_config(get_config(arch))
+    if n_layers is not None:
+        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    bundle = get_model(jcfg)
+    jp = bundle.init_params(jax.random.PRNGKey(0), jnp.float32)
     tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return bundle, jp, cfg, tp
 
@@ -125,7 +133,7 @@ def _jreqs(tag, prompts, max_new=6):
 
 @pytest.fixture(scope="module")
 def qwen():
-    return _bridge("qwen3-8b")
+    return _bridge("qwen3-8b", N_LAYERS)
 
 
 @pytest.fixture(scope="module")
@@ -315,103 +323,3 @@ def test_migratable_running_skips_pending_imports(qwen):
     _prefilled(pe, PROMPTS[1], "c")
     pe.migrate_out("c", de)
     assert de.migratable_running() == ["a", "b"]
-
-
-# ---------------------------------------------------------------------------
-# the slot family: the snapshot is the payload
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
-def test_slot_pd_matches_jax_pair(arch):
-    bundle, jp, cfg, tp = _bridge(arch)
-    prompts = [PROMPT, [1] + list(range(30, 43)), [7]]
-    jpair = _jpair(bundle, jp, "js")
-    want = _serve_pd(jpair, _jreqs("s", prompts))
-    tpair = _tpair(cfg, tp, "ts")
-    got = _serve_pd(tpair, _treqs("s", prompts))
-    ids = [f"s{i}" for i in range(len(prompts))]
-    assert sorted(got) == sorted(want) == ids
-    assert [got[i] for i in ids] == [want[i] for i in ids]
-    assert tpair[0].distflow.bytes_moved() == \
-        jpair[0].distflow.bytes_moved() > 0
-    assert tpair[1].distflow.sim_clock == jpair[1].distflow.sim_clock
-
-
-# ---------------------------------------------------------------------------
-# DistFlow pricing twins of tests/test_pd_migration.py:222-260
-# ---------------------------------------------------------------------------
-
-
-def test_transfer_charges_both_endpoints_as_jax():
-    clocks = []
-    for df, bi in ((DistFlow, BufferInfo), (JDistFlow, JBufferInfo)):
-        a, b = df("a"), df("b")
-        a.link_cluster([b])
-        a.transfer(bi("a", "npu", payload=np.zeros(1 << 16, np.uint8)),
-                   bi("b", "npu", deliver=lambda p: None))
-        assert a.sim_clock > 0 and b.sim_clock == a.sim_clock
-        clocks.append((a.sim_clock, b.sim_clock))
-    assert clocks[0] == clocks[1]
-
-
-def test_broadcast_charges_peers_as_jax():
-    out = []
-    for df, bi in ((DistFlow, BufferInfo), (JDistFlow, JBufferInfo)):
-        src = df("src")
-        dsts = [df(f"d{i}") for i in range(3)]
-        src.link_cluster(dsts)
-        sink = []
-        xfers = src.broadcast(
-            bi("src", "npu", payload=np.zeros(1 << 20, np.uint8)),
-            [bi(d.owner, "npu", deliver=lambda p: sink.append(p.copy()))
-             for d in dsts])
-        assert len(sink) == 3 and all(x.wall_seconds > 0 for x in xfers)
-        assert src.bytes_moved() == 3 * (1 << 20)
-        out.append([x.sim_seconds for x in xfers]
-                   + [d.sim_clock for d in dsts] + [src.sim_clock])
-    assert out[0] == out[1]
-
-
-def test_sharded_transfer_prices_bytes_per_link_as_jax():
-    """The same runs priced by both packages: the port's as per-rank head
-    shards (one per source rank), JAX's as global arrays."""
-    shape = (4, 8, 8, 4, 8)
-
-    def port(a, src_tp, dst_tp):
-        kv = {n: SH.split(torch.zeros(shape), 3,
-                          make_engine_mesh(src_tp, 0, "cpu"), copy=False)
-              for n in ("k", "v")}
-        return a.transfer_sharded(
-            kv, "b", src_dim=3, dst=(make_engine_mesh(dst_tp, 0, "cpu"), 3),
-            src_tp=src_tp, dst_tp=dst_tp, layer_chunks=1)
-
-    def jax_(a, src_tp, dst_tp):
-        kv = {"k": jnp.zeros(shape), "v": jnp.zeros(shape)}
-        return a.transfer_sharded(kv, "b", src_tp=src_tp, dst_tp=dst_tp,
-                                  layer_chunks=1)
-    res = []
-    for df, move in ((DistFlow, port), (JDistFlow, jax_)):
-        a, b = df("a"), df("b")
-        a.link_cluster([b])
-        one, four, cross = (move(a, s, d) for s, d in ((1, 1), (4, 4),
-                                                       (4, 2)))
-        assert cross.xfer.links == 2 and b.sim_clock == a.sim_clock
-        res.append([h.xfer.sim_seconds for h in (one, four, cross)]
-                   + [a.sim_clock, b.sim_clock])
-    assert res[0] == res[1]
-
-
-def test_layer_chunks_cover_the_run():
-    """``transfer_sharded`` splits the run into layer-contiguous chunks
-    that concatenate back to it; CPU chunks carry no event and are ready;
-    the transfer is done once every chunk has been waited on."""
-    a = DistFlow("a")
-    k = torch.arange(5 * 3 * 2, dtype=torch.float32).view(5, 3, 2, 1, 1)
-    one = make_engine_mesh(1, 0, "cpu")
-    h = a.transfer_sharded({"k": [k], "v": [-k]}, "b", src_dim=3,
-                           dst=(one, 3), src_tp=1, dst_tp=1, layer_chunks=2)
-    assert [c[0] for c in h.chunks] == [0, 3] and h.events == [None, None]
-    assert h.chunk_ready(1) and not h.xfer.done
-    assert h.wait_chunk(0)[0] == 0 and h.xfer.done
-    assert torch.equal(torch.cat([c[1][0] for c in h.wait()["chunks"]]), k)

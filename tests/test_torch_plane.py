@@ -24,7 +24,7 @@ tests hold them. One JAX/torch weight pair per module; the JAX run of a
 scenario another test reuses is cached.
 
 The JAX TEs of one config share their compiled programs while this module
-runs (``share_jax_programs``): each JAX runner keeps its jitted prefill /
+runs (``share_jax_programs`` of ``test_torch_fixtures.py``): each JAX runner keeps its jitted prefill /
 decode programs in per-instance dicts, whose programs depend only on the
 config and the shapes (weights and pools are arguments), so every TE of a
 plane would otherwise compile the same programs again. Nothing else of the
@@ -43,7 +43,6 @@ import repro.core.faults as JF
 import repro.core.scaling as JS
 import repro.core.scheduling as JSC
 import repro.core.serving_plane as JP
-import repro.engine.flowserve as JFS
 import repro_torch.core.faults as TF
 import repro_torch.core.scaling as TS
 import repro_torch.core.scheduling as TSC
@@ -58,6 +57,8 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.fleet import TEState
 from repro_torch.engine import EngineConfig, FlowServe, SamplingParams
 from repro_torch.models.bridge import params_from_numpy
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fixtures import share_jax_programs  # noqa: F401 (autouse)
 
 N_LAYERS = 2      # the smoke config cut to 2 layers: the plane, not depth
 SHARED = dict(n_pages=64, page_size=8, max_batch_tokens=32, chunk_size=8,
@@ -101,25 +102,6 @@ def mixed_prompts(n, seed0=0):
 def sp(P, max_new=10):
     return P.SamplingParams(temperature=0.0, max_new_tokens=max_new,
                             stop_on_eos=False)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def share_jax_programs():
-    """Point every JAX TE's per-instance program caches at one dict per
-    config for the module's duration (see the module docstring)."""
-    orig = JFS.FlowServe.__init__
-    shared = {}
-
-    def init(self, *a, **kw):
-        orig(self, *a, **kw)
-        if self.pool is None:
-            return
-        caches = shared.setdefault(self.cfg.name, ({}, {}, {}, {}))
-        (self.runner.prefill._ragged_fns, self.runner.decoder._fused_fns,
-         self.runner.decoder._decode_fns, self.pool._scatter_jits) = caches
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JFS.FlowServe, "__init__", init)
-        yield
 
 
 @pytest.fixture(scope="module")

@@ -23,13 +23,14 @@ rejections):
 import pytest
 
 from test_torch_plane import (PD_HEAT, TORCH, assert_same, both, plane,
-                              prompts, qwen, serve, share_jax_programs, sp,
-                              summary)
+                              prompts, qwen, serve, sp, summary)
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fixtures import share_jax_programs  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.faults
 
-# the fixtures come from tests/test_torch_plane.py
-__all__ = ["qwen", "share_jax_programs"]
+# the qwen fixture comes from tests/test_torch_plane.py
+__all__ = ["qwen"]
 
 N_TES, N_REQS, KILL_STEP, SEED = 3, 12, 3, 7
 

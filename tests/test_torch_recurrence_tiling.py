@@ -18,6 +18,7 @@ from repro_torch.kernels import ref as R
 from repro_torch.kernels import rglru as RG
 from repro_torch.kernels import tma
 from repro_torch.kernels import wkv6 as WKV
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 CHUNK, SUB = WKV.CHUNK, WKV.SUB   # the kernel's chunk and sub-chunk

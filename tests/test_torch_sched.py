@@ -15,14 +15,19 @@ the CPU. All comparisons are EXACT unless a tolerance is stated:
     ``tests/test_scheduling.py``;
   * a live ``TEHandle.refresh()`` over port engines (a colocated TE and a
     P->D pair) equals the JAX one over JAX engines at the same points of
-    the same traffic.
+    the same traffic (qwen3-8b smoke cut to ``LIVE_LAYERS`` layers, the
+    JAX TEs sharing one program cache: ``share_jax_programs`` of
+    ``test_torch_plane.py``).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from repro.configs import get_config as jget_config
+from repro.configs import smoke_config as jsmoke_config
 from repro.core import fleet as JF
 from repro.core import heatmap as JH
 from repro.core import predictor as JP
@@ -43,6 +48,8 @@ from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.launch.serve import step_unit
 from repro_torch.models.bridge import params_from_numpy, \
     predictor_params_from_numpy
+from test_torch_fixtures import share_jax_programs  # noqa: F401 (autouse)
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 V5E = dict(n_chips=4, peak_flops=197e12, hbm_bw=819e9)
 
@@ -287,6 +294,7 @@ def test_trace_ema_matches_jax():
 
 SHARED = dict(n_pages=64, page_size=8, max_batch_tokens=32, chunk_size=8,
               max_decode_batch=4)
+LIVE_LAYERS = 2
 
 
 def _live(mod_s, engine_cls, ecfg_cls, params, tag):
@@ -300,9 +308,11 @@ def _live(mod_s, engine_cls, ecfg_cls, params, tag):
 
 
 def test_live_refresh_matches_jax():
-    bundle = get_model("qwen3-8b", smoke=True)
+    bundle = get_model(dataclasses.replace(
+        jsmoke_config(jget_config("qwen3-8b")), n_layers=LIVE_LAYERS))
     jp = bundle.init_params(jax.random.PRNGKey(0), jnp.float32)
-    cfg = smoke_config(get_config("qwen3-8b"))
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-8b")),
+                              n_layers=LIVE_LAYERS)
     tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     jh = _live(JS, JFlowServe, JEngineConfig, (bundle, jp), "j")
     th = _live(S, lambda c, p, e, name: FlowServe(c, p, e, name=name,

@@ -6,10 +6,8 @@ trees, each rank's shard a tensor of its own, every rank here on ``cpu``,
 and the all-reduces explicit sums. The JAX TE runs on a 1 x tp mesh of
 the simulated host devices that ``tests/conftest.py`` forces. Held here:
 
-  * the split dimension of every weight leaf of every config at tp 2 and 4
-    equals the axis where ``"model"`` stands in the JAX
-    ``prune_unsplittable(param_specs(..., "serve", ...))``, and the pool's
-    too (shapes only: ``jax.eval_shape``, no compile);
+  * the split dimensions of every config's weights and pool
+    (``test_torch_tp_dims.py``, a file of its own for ``--dist loadfile``);
   * qwen3-8b smoke (cut to 2 layers, as every engine here) at tp 2
     (attention and pool split): raw prefill and first-decode logits
     within rtol = atol = 1e-4 of the JAX tp-2 TE's
@@ -39,17 +37,16 @@ from repro.engine import Request as JRequest
 from repro.engine import SamplingParams as JSamplingParams
 from repro.engine.kv_cache import pages_needed as jpages_needed
 from repro.engine.model_runner import SequenceState as JSequenceState
-from repro.launch import sharding as JSH
-from repro.launch.mesh import make_engine_mesh as jmake_engine_mesh
 from repro.models import get_model
-from repro_torch.configs import get_config, list_configs, smoke_config
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.engine import EngineConfig, FlowServe, Request, SamplingParams
 from repro_torch.engine.kv_cache import pages_needed
-from repro_torch.kernels import flash_prefill as FP
+from repro_torch.engine.runners.base import SequenceState
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import make_engine_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.bridge import params_from_numpy
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 N_LAYERS = 2      # the smoke configs cut to 2 layers: the split, not depth
 SHARED = dict(n_pages=64, page_size=8, max_batch_tokens=32, chunk_size=8,
@@ -69,57 +66,6 @@ def _bridge(arch):
                               n_layers=N_LAYERS)
     tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return bundle, jp, cfg, tp
-
-
-# ---------------------------------------------------------------- (a) specs
-class _Mesh:
-    """The one attribute ``prune_unsplittable`` reads of a JAX mesh."""
-
-    def __init__(self, tp):
-        self.shape = {"data": 1, "model": tp}
-
-
-def _jax_dims(spec_tree):
-    """path -> index of "model" in each leaf's PartitionSpec (or None)."""
-    flat = jax.tree_util.tree_flatten_with_path(
-        spec_tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
-    out = {}
-    for kp, spec in flat[0]:
-        dims = [i for i, ax in enumerate(tuple(spec)) if ax == "model"]
-        out[jax.tree_util.keystr(kp)] = dims[0] if dims else None
-    return out
-
-
-def _port_dims(specs):
-    out = {}
-    SH.walk(specs, lambda path, s: out.__setitem__(path, s))
-    return out
-
-
-@pytest.mark.parametrize("arch", sorted(list_configs()))
-def test_split_dims_match_jax_model_axis(arch):
-    bundle = get_model(arch)
-    like = jax.eval_shape(lambda: bundle.init_params(jax.random.PRNGKey(0),
-                                                     jnp.float32))
-    cfg = get_config(arch)
-    tlike = T.meta_params(cfg)
-    for tp in (2, 4):
-        jspecs = JSH.prune_unsplittable(
-            JSH.param_specs(bundle.cfg, like, "serve", ("data",), tp=tp,
-                            heads_ok=JSH.attn_shardable(bundle.cfg, tp)),
-            like, _Mesh(tp))
-        want = _jax_dims(jspecs)
-        got = _port_dims(SH.engine_param_specs(cfg, tlike, tp))
-        assert got == want, (arch, tp)
-        assert SH.te_param_specs(cfg, tp) == SH.engine_param_specs(
-            cfg, tlike, tp)
-        assert SH.attn_shardable(cfg, tp) == JSH.attn_shardable(bundle.cfg,
-                                                                tp)
-        pool = JSH.engine_kv_pool_sharding(bundle.cfg,
-                                           jmake_engine_mesh(tp))
-        dims = [i for i, ax in enumerate(tuple(pool.spec)) if ax == "model"]
-        assert SH.engine_kv_pool_spec(cfg, tp) == (dims[0] if dims
-                                                   else None), (arch, tp)
 
 
 # ---------------------------------------------------------------- helpers
@@ -222,25 +168,17 @@ def _jax_raw(te):
 
 
 def _port_raw(cfg, params, tp):
-    """The JAX helper's two passes on the port's runner: PROMPT as one
-    ragged prefill entry (padded to 16 tokens on the scratch page), then
-    one decode step of token 17."""
+    """The JAX helper's two passes on the port's runner: PROMPT through the
+    per-sequence ``prefill_chunk`` (one paged varlen entry), then one
+    decode step of token 17."""
     te = FlowServe(cfg, params, EngineConfig(tp=tp, **SHARED), device="cpu")
-    ps = te.pool.page_size
-    pages = te.pool.alloc(pages_needed(len(PROMPT) + 1, ps))
-    n, tb, scratch = len(PROMPT), 16, te.pool.scratch_page()
-    cu = [0, n]
-
-    def i32(a):
-        return torch.as_tensor(np.asarray(a, np.int32))
-    logits, _ = te.runner.prefill_ragged(
-        i32(PROMPT + [0] * (tb - n)), i32(list(range(n)) + [0] * (tb - n)),
-        i32([pages[j // ps] for j in range(n)] + [scratch] * (tb - n)),
-        i32([j % ps for j in range(n)] + [0] * (tb - n)), i32(cu),
-        i32([pages]), i32([0]), i32(FP.build_tiles(cu, tb)), i32([n - 1]),
-        None, None, True, None)
-    dec = te.runner.decoder.body(i32([17]), i32([pages]), i32([n + 1]))
-    return logits[0].numpy(), dec[0].numpy(), te
+    seq = SequenceState("s0", tokens=list(PROMPT), n_prompt=len(PROMPT))
+    seq.pages = pages = te.pool.alloc(pages_needed(len(PROMPT) + 1,
+                                                   te.pool.page_size))
+    logits = te.runner.prefill_chunk(seq, list(PROMPT))
+    dec = te.runner.decoder.body(*(torch.as_tensor(np.asarray(a, np.int32))
+                                   for a in ([17], [pages], [len(PROMPT) + 1])))
+    return logits.numpy(), dec[0].numpy(), te
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import rglru as G
 from repro_torch.models import serving as S
 from repro_torch.models import transformer as T
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 SHARED = dict(n_pages=64, page_size=8, max_batch_tokens=32, chunk_size=8,
               max_decode_batch=4)

@@ -18,8 +18,11 @@ non-zero modality inputs and (the VLM) non-zero gates. Held here:
   * greedy tokens equal to the JAX tp-2 TE's on the ragged mix, and from
     a state checkpoint (a repeated prompt's prefix).
 One module-scoped JAX tp-2 TE per arch serves every case, so its shapes
-compile once. Everything else at tp > 1 is held against the port's own
-tp-1 TE (``tests/test_torch_tp_fleet.py``)."""
+compile once. This file holds the recurrent archs; ``slot_tp_suite`` makes
+the same checks of the cross towers in ``test_torch_tp_cross.py`` (a file
+of its own, so ``--dist loadfile`` can put it on another worker).
+Everything else at tp > 1 is held against the port's own tp-1 TE
+(``tests/test_torch_tp_fleet.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,10 +43,11 @@ from repro_torch.engine.runners.base import SequenceState
 from repro_torch.launch import sharding as SH
 from repro_torch.models import serving as S
 from repro_torch.models.bridge import params_from_numpy
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 RWKV, RGEMMA = "rwkv6-1.6b", "recurrentgemma-2b"
 VLM, ENCDEC = "llama-3.2-vision-11b", "seamless-m4t-large-v2"
-ARCHS = [RWKV, RGEMMA, VLM, ENCDEC]
+ARCHS = [RWKV, RGEMMA]
 SHARED = dict(n_slots=4, max_len=64, max_batch_tokens=32, chunk_size=8,
               max_decode_batch=4)
 # one 8-token chunk: the ragged mix's largest bucket, compiled once
@@ -71,22 +75,6 @@ def _bridge(arch):
     return bundle, jp, cfg, tp
 
 
-@pytest.fixture(scope="module")
-def models():
-    return {arch: _bridge(arch) for arch in ARCHS}
-
-
-@pytest.fixture(scope="module")
-def pairs(models):
-    """One (JAX tp-2 TE, port tp-2 TE) pair per arch, reused by every
-    engine case; both always see the same traffic in the same order, so
-    their slots and state checkpoints stay in step."""
-    return {arch: (JFlowServe(bundle, jp, JEngineConfig(tp=2, **SHARED)),
-                   FlowServe(cfg, tp, EngineConfig(tp=2, **SHARED),
-                             device="cpu"))
-            for arch, (bundle, jp, cfg, tp) in models.items()}
-
-
 # ---------------------------------------------------------------- specs
 def _jax_cache_dims(bundle, n_slots, max_len, tp):
     """key -> the dim where "model" stands in each cache leaf's JAX
@@ -101,40 +89,6 @@ def _jax_cache_dims(bundle, n_slots, max_len, tp):
                 if ax == "model" or (isinstance(ax, tuple) and "model" in ax)]
         out[k] = dims[0] if dims else None
     return out
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_cache_split_dims_match_jax_model_axis(arch):
-    for smoke, n_slots, max_len in ((True, 4, 64), (False, 8, 2048)):
-        bundle = get_model(arch, smoke=smoke)
-        cfg = get_config(arch)
-        cfg = smoke_config(cfg) if smoke else cfg
-        like = S.cache_like(cfg, n_slots, max_len, torch.float32)
-        for tp in (2, 4):
-            want = _jax_cache_dims(bundle, n_slots, max_len, tp)
-            assert SH.engine_cache_specs(cfg, like, tp) == want, \
-                (arch, smoke, tp)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_te_rank_caches_have_the_splits(pairs, arch):
-    """Each rank's part of a split leaf is storage of its own with 1/tp of
-    the split dim; a replicated leaf is one tensor every rank refers to."""
-    te = pairs[arch][1]
-    caches = te.runner.caches
-    full = S.cache_like(te.cfg, SHARED["n_slots"], SHARED["max_len"],
-                        torch.float32)
-    specs = te.runner.cache_specs
-    assert len(caches) == 2 and any(d is not None for d in specs.values())
-    for k, t in full.items():
-        a, b = caches[0][k], caches[1][k]
-        if specs[k] is None:
-            assert a is b and a.shape == t.shape
-        else:
-            shape = list(t.shape)
-            shape[specs[k]] //= 2
-            assert list(a.shape) == list(b.shape) == shape
-            assert a.data_ptr() != b.data_ptr()
 
 
 # ---------------------------------------------------------------- logits
@@ -170,14 +124,97 @@ def _port_raw(te, extra):
     return pre, dec
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_tp2_logits_match_jax_tp2(pairs, arch):
-    jte, tte = pairs[arch]
-    extra = _mem(tte.cfg, 7)
-    jpre, jdec = _jax_raw(jte, extra)
-    pre, dec = _port_raw(tte, extra)
-    np.testing.assert_allclose(pre, jpre, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(dec, jdec, rtol=1e-4, atol=1e-4)
+def slot_tp_suite(archs):
+    """The tp-2 checks of this file for ``archs``, as the members a test
+    module binds (``globals().update(slot_tp_suite(...))``): its
+    ``models`` and ``pairs`` fixtures and its tests, each parametrized
+    over ``archs``."""
+
+    @pytest.fixture(scope="module")
+    def models():
+        return {arch: _bridge(arch) for arch in archs}
+
+    @pytest.fixture(scope="module")
+    def pairs(models):
+        """One (JAX tp-2 TE, port tp-2 TE) pair per arch, reused by every
+        engine case; both always see the same traffic in the same order, so
+        their slots and state checkpoints stay in step."""
+        return {arch: (JFlowServe(bundle, jp, JEngineConfig(tp=2, **SHARED)),
+                       FlowServe(cfg, tp, EngineConfig(tp=2, **SHARED),
+                                 device="cpu"))
+                for arch, (bundle, jp, cfg, tp) in models.items()}
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_cache_split_dims_match_jax_model_axis(arch):
+        for smoke, n_slots, max_len in ((True, 4, 64), (False, 8, 2048)):
+            bundle = get_model(arch, smoke=smoke)
+            cfg = get_config(arch)
+            cfg = smoke_config(cfg) if smoke else cfg
+            like = S.cache_like(cfg, n_slots, max_len, torch.float32)
+            for tp in (2, 4):
+                want = _jax_cache_dims(bundle, n_slots, max_len, tp)
+                assert SH.engine_cache_specs(cfg, like, tp) == want, \
+                    (arch, smoke, tp)
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_te_rank_caches_have_the_splits(pairs, arch):
+        """Each rank's part of a split leaf is storage of its own with 1/tp of
+        the split dim; a replicated leaf is one tensor every rank refers to."""
+        te = pairs[arch][1]
+        caches = te.runner.caches
+        full = S.cache_like(te.cfg, SHARED["n_slots"], SHARED["max_len"],
+                            torch.float32)
+        specs = te.runner.cache_specs
+        assert len(caches) == 2 and any(d is not None for d in specs.values())
+        for k, t in full.items():
+            a, b = caches[0][k], caches[1][k]
+            if specs[k] is None:
+                assert a is b and a.shape == t.shape
+            else:
+                shape = list(t.shape)
+                shape[specs[k]] //= 2
+                assert list(a.shape) == list(b.shape) == shape
+                assert a.data_ptr() != b.data_ptr()
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_tp2_logits_match_jax_tp2(pairs, arch):
+        jte, tte = pairs[arch]
+        extra = _mem(tte.cfg, 7)
+        jpre, jdec = _jax_raw(jte, extra)
+        pre, dec = _port_raw(tte, extra)
+        np.testing.assert_allclose(pre, jpre, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(dec, jdec, rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_tp2_greedy_tokens_equal_jax_tp2(pairs, arch):
+        got, want = _serve_both(pairs[arch], "rag-", RAGGED, 100)
+        assert got == want
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_tp2_state_checkpoint_reuse_matches_jax_tp2(pairs, arch):
+        """A finished request leaves a state checkpoint (each rank's part of
+        its slot); a prompt that extends it resumes from it on both TEs and
+        gives the JAX tp-2 TE's tokens."""
+        jte, tte = pairs[arch]
+        base = [1] + [int(x) for x in np.random.RandomState(70).randint(3, 200,
+                                                                        13)]
+        (first,), _ = _serve_both(pairs[arch], "ck-a", [base], 400)
+        ext = base + first + [9, 4, 11]
+        hits = []
+        for te, req, spc in ((jte, JRequest, JSamplingParams),
+                             (tte, Request, SamplingParams)):
+            _submit(te, req, spc, "ck-b", ext, _mem(tte.cfg, 400))
+            hits.append(te._seqs["ck-b"].n_cached)
+        assert hits[0] == hits[1] == len(base) + len(first) - 1
+        want = {c.req_id: c.tokens for c in jte.run_to_completion()}
+        got = {c.req_id: c.tokens for c in tte.run_to_completion()}
+        assert got["ck-b"] == want["ck-b"] and len(got["ck-b"]) == 6
+
+    return {k: v for k, v in locals().items()
+            if k.startswith("test_") or k in ("models", "pairs")}
+
+
+globals().update(slot_tp_suite(ARCHS))
 
 
 def test_rwkv6_tp4_logits_match_jax_tp4(models):
@@ -215,30 +252,3 @@ def _serve_both(pair, tag, prompts, seed0):
     got = {c.req_id: c.tokens for c in tte.run_to_completion()}
     assert sorted(want) == sorted(ids)
     return [got.get(i) for i in ids], [want[i] for i in ids]
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_tp2_greedy_tokens_equal_jax_tp2(pairs, arch):
-    got, want = _serve_both(pairs[arch], "rag-", RAGGED, 100)
-    assert got == want
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_tp2_state_checkpoint_reuse_matches_jax_tp2(pairs, arch):
-    """A finished request leaves a state checkpoint (each rank's part of
-    its slot); a prompt that extends it resumes from it on both TEs and
-    gives the JAX tp-2 TE's tokens."""
-    jte, tte = pairs[arch]
-    base = [1] + [int(x) for x in np.random.RandomState(70).randint(3, 200,
-                                                                    13)]
-    (first,), _ = _serve_both(pairs[arch], "ck-a", [base], 400)
-    ext = base + first + [9, 4, 11]
-    hits = []
-    for te, req, spc in ((jte, JRequest, JSamplingParams),
-                         (tte, Request, SamplingParams)):
-        _submit(te, req, spc, "ck-b", ext, _mem(tte.cfg, 400))
-        hits.append(te._seqs["ck-b"].n_cached)
-    assert hits[0] == hits[1] == len(base) + len(first) - 1
-    want = {c.req_id: c.tokens for c in jte.run_to_completion()}
-    got = {c.req_id: c.tokens for c in tte.run_to_completion()}
-    assert got["ck-b"] == want["ck-b"] and len(got["ck-b"]) == 6

@@ -1,7 +1,6 @@
 """The port's fine-tune state against the JAX package, on the CPU: the data
 pipeline, ``train()`` over several AdamW steps, checkpoints written by
-either package and restored by the other, resume after a crash, and the
-launcher.
+either package and restored by the other, and resume after a crash.
 
 Held here, with the tolerances stated in each test:
 
@@ -22,14 +21,10 @@ Held here, with the tolerances stated in each test:
     both bit for bit, bf16 leaves included;
   * resume equivalence as ``tests/test_system.py`` holds it (danube
     smoke: 8 steps straight against 4 + checkpoint + resume 4, params
-    within atol 1e-5), port against port;
-  * ``launch/train.py --smoke --device cpu`` as a subprocess: a run, then
-    one that checkpoints and one that resumes from it."""
+    within atol 1e-5), port against port.
+The launcher, ``launch/train.py``, is run in ``test_torch_launchers.py``."""
 import json
 import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -52,18 +47,7 @@ from repro_torch.models.model_factory import get_model
 from repro_torch.training import (CheckpointManager, OptimizerConfig,
                                   TrainConfig, init_opt_state, train)
 from repro_torch.training import tree as TR
-
-ROOT = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Smoke-size torch ops gain nothing from intra-op threads, and the
-    suite runs several workers on a few cores: one thread each here."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from test_torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _f32(x):
@@ -306,35 +290,3 @@ def test_train_resume_equivalence(tmp_path):
                                    err_msg=path)
     state = ck.restore({"params": p_res, "opt": init_opt_state(p_res)})
     assert int(state["opt"]["step"]) == 8
-
-
-# ---------------------------------------------------------------------------
-# the launcher
-# ---------------------------------------------------------------------------
-
-
-def _launch(*args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--device", "cpu", "--seq-len", "16", "--batch", "2", *args],
-        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    return out.stdout
-
-
-def test_launcher_trains_on_the_cpu():
-    out = _launch("--steps", "4")
-    assert "qwen3-8b-smoke: 4 layers" in out and "float32, on cpu" in out
-    first, last = (float(x) for x in
-                   out.split("done: loss ")[1].split(" in ")[0].split(" -> "))
-    assert np.isfinite(first) and np.isfinite(last)
-
-
-def test_launcher_checkpoints_and_resumes(tmp_path):
-    ck = str(tmp_path / "ck")
-    _launch("--steps", "4", "--ckpt-dir", ck, "--ckpt-every", "2")
-    assert CheckpointManager(ck).list_steps() == [2, 4]
-    out = _launch("--steps", "6", "--ckpt-dir", ck, "--resume")
-    assert "resumed from step 4" in out
-    assert CheckpointManager(ck).list_steps() == [2, 4, 6]
