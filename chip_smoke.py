@@ -194,12 +194,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                 decode steps, recurrentgemma's on a ring cache of 2304
                 slots (the last positions at slot t mod 2304) with the
                 tokens of a linear cache with room (up to a bf16 tie);
-                danube, mixtral and gemma2 not run, each with its bytes;
+                mixtral and gemma2 not run, each with its bytes;
                 (e) train_4k, qwen3-8b at 8 layers, 2 x 4096 tokens in 2
                 microbatches, remat, through the plain blockwise flash and
                 through the naive form: step ms and peak memory, no
-                launch. Phase 9 runs in a process of its own whose
-                allocator maps expandable segments (``phase9_process``).
+                launch; (f) the long path on a TE of tp 2 (both ranks on
+                the card) at full width cut to 2 fp32 layers
+                (recurrentgemma 3: 2 RG-LRU + 1 attention): qwen3-8b's
+                single-shot prefill of 8192 tokens into 8208 positions,
+                danube's linear cache with the windowed decode off and on
+                and its ring, gemma2's local/global cache with the
+                softcap, recurrentgemma's ring with replicated attention;
+                each the prefill then 16 greedy steps at tp 2 and at tp
+                1: logits within 1e-4 + 1e-5 |tp 1|, greedy tokens equal,
+                the joined rank caches within the same, flash_prefill
+                launched once per attention layer per rank of the heads;
+                then the dense entry in bf16 at one rank's heads (H / 2,
+                Hkv / 2) of qwen3, danube and gemma2 over 8192 tokens
+                against the plain blockwise function, with kernel /
+                plain / SDPA ms and the bound; (g) qwen3-8b's prefill
+                builder on a tp-2 mesh (2 fp32 layers, 32,768 tokens),
+                its rank caches joined against the tp-1 builder's, each
+                placed by decode_cache and decoded 16 greedy steps; (h)
+                danube's long_500k at full depth (24 layers, bf16, B 1):
+                the builder places each layer's K/V into a 4352-slot ring
+                as it makes them (bit for bit the stacked builder cache
+                placed by decode_cache, checked at 32,768 tokens), then
+                524,288 tokens (24 flash_prefill launches, peak GiB, the
+                ring's bytes against 48.3 GB stacked) and 16 greedy steps
+                on the ring. Phase 9 runs in a process of its own whose
+                allocator maps expandable segments (``phase9_process``)
+                and prints its seconds.
  10. switches — the reference engine's switches through the entry points,
                 at full width and depth, each against the engine's
                 defaults: qwen3-8b on 8 greedy requests of 64-1024 random
@@ -3653,10 +3678,13 @@ def long_500k_hybrid(dev):
 
 def long_500k_skipped():
     """(d) the windowed archs long_500k is not run for on one card, each
-    with the bytes that keep it off (computed from the configs)."""
+    with the bytes that keep it off (computed from the configs): gemma2's
+    global layers' cache; mixtral's MoE dispatch, whose capacity rows
+    (tokens x top-k x capacity factor) hold a (rows, d_expert) bf16 tensor
+    per up / gate projection."""
     from repro_torch.configs import get_config
     out = []
-    for name in ("h2o-danube-3-4b", "mixtral-8x7b", "gemma2-9b"):
+    for name in ("mixtral-8x7b", "gemma2-9b"):
         cfg = get_config(name)
         cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT.get(name,
                                                               cfg.n_layers))
@@ -3667,15 +3695,331 @@ def long_500k_skipped():
             why = (f"{gb:.1f} GB of cache for its {glob} global layers "
                    f"alone")
         else:
-            gb = LONG_S * _kv_bytes_per_token(cfg) / 1e9
-            why = (f"{gb:.1f} GB of the builder's stacked K/V "
-                   f"({cfg.n_layers} layers) beside {weights:.1f} GB of bf16 "
-                   f"weights and {LONG_S * cfg.d_ff * 2 / 1e9:.1f} GB a "
-                   f"tensor of MLP activations")
+            moe = cfg.moe
+            rows = int(LONG_S * moe.top_k * moe.capacity_factor)
+            gb = rows * moe.d_expert * 2 / 1e9
+            why = (f"its MoE dispatch: {rows:,} expert rows x "
+                   f"{moe.d_expert} x 2 B = {gb:.1f} GB per up / gate "
+                   f"tensor, beside {weights:.1f} GB of bf16 weights "
+                   f"({cfg.n_layers} layers)")
         log(f"  long_500k {name}: not run on one 80 GB card: {why}")
-        out.append({"arch": name, "layers": cfg.n_layers, "kv_gb": gb,
+        out.append({"arch": name, "layers": cfg.n_layers, "gb": gb,
                     "weights_gb": weights, "reason": why})
     return out
+
+
+def long_500k_danube(dev):
+    """(h) h2o-danube-3-4b at full depth (24 layers, bf16, B 1): the
+    attention builder given ``max_len``/``ring`` places each layer's K/V
+    into a ring of ring_len slots as the layer makes them (position t at
+    slot t mod ring_len), so the 48.3 GB of stacked K/V never exist.
+    First, at PREFILL_S tokens, the ring as made equals the stacked
+    builder's cache placed by ``decode_cache`` bit for bit (and the
+    logits); then the LONG_S-token prefill (one ``flash_prefill`` launch
+    per layer) and DECODE_STEPS greedy steps on the ring (no launch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import serving as S
+    cfg = get_config("h2o-danube-3-4b")
+    params = _long_params(cfg, dev, torch.bfloat16)
+    max_len = LONG_S + DECODE_STEPS
+    made = ST.build_prefill_step(cfg, max_len=max_len, ring=True)
+    with torch.no_grad():
+        toks = _long_tokens(cfg, 1, PREFILL_S, dev, seed=1)
+        ops.reset_launches()
+        lm, ring = made(params, toks, {})
+        ls, stacked = ST.build_prefill_step(cfg)(params, toks, {})
+        n32 = _launched()
+        placed = ST.decode_cache(cfg, stacked, max_len, ring=True)
+        del stacked
+        same = torch.equal(lm, ls) and sorted(ring) == sorted(placed) and \
+            all(torch.equal(ring[k], placed[k]) for k in placed)
+        log(f"  long_500k h2o-danube-3-4b: at {PREFILL_S} tokens the ring "
+            f"as made equals builder + decode_cache bit for bit: {same}; "
+            f"launches {n32}")
+        assert same, "the ring as made differs from builder + decode_cache"
+        assert n32 == {"flash_prefill": 2 * cfg.n_layers}, n32
+        del ring, placed, toks, lm, ls
+        toks = _long_tokens(cfg, 1, LONG_S, dev)
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        (lg, ring), wall, dev_ms = _timed_call(lambda: made(params, toks,
+                                                              {}))
+        n_pre = _launched()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del toks
+        assert n_pre == {"flash_prefill": cfg.n_layers}, n_pre
+        assert bool(torch.isfinite(lg).all()), "non-finite logits"
+        rb = ring["k"].nbytes + ring["v"].nbytes
+        stacked_b = LONG_S * _kv_bytes_per_token(cfg)
+        assert ring["k"].shape[2] == S.ring_len(cfg)
+        dec = ST.build_decode_step(cfg)
+        ops.reset_launches()
+        tok, ms, seq = lg[:, :cfg.vocab_size].argmax(-1), [], []
+        for _ in range(DECODE_STEPS):
+            (lg, ring), _, d = _timed_call(lambda: dec(params, tok, ring))
+            tok = lg[:, :cfg.vocab_size].argmax(-1)
+            ms.append(d)
+            seq.append(int(tok[0]))
+        n_dec = _launched()
+    assert not any(n_dec.values()), n_dec
+    assert bool(torch.isfinite(lg).all())
+    assert all(0 <= t < cfg.vocab_size for t in seq), seq
+    assert int(ring["length"][0]) == LONG_S + DECODE_STEPS
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    log(f"  long_500k h2o-danube-3-4b: prefill {LONG_S} tokens into a "
+        f"{S.ring_len(cfg)}-slot ring in {wall * 1e3:.1f} ms wall, "
+        f"{dev_ms:.1f} ms device, peak {peak:.2f} GiB, launches {n_pre}; "
+        f"ring {rb / 1e9:.3f} GB against {stacked_b / 1e9:.1f} GB stacked; "
+        f"{DECODE_STEPS} greedy steps: step ms median {med:.2f} (first "
+        f"{ms[0]:.2f}); tokens {seq}")
+    del params, ring
+    _release()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "seq": LONG_S,
+            "prefill_wall_s": wall, "prefill_device_ms": dev_ms,
+            "peak_gib": peak, "launches_prefill": n_pre,
+            "launches_placement_check": n32, "placement_bit_equal": same,
+            "ring_slots": S.ring_len(cfg), "ring_kv_bytes": rb,
+            "stacked_kv_bytes": stacked_b, "launches_decode": n_dec,
+            "decode_step_ms": ms, "decode_step_ms_median": med,
+            "tokens": seq}
+
+
+# (f) the long path on a TE of width LONG_TP, every rank on the one card,
+# at full width cut to a few fp32 layers: (arch, layers, ring, windowed
+# decode). Every cache holds LONG_PARITY_S + DECODE_STEPS positions: a
+# linear one takes a LONG_PARITY_S-token prompt, a ring (ring_len slots)
+# one of ring_len - 12 tokens, so the decode steps wrap past its end.
+LONG_TP = 2
+LONG_TP_CASES = (("qwen3-8b", 2, False, False),
+                 ("h2o-danube-3-4b", 2, False, False),
+                 ("h2o-danube-3-4b", 2, False, True),
+                 ("h2o-danube-3-4b", 2, True, False),
+                 ("gemma2-9b", 2, False, False),
+                 ("recurrentgemma-2b", 3, True, False))
+
+
+def _joined_kv(caches):
+    """The attention cache of rank caches, its sequence parts joined."""
+    import torch
+    from repro_torch.launch import sharding as SH
+    return {k: torch.cat(SH.held([c[k] for c in caches]), 2)
+            for k in ("k", "v")}
+
+
+def long_tp_case(name, n_layers, ring, windowed, dev):
+    """(f) one case: ``serving.init_cache`` / ``prefill`` / ``decode_step``
+    at tp LONG_TP and at tp 1 on one fp32 weights tree (the ranks' shards
+    views of it): the prefill (past 2048 slots the single-shot branch,
+    one ``flash_prefill`` launch per attention layer per rank of the
+    heads), then DECODE_STEPS greedy steps each. tp LONG_TP's logits of
+    every step within LONG_ATOL + LONG_RTOL |tp 1|, its greedy tokens
+    equal, its joined K/V within the same tolerance of tp 1's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.models import perf_flags as PF
+    from repro_torch.models import serving as S
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    max_len = LONG_PARITY_S + DECODE_STEPS
+    s = S.ring_len(cfg) - 12 if ring else LONG_PARITY_S
+    params = _long_params(cfg, dev, torch.float32)
+    toks = _long_tokens(cfg, 1, s, dev)
+    la = S.attn_layer_count(cfg)
+    runs = {}
+    PF.set_flags(windowed_decode=windowed)
+    try:
+        for tp in (LONG_TP, 1):
+            mesh = make_engine_mesh(tp, 0, dev)
+            ps = SH.shard(params, SH.te_param_specs(cfg, tp), mesh)
+            caches = S.init_cache(cfg, 1, max_len, torch.float32, mesh,
+                                  ring=ring)
+            with torch.no_grad():
+                ops.reset_launches()
+                lg, _ = S.prefill(cfg, ps, toks, caches, mesh)
+                n_pre = _launched()
+                ops.reset_launches()
+                logits, seq = [lg], []
+                for _ in range(DECODE_STEPS):
+                    tok = lg[:, :cfg.vocab_size].argmax(-1)
+                    seq.append(int(tok[0]))
+                    S.check_room(cfg, caches)
+                    lg, _ = S.decode_step(cfg, ps, tok, caches, mesh)
+                    logits.append(lg)
+                n_dec = _launched()
+            kr = tp if SH.attn_shardable(cfg, tp) else 1
+            held = SH.held([c["k"] for c in caches])
+            # the single-shot branch past JOINT_PREFILL_MAX slots (every
+            # case at full width) launches the kernel
+            want = {"flash_prefill": la * kr} if sum(
+                p.shape[2] for p in held) > S.JOINT_PREFILL_MAX else {}
+            if cfg.rglru is not None:
+                want["rglru"] = (n_layers - la) * tp
+            assert n_pre == want, (name, tp, n_pre, want)
+            runs[tp] = dict(logits=torch.stack(logits), seq=seq,
+                            kv=_joined_kv(caches), launches_prefill=n_pre,
+                            launches_decode=n_dec, kernel_ranks=kr,
+                            slots=[c["k"].shape[2] for c in caches])
+            del caches, ps
+    finally:
+        PF.reset()
+    a, b = runs[LONG_TP], runs[1]
+    kind = ("ring" if ring else "linear") + (", windowed decode"
+                                             if windowed else "")
+    tag = (f"{name} x{n_layers} fp32 tp {LONG_TP} vs tp 1 ({kind}, "
+           f"{max_len} positions, prompt {s})")
+    e = close(f"{tag} logits", a["logits"], b["logits"], LONG_ATOL,
+              LONG_RTOL)
+    ekv = max(close(f"{tag} joined cache {k}", a["kv"][k], b["kv"][k],
+                    LONG_ATOL, LONG_RTOL) for k in ("k", "v"))
+    same = a["seq"] == b["seq"]
+    log(f"  {tag}: greedy tokens equal {same}; rank slots {a['slots']}; "
+        f"launches prefill {a['launches_prefill']} (tp 1 "
+        f"{b['launches_prefill']}), decode {a['launches_decode']}")
+    assert same, (a["seq"], b["seq"])
+    del params, runs
+    _release()
+    return {"arch": name, "layers": n_layers, "tp": LONG_TP, "cache": kind,
+            "positions": max_len, "prompt": s, "rank_slots": a["slots"],
+            "kernel_ranks": a["kernel_ranks"], "max_abs_err_logits": e,
+            "max_abs_err_kv": ekv, "greedy_identical": same,
+            "tokens": a["seq"], "launches_prefill": a["launches_prefill"],
+            "launches_decode": a["launches_decode"],
+            "launches_prefill_tp1": b["launches_prefill"],
+            "launches_decode_tp1": b["launches_decode"]}
+
+
+def long_tp_kernel_row(name, launches, dev):
+    """(f) the dense ``flash_prefill`` entry in bf16 at one rank's heads
+    of ``name`` at tp LONG_TP (H / 2, Hkv / 2), over LONG_PARITY_S tokens,
+    with the arch's window and softcap (gemma2: its local layer's), held
+    against the plain blockwise function at ``check_main_path``'s
+    tolerance; kernel, plain and (where one call computes the function:
+    no softcap) ``scaled_dot_product_attention`` ms (CUDA events), and the
+    card's least time for the pairs the window keeps."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    cfg = get_config(name)
+    s, hd = LONG_PARITY_S, cfg.head_dim
+    h, hkv = cfg.n_heads // LONG_TP, cfg.n_kv_heads // LONG_TP
+    win, cap = cfg.window, cfg.attn_logit_softcap
+    g = torch.Generator(device=dev).manual_seed(29)
+    q = torch.randn((1, s, h, hd), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, s, hkv, hd), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(s, device=dev)[None]
+    tag = (f"flash_prefill dense {name} one tp-{LONG_TP} rank (H {h} / Hkv "
+           f"{hkv}, hd {hd}, window {win}, softcap {cap}, S {s}, bf16)")
+    with torch.no_grad():
+        out = ops.flash_prefill(q, k, v, cap, win)
+        plain = L.flash_attention(q, k, v, pos, pos, win, cap)
+        e = check_main_path(f"{tag} vs plain blockwise", out, plain, True)
+        ms = time_ms(lambda: ops.flash_prefill(q, k, v, cap, win), iters=5,
+                     warmup=1)
+        plain_ms = time_ms(lambda: L.flash_attention(q, k, v, pos, pos, win,
+                                                     cap), iters=1, warmup=0)
+        library_ms = None
+        if cap is None:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = None if win is None else L.causal_mask(pos[0], pos[0],
+                                                          win)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), iters=5, warmup=1)
+    w = s if win is None else win
+    pairs = sum(min(i + 1, w) for i in range(s))
+    nbytes = 2 * (2 * s * h * hd) + 2 * 2 * s * hkv * hd
+    bound, by = _bound(nbytes, 4 * h * hd * pairs, BF16_FLOPS)
+    lib = "none (no call softcaps)" if library_ms is None \
+        else f"{library_ms:.3f}"
+    log(f"  {tag}: kernel_ms {ms:.3f}; plain_ms {plain_ms:.3f}; library_ms "
+        f"{lib}; bound_ms {bound:.3f} ({by}); bound / kernel "
+        f"{bound / ms:.3f}; launches {launches}")
+    del q, k, v, out, plain
+    _release()
+    return {"name": "flash_prefill", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_prefill.cu",
+            "replaces": "src/repro/kernels/flash_prefill.py:76",
+            "arch": name, "tp": LONG_TP, "seq": s, "heads": [h, hkv],
+            "head_dim": hd, "window": win, "softcap": cap,
+            "dtype": "bfloat16", "launches": launches, "max_abs_err": e,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms}
+
+
+# (g) the prefill builder on a mesh: qwen3-8b at 2 fp32 layers over
+# PREFILL_S tokens
+LONG_TP_BUILDER = ("qwen3-8b", 2)
+
+
+def long_tp_builders(dev):
+    """(g) ``build_prefill_step(mesh=...)`` at tp LONG_TP and at tp 1 on
+    one fp32 weights tree: the logits and the joined rank caches within
+    LONG_ATOL + LONG_RTOL |tp 1| (one ``flash_prefill`` launch per layer
+    per rank), then each cache placed by ``decode_cache(mesh=...)`` into a
+    linear cache with room and DECODE_STEPS greedy steps through
+    ``build_decode_step(mesh=...)``: logits within the same tolerance,
+    tokens equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_engine_mesh
+    name, n_layers = LONG_TP_BUILDER
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    params = _long_params(cfg, dev, torch.float32)
+    toks = _long_tokens(cfg, 1, PREFILL_S, dev)
+    runs = {}
+    for tp in (LONG_TP, 1):
+        mesh = make_engine_mesh(tp, 0, dev)
+        ps = SH.shard(params, SH.te_param_specs(cfg, tp), mesh)
+        with torch.no_grad():
+            ops.reset_launches()
+            lg, caches = ST.build_prefill_step(cfg, mesh=mesh)(ps, toks, {})
+            n = _launched()
+            kv = _joined_kv(caches)
+            dc = ST.decode_cache(cfg, caches, PREFILL_S + DECODE_STEPS,
+                                 mesh=mesh)
+            del caches
+            dec = ST.build_decode_step(cfg, mesh=mesh)
+            logits, seq = [lg], []
+            for _ in range(DECODE_STEPS):
+                tok = lg[:, :cfg.vocab_size].argmax(-1)
+                seq.append(int(tok[0]))
+                lg, dc = dec(ps, tok, dc)
+                logits.append(lg)
+        assert n == {"flash_prefill": n_layers * tp}, (tp, n)
+        runs[tp] = dict(logits=torch.stack(logits), seq=seq, kv=kv,
+                        launches=n, slots=[c["k"].shape[2] for c in dc])
+        del dc, ps
+        _release()
+    a, b = runs[LONG_TP], runs[1]
+    tag = (f"{name} x{n_layers} fp32 builder S {PREFILL_S} tp {LONG_TP} vs "
+           f"tp 1")
+    e = close(f"{tag} logits (prefill + {DECODE_STEPS} steps)", a["logits"],
+              b["logits"], LONG_ATOL, LONG_RTOL)
+    ekv = max(close(f"{tag} joined cache {k}", a["kv"][k], b["kv"][k],
+                    LONG_ATOL, LONG_RTOL) for k in ("k", "v"))
+    same = a["seq"] == b["seq"]
+    log(f"  {tag}: greedy tokens equal {same}; decode cache rank slots "
+        f"{a['slots']}; launches {a['launches']} (tp 1 {b['launches']})")
+    assert same, (a["seq"], b["seq"])
+    del params, runs
+    _release()
+    return {"arch": name, "layers": n_layers, "seq": PREFILL_S,
+            "tp": LONG_TP, "max_abs_err_logits": e, "max_abs_err_kv": ekv,
+            "greedy_identical": same, "tokens": a["seq"],
+            "launches": a["launches"], "launches_tp1": b["launches"]}
 
 
 def train_4k(dev):
@@ -3745,11 +4089,12 @@ def train_4k(dev):
 
 
 def phase9(dev):
-    """The reference's long-context shapes on the card, (a)-(e); every
+    """The reference's long-context shapes on the card, (a)-(h); every
     cut printed. Returns the {"long": ...} row, with the launches of the
     long path's kernels (the qwen3 32k prefill, the 524k prefills and
-    decodes)."""
+    decodes, the tp-2 long path and builders, danube's ring as made)."""
     from repro_torch.configs import SHAPES, get_config
+    t9 = time.monotonic()
     log(f"phase 9: long — cuts: prefill_32k B 1 of "
         f"{SHAPES['prefill_32k'].global_batch}; decode_32k B {DECODE_B} of "
         f"{SHAPES['decode_32k'].global_batch} ({DECODE_STEPS} steps); "
@@ -3757,9 +4102,20 @@ def phase9(dev):
         f"{TRAIN4K_ARCH} at {TRAIN4K_LAYERS} layers, B {TRAIN4K_B} of "
         f"{SHAPES['train_4k'].global_batch} in {TRAIN4K_MICRO} "
         f"microbatches; kernel-vs-plain rows at "
-        f"{LONG_PARITY_S} tokens, 2 fp32 layers [{time.monotonic() - T0:.1f} "
-        f"s]")
+        f"{LONG_PARITY_S} tokens, 2 fp32 layers; tp {LONG_TP} at 2 fp32 "
+        f"layers (recurrentgemma 3) [{time.monotonic() - T0:.1f} s]")
     out = {"parity": [long_parity(n, k, dev) for n, k in LONG_PARITY]}
+    log(f"phase 9: the long path at tp {LONG_TP} [{time.monotonic() - T0:.1f}"
+        f" s]")
+    out["long_tp"] = [long_tp_case(*c, dev) for c in LONG_TP_CASES]
+    tp_launches = {}          # each arch's per-rank launches at tp 2
+    for r in out["long_tp"]:
+        tp_launches[r["arch"]] = tp_launches.get(r["arch"], 0) + \
+            r["launches_prefill"].get("flash_prefill", 0)
+    out["tp_kernels"] = [long_tp_kernel_row(n, tp_launches[n], dev)
+                         for n in ("qwen3-8b", "h2o-danube-3-4b",
+                                   "gemma2-9b")]
+    out["long_tp_builders"] = long_tp_builders(dev)
     log(f"phase 9: prefill_32k / decode_32k [{time.monotonic() - T0:.1f} s]")
     out["kernel_32k"] = long_kernel_row(dev)
     out["kernel_checks"] = long_kernel_checks(dev)
@@ -3775,19 +4131,34 @@ def phase9(dev):
     out["decode_32k_parity"] = decode_parity("qwen3-8b", dev)
     log(f"phase 9: long_500k [{time.monotonic() - T0:.1f} s]")
     out["long_500k"] = [long_500k_rwkv(dev), long_500k_hybrid(dev)]
+    log(f"phase 9: long_500k h2o-danube-3-4b [{time.monotonic() - T0:.1f} "
+        f"s]")
+    out["long_500k"].append(long_500k_danube(dev))
     out["long_500k_not_run"] = long_500k_skipped()
     log(f"phase 9: train_4k [{time.monotonic() - T0:.1f} s]")
     out["train_4k"] = train_4k(dev)
-    rw, rg = out["long_500k"]
+    rw, rg, dn = out["long_500k"]
+    tp_runs = [r[k] for r in out["long_tp"]
+               for k in ("launches_prefill", "launches_decode",
+                         "launches_prefill_tp1", "launches_decode_tp1")]
+    tp_runs += [out["long_tp_builders"][k] for k in ("launches",
+                                                      "launches_tp1")]
+
+    def tp_sum(name):
+        return sum(r.get(name, 0) for r in tp_runs)
     launches = {
         "flash_prefill": out["prefill_32k"][0]["launches"]["flash_prefill"]
-        + rg["launches_prefill"]["flash_prefill"],
+        + rg["launches_prefill"]["flash_prefill"]
+        + dn["launches_prefill"]["flash_prefill"]
+        + dn["launches_placement_check"]["flash_prefill"]
+        + tp_sum("flash_prefill"),
         "wkv6": rw["launches_prefill"]["wkv6"] + rw["launches_decode"]["wkv6"],
         "rglru": rg["launches_prefill"]["rglru"]
-        + rg["launches_decode"]["rglru"]}
+        + rg["launches_decode"]["rglru"] + tp_sum("rglru")}
     out["launches"] = launches
-    log(f"phase 9 done: launches on the long path {launches} "
-        f"[{time.monotonic() - T0:.1f} s]")
+    out["seconds"] = time.monotonic() - t9
+    log(f"phase 9 done in {out['seconds']:.1f} s: launches on the long path "
+        f"{launches} [{time.monotonic() - T0:.1f} s]")
     return out
 
 

@@ -84,9 +84,12 @@
 //    read. Tiles with entry -1 cover the bucket's padding and write zeros;
 //    unused tile slots (end <= start) exit.
 //  * fp32 inputs (the sweeps, the fp32 parity runs) go through an exact
-//    fp32 CUDA-core body: one block per (16-token half tile, KV head),
-//    pages staged in shared memory, one thread per (row, key) score. It is
-//    chosen by dtype (no TF32), not a fallback.
+//    fp32 CUDA-core body: one block per (16-token half tile, KV head, head
+//    chunk), pages staged in shared memory, one thread per (row, key)
+//    score. A head chunk is the most of the KV head's G query heads (a
+//    divisor of G) whose rows fit the card's shared memory: all G at
+//    every shape but recurrentgemma's (G 10, hd 256: 416 KB for 160 rows,
+//    so 5 chunks of 2). It is chosen by dtype (no TF32), not a fallback.
 //  * The dense entry point (kernels/flash_prefill.py::flash_prefill, the
 //    Pallas signature) views (B, S, Hkv, hd) K/V as B contiguous one-entry
 //    page runs (padded to a multiple of 16 rows for bf16) and launches the
@@ -118,21 +121,24 @@ prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_page
                    const int* __restrict__ entry_bt,
                    const int* __restrict__ entry_start,
                    const int* __restrict__ tiles, float* __restrict__ out,
-                   int H, int Hkv, int hd, int P, int Pb, int ppi,
+                   int H, int Hkv, int GC, int hd, int P, int Pb, int ppi,
                    float scale, float softcap, int window) {
-  const int kvh = blockIdx.y, t = threadIdx.x;
+  // block y: (KV head, head chunk of GC of its H / Hkv query heads)
+  const int n_hc = H / Hkv / GC;
+  const int kvh = blockIdx.y / n_hc, t = threadIdx.x;
+  const int h0 = kvh * (H / Hkv) + (blockIdx.y - kvh * n_hc) * GC;
   const int* tl = tiles + 3 * (blockIdx.x >> 1);   // block: half a tile
   const int entry = tl[0], t0 = tl[1] + (blockIdx.x & 1) * SUB;
   const int t1 = min(min(tl[2], tl[1] + BQ), t0 + SUB);
   if (t1 <= t0) return;                        // unused tile slot or half
-  const int G = H / Hkv;
+  const int G = GC;                            // query heads of this block
   const int n = t1 - t0;
   const int R = SUB * G;                       // rows: token-major (i*G + g)
   if (entry < 0) {                             // bucket padding: zeros
     for (int e = t; e < n * G * hd; e += NT_F32) {
       const int r = e / hd, d = e - r * hd;
       const int i = r / G, g = r - i * G;
-      out[((long long)(t0 + i) * H + kvh * G + g) * hd + d] = 0.f;
+      out[((long long)(t0 + i) * H + h0 + g) * hd + d] = 0.f;
     }
     return;
   }
@@ -154,7 +160,7 @@ prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_page
   for (int e = t; e < n * G * hd; e += NT_F32) {
     const int r = e / hd, d = e - r * hd;
     const int i = r / G, g = r - i * G;
-    q_s[r * hdp + d] = q[((long long)(t0 + i) * H + kvh * G + g) * hd + d];
+    q_s[r * hdp + d] = q[((long long)(t0 + i) * H + h0 + g) * hd + d];
   }
   for (int e = t; e < R * hd; e += NT_F32) acc_s[e] = 0.f;
   for (int r = t; r < R; r += NT_F32) { m_s[r] = NEG; l_s[r] = 0.f; }
@@ -219,7 +225,7 @@ prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_page
   for (int e = t; e < n * G * hd; e += NT_F32) {
     const int r = e / hd, d = e - r * hd;
     const int i = r / G, g = r - i * G;
-    out[((long long)(t0 + i) * H + kvh * G + g) * hd + d] =
+    out[((long long)(t0 + i) * H + h0 + g) * hd + d] =
         acc_s[e] / fmaxf(l_s[r], 1e-30f);
   }
 }
@@ -229,12 +235,26 @@ int launch_f32(const void* q, const void* k, const void* v, const void* cu,
                int n_tiles, int H, int Hkv, int hd, int P, int Pb,
                float softcap, int window, cudaStream_t stream) {
   const int G = H / Hkv;
-  const int R = SUB * G;
   const int ppi = P >= 32 ? 1 : 32 / P;
   const int KC = ppi * P;
-  const size_t smem = sizeof(float) *
-      ((size_t)R * (hd + 1) + (size_t)KC * (hd + 1) + (size_t)KC * hd +
-       (size_t)R * KC + (size_t)R * hd + 3 * (size_t)R);
+  int dev = 0, optin = 0;
+  cudaError_t qe = cudaGetDevice(&dev);
+  if (qe == cudaSuccess)
+    qe = cudaDeviceGetAttribute(&optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (qe != cudaSuccess) return (int)qe;
+  // the head chunk: the most query heads (a divisor of G) whose rows fit
+  int GC = G;
+  size_t smem = 0;
+  for (; GC >= 1; --GC) {
+    if (G % GC) continue;
+    const size_t R = (size_t)SUB * GC;
+    smem = sizeof(float) *
+        (R * (hd + 1) + (size_t)KC * (hd + 1) + (size_t)KC * hd + R * KC +
+         R * hd + 3 * R);
+    if (smem <= (size_t)optin) break;
+  }
+  if (GC < 1) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         prefill_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -243,10 +263,11 @@ int launch_f32(const void* q, const void* k, const void* v, const void* cu,
   }
   if (n_tiles <= 0) return 0;
   const float scale = 1.0f / sqrtf((float)hd);
-  prefill_f32_kernel<<<dim3(2 * n_tiles, Hkv), NT_F32, smem, stream>>>(
+  prefill_f32_kernel<<<dim3(2 * n_tiles, Hkv * (G / GC)), NT_F32, smem,
+                       stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)cu,
       (const int*)ebt, (const int*)est, (const int*)tiles, (float*)out, H,
-      Hkv, hd, P, Pb, ppi, scale, softcap, window);
+      Hkv, GC, hd, P, Pb, ppi, scale, softcap, window);
   return (int)cudaGetLastError();
 }
 

@@ -1,19 +1,31 @@
 """Step builders for the reference's shapes (the counterpart of
-``repro/launch/steps.py``): one builder per step kind, each returning a
-function over the port's weights tree (one rank).
+``repro/launch/steps.py``): one builder per step kind.
 
   * ``build_train_step`` — ``training/train_loop.py::make_train_step``
     (forward with remat -> grads -> AdamW), re-exported.
   * ``build_prefill_step`` — prompt -> (last-position logits, cache) from
-    scratch, one builder per family (dense and MoE, VLM, enc-dec, rwkv,
-    hybrid). The cache holds each attention layer's fresh K/V stacked,
-    with no scatter into a preallocated cache: what a PD-disaggregated
-    prefill TE ships to a decode TE. Past 2048 tokens the attention is
-    ``transformer.self_attention``'s blockwise route: the dense
-    ``flash_prefill`` kernel on the card under ``impl="auto"``; the rwkv
-    and hybrid towers run the WKV6 and RG-LRU kernels as serving does.
-  * ``build_decode_step`` — ``serving.decode_step`` on one cache, after
+    scratch, every family (dense and MoE, VLM, enc-dec, rwkv, hybrid)
+    through one body: ``serving.tower``'s layers from zeroed caches, each
+    attention layer's queries over the prompt's own fresh K/V
+    (``serving.fresh_heads``: past 2048 tokens the dense ``flash_prefill``
+    kernel on the card under ``impl="auto"``, one launch per rank of the
+    heads), the rwkv and hybrid towers' WKV6 and RG-LRU as serving runs
+    them. The cache holds position t of every attention layer at slot t,
+    with no room: what a PD-disaggregated prefill TE ships to a decode
+    TE. Given ``max_len`` (and ``ring``), each layer's K/V go straight
+    into the decode cache ``decode_cache`` would make, as the layer makes
+    them, so the stacked cache never exists (h2o-danube-3-4b's long_500k:
+    48.3 GB stacked, a 4352-slot ring 0.40 GB).
+  * ``build_decode_step`` — ``serving.decode_step``, after
     ``serving.check_room``.
+
+Over a mesh (``mesh=EngineMesh``) the functions take the ranks' weights
+trees (``sharding.shard``) and rank caches split by
+``sharding.engine_cache_specs`` (the attention layers' sequence, the rwkv
+heads, the RG-LRU width), as the reference's prefill step emits its cache
+under ``cache_specs`` (``dryrun.py:167-172``); they return rank caches.
+Without one they take one weights tree and one cache on the inputs'
+device, as the reference's builders do: the mesh of one rank.
 
 The builders' caches hold exactly the prompt's S positions, so a decode
 step on one has no room (the reference's scatter would drop the new
@@ -24,19 +36,19 @@ dtypes, nothing allocated) in place of the reference's
 ShapeDtypeStructs."""
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.launch.mesh import one_rank
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import EngineMesh, one_rank
 from repro_torch.models import perf_flags as PF
 from repro_torch.models import serving as S
 from repro_torch.models import transformer as T
 from repro_torch.training.train_loop import (  # noqa: F401
     make_train_step as build_train_step)
 
-Cache = Dict[str, Any]
 
 
 def example_batch(cfg: ModelConfig, shape: ShapeConfig,
@@ -77,214 +89,140 @@ def default_microbatches(cfg: ModelConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Prefill (from scratch, cache as stacked fresh K/V)
+# Prefill (from scratch) and decode
 # ---------------------------------------------------------------------------
 
 
 def build_prefill_step(cfg: ModelConfig, attn_impl: str = "flash",
-                       impl: str = "auto") -> Callable:
+                       impl: str = "auto", mesh: Optional[EngineMesh] = None,
+                       max_len: Optional[int] = None,
+                       ring: bool = False) -> Callable:
     """``prefill(params, tokens, extra) -> (logits (B, Vp), cache)`` for
     ``cfg``'s family; ``extra`` carries ``vision_embeds`` (VLM) or
     ``frames`` (enc-dec). Attention is naive up to 2048 tokens and
     blockwise past them unless ``attn_impl`` is "naive"; ``impl`` routes
-    the blockwise attention and the recurrences (``ops``)."""
-    if cfg.attn_kind == "rwkv":
-        return _prefill_rwkv(cfg, impl)
-    if cfg.attn_kind == "hybrid_rglru":
-        return _prefill_hybrid(cfg, attn_impl, impl)
-    return _prefill_attn(cfg, attn_impl, impl)
-
-
-def _block_with_kv(cfg, p, x, positions, win, attn_impl, impl):
-    """A pre-norm attention block that also returns its fresh K/V
-    (``steps.py:150-166``)."""
-    mesh = one_rank(x.device)
-    (q, k, v), = T.block_qkv(cfg, [p], x, [positions], mesh)
-    mode = "naive" if attn_impl == "naive" or q.shape[1] <= T.FLASH_SWITCH \
-        else "flash"
-    o = T.self_attention(cfg, q, k, v, positions, positions, win, mode,
-                         impl=impl, from_scratch=True)
-    del q
-    b, s = x.shape[:2]
-    return T.block_out(cfg, [p], x, [o], mesh,
-                       groups=T.moe_groups(b * s)), k, v
-
-
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    b, s = tokens.shape
-    return torch.arange(s, device=tokens.device).expand(b, s)
-
-
-def _kv_out(cfg: ModelConfig, n: int, x: torch.Tensor) -> torch.Tensor:
-    """Room for ``n`` layers' stacked K (or V) of the prompt in ``x``."""
-    b, s = x.shape[:2]
-    return torch.empty((n, b, s, cfg.n_kv_heads, cfg.head_dim),
-                       dtype=x.dtype, device=x.device)
-
-
-def _length(tokens: torch.Tensor) -> torch.Tensor:
-    b, s = tokens.shape
-    return torch.full((b,), s, dtype=torch.int32, device=tokens.device)
-
-
-def _prefill_attn(cfg, attn_impl, impl):
-    """The dense and MoE towers (``steps.py:169-187``), and the cross
-    towers: a VLM's gated cross block after every ``cross_attn_every``
-    layers over ``vision_embeds`` (``steps.py:190-228``), an enc-dec
-    model's cross block after every layer over the encoded ``frames``
-    (``steps.py:231-253``; the encoder blockwise at every length, as
-    there)."""
-    cross = T.cross_schedule(cfg)
-
-    def prefill(params, tokens, extra):
-        mesh = one_rank(tokens.device)
-        positions = _positions(tokens)
-        x = T.embed(cfg, [params], tokens, mesh)
-        mem = extra.get("vision_embeds")
+    the blockwise attention and the recurrences (``ops``). ``mesh``: the
+    ranks (module docstring). ``max_len`` / ``ring``: the cache is
+    ``decode_cache(cfg, cache, max_len, ring)``, placed as it is made
+    (``ring=False``: linear, ``max_len`` at least the prompt's length)."""
+    def prefill(ps, tokens, extra, mesh):
+        b, s = tokens.shape
+        caches = S.init_cache(cfg, b, s if max_len is None else max_len,
+                              ps[0]["embed"].dtype, mesh, ring=ring)
+        c0 = caches[0]
+        x = T.embed(cfg, ps, tokens, mesh)
+        if cfg.vision is not None:
+            S.fill_cross_cache(cfg, ps, extra["vision_embeds"], c0, mesh)
         if cfg.encoder is not None:
-            mem = T.encode(cfg, [params], extra["frames"], mesh,
-                           attn_impl="flash")
-        ks, vs = _kv_out(cfg, cfg.n_layers, x), _kv_out(cfg, cfg.n_layers, x)
-        cache: Cache = {}
-        if cross:
-            n_cross = len(cross)
-            cache["cross_k"] = torch.empty(
-                (n_cross, x.shape[0], mem.shape[1], cfg.n_kv_heads,
-                 cfg.head_dim), dtype=x.dtype, device=x.device)
-            cache["cross_v"] = torch.empty_like(cache["cross_k"])
-        for li, win in enumerate(T.window_schedule(cfg)):
-            x, ks[li], vs[li] = _block_with_kv(cfg, T.layer(params, li), x,
-                                               positions, win, attn_impl,
-                                               impl)
-            if li in cross:
-                ci, gated = cross[li]
-                pc = T.layer(params, ci, "cross_blocks")
-                mk, mv = T.memory_kv(cfg, [pc["attn"]], mem, mesh)
-                x = T.cross_block_apply(cfg, [pc], x, mk, mv, gated, mesh)
-                cache["cross_k"][ci], cache["cross_v"][ci] = mk, mv
-        logits = T.unembed(cfg, [params], x[:, -1:], mesh)[:, 0]
-        cache.update(k=ks, v=vs, length=_length(tokens))
+            S.fill_cross_cache(cfg, ps, T.encode(
+                cfg, ps, extra["frames"], mesh, attn_impl="flash"), c0, mesh)
+        pos = mesh.broadcast(torch.arange(s, device=tokens.device).expand(
+            b, s))
+        mode = "naive" if attn_impl == "naive" or s <= T.FLASH_SWITCH \
+            else "flash"
+        groups = T.moe_groups(b * s)
+        kv = {key: SH.held([c[key] for c in caches])
+              for key in ("k", "v") if key in c0}
+
+        def attend(lps, x, ai, win):
+            # a pre-norm attention block that places its fresh K/V
+            # (``steps.py:150-166``)
+            qkv = T.block_qkv(cfg, lps, x, pos, mesh)
+            outs = S.fresh_heads(cfg, qkv, pos, win, mode, impl)
+            for i, key in ((1, "k"), (2, "v")):
+                _place_kv([part[ai] for part in kv[key]],
+                          mesh.all_gather([t[i] for t in qkv], 2), ring)
+            del qkv
+            return T.block_out(cfg, lps, x, outs, mesh, groups=groups)
+        x = S.tower(cfg, ps, x, caches, mesh, attend, None, impl)
+        c0["length"].fill_(s)
+        return T.unembed(cfg, ps, x[:, -1:], mesh)[:, 0], caches
+
+    if mesh is not None:
+        return lambda ps, tokens, extra: prefill(ps, tokens, extra, mesh)
+
+    def one_tree(params, tokens, extra):
+        logits, (cache,) = prefill([params], tokens, extra,
+                                   one_rank(tokens.device))
         return logits, cache
-
-    return prefill
-
-
-def _prefill_rwkv(cfg, impl):
-    """``steps.py:256-276``: every layer from zero states; the cache holds
-    each layer's final state and token-shift inputs."""
-    nh, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
-
-    def prefill(params, tokens, extra):
-        mesh = one_rank(tokens.device)
-        b = tokens.shape[0]
-        x = T.embed(cfg, [params], tokens, mesh)
-        dev = x.device
-        state = torch.zeros((cfg.n_layers, b, nh, hd, hd),
-                            dtype=torch.float32, device=dev)
-        last = torch.zeros((cfg.n_layers, 2, b, cfg.d_model), dtype=x.dtype,
-                           device=dev)
-        zero = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=dev)
-        for li in range(cfg.n_layers):
-            # the recurrence advances state[li] in place
-            x, last[li, 0], last[li, 1] = T.rwkv_block_apply(
-                cfg, [T.layer(params, li)], x, [state[li]], zero, zero, mesh,
-                impl=impl)
-        logits = T.unembed(cfg, [params], x[:, -1:], mesh)[:, 0]
-        return logits, {"state": state, "last_tm": last[:, 0],
-                        "last_cm": last[:, 1], "length": _length(tokens)}
-
-    return prefill
+    return one_tree
 
 
-def _prefill_hybrid(cfg, attn_impl, impl):
-    """``steps.py:279-311``: RG-LRU blocks from zero states, local
-    attention blocks at the window; the cache stacks the attention
-    layers' K/V and the recurrent blocks' states and conv inputs."""
-    w, cw = cfg.rglru.lru_width, cfg.rglru.conv1d_width
-    win = cfg.window or T.GLOBAL_WINDOW
-
-    def prefill(params, tokens, extra):
-        mesh = one_rank(tokens.device)
-        positions = _positions(tokens)
-        b = tokens.shape[0]
-        x = T.embed(cfg, [params], tokens, mesh)
-        dev = x.device
-        n_attn = S.attn_layer_count(cfg)
-        n_rec = cfg.n_layers - n_attn
-        ks, vs = _kv_out(cfg, n_attn, x), _kv_out(cfg, n_attn, x)
-        # copied in: a block's conv state is a view of its whole
-        # conv input (2.7 GB at 524,288 tokens of recurrentgemma-2b)
-        hs = torch.empty((n_rec, b, w), dtype=torch.float32, device=dev)
-        convs = torch.empty((n_rec, b, cw - 1, w), dtype=x.dtype,
-                            device=dev)
-        ri = ai = 0
-        for kind in cfg.layer_kinds():
-            if kind == "rglru":
-                x, (hs[ri],), (convs[ri],) = T.rglru_block_apply(
-                    cfg, [params["rglru_blocks"][ri]], x,
-                    [torch.zeros((b, w), dtype=torch.float32, device=dev)],
-                    [torch.zeros((b, cw - 1, w), dtype=x.dtype, device=dev)],
-                    mesh, impl=impl)
-                ri += 1
-            else:
-                x, ks[ai], vs[ai] = _block_with_kv(
-                    cfg, params["attn_blocks"][ai], x, positions, win,
-                    attn_impl, impl)
-                ai += 1
-        logits = T.unembed(cfg, [params], x[:, -1:], mesh)[:, 0]
-        return logits, {"k": ks, "v": vs, "h": hs, "conv": convs,
-                        "length": _length(tokens)}
-
-    return prefill
+def _place_kv(parts: List[torch.Tensor], new: torch.Tensor,
+              ring: bool) -> None:
+    """One layer's K or V of positions 0..S-1 (``new`` (B, S, Hkv, hd))
+    into a cache's sequence parts (B, Sr, Hkv, hd), rank r's holding slots
+    r*Sr..(r+1)*Sr-1 of ``slots``: position t at slot t of a linear cache
+    (S <= slots), the last ``slots`` positions at slot t mod slots of a
+    ring. Slices copied in place; slots no position reaches are kept."""
+    s, sr = new.shape[1], parts[0].shape[1]
+    slots = sr * len(parts)
+    if not ring and s > slots:
+        raise ValueError(f"{s} prompt positions do not fit a linear cache "
+                         f"of {slots}")
+    first = max(0, s - slots)
+    for r, part in enumerate(parts):
+        for lap in (first // slots, first // slots + 1):
+            lo = lap * slots + r * sr      # the position at the part's slot 0
+            a, b = max(first, lo), min(s, lo + sr)
+            if a < b:
+                part[:, a - lo:b - lo].copy_(new[:, a:b])
 
 
-# ---------------------------------------------------------------------------
-# Decode
-# ---------------------------------------------------------------------------
-
-
-def build_decode_step(cfg: ModelConfig) -> Callable:
+def build_decode_step(cfg: ModelConfig,
+                      mesh: Optional[EngineMesh] = None) -> Callable:
     """``decode(params, token, cache) -> (logits (B, Vp), cache)``: one
-    ``serving.decode_step`` over one cache, updated in place; a full
-    linear cache raises (``serving.check_room``)."""
-    def decode(params, token, cache):
-        S.check_room(cfg, [cache])
-        logits, (cache,) = S.decode_step(cfg, [params], token, [cache],
-                                         one_rank(token.device))
+    ``serving.decode_step`` over the cache, updated in place; a full
+    linear cache raises (``serving.check_room``). ``mesh``: the ranks."""
+    def decode(ps, token, caches, mesh):
+        S.check_room(cfg, caches)
+        return S.decode_step(cfg, ps, token, caches, mesh)
+
+    if mesh is not None:
+        return lambda ps, token, caches: decode(ps, token, caches, mesh)
+
+    def one_tree(params, token, cache):
+        logits, (cache,) = decode([params], token, [cache],
+                                  one_rank(token.device))
         return logits, cache
+    return one_tree
 
-    return decode
 
-
-def decode_cache(cfg: ModelConfig, prefill_cache: Cache, max_len: int,
-                 ring: Optional[bool] = None) -> Cache:
+def decode_cache(cfg: ModelConfig, prefill_cache, max_len: int,
+                 ring: Optional[bool] = None,
+                 mesh: Optional[EngineMesh] = None):
     """A decode cache of ``max_len`` positions (a rotating buffer of
     ``min(max_len, ring_len)`` slots with ``ring``) holding a prefill
-    builder's cache of S positions: a linear cache takes position t at
-    slot t (S <= max_len), a ring the last ring_len positions at slot t
-    mod ring_len; lengths, recurrent states and cross K/V are copied.
-    ``ring=None`` takes the ring for ``swa`` and ``hybrid_rglru`` archs
-    under ``perf_flags.ring_buffer_decode`` (the reference dry run's
-    choice, ``dryrun.py:181-183``), else the linear cache."""
+    builder's cache of S positions (``_place_kv``: a linear cache takes
+    position t at slot t, S <= max_len; a ring the last ring_len
+    positions at slot t mod ring_len); lengths, recurrent states and
+    cross K/V are copied. ``ring=None`` takes the ring for ``swa`` and
+    ``hybrid_rglru`` archs under ``perf_flags.ring_buffer_decode`` (the
+    reference dry run's choice, ``dryrun.py:181-183``), else the linear
+    cache. ``mesh``: rank caches in and out, each layer's K/V parts joined
+    on rank 0 and split again over the new cache's."""
+    if mesh is None:
+        return _decode_cache(cfg, [prefill_cache], max_len, ring, one_rank(
+            prefill_cache["length"].device))[0]
+    return _decode_cache(cfg, prefill_cache, max_len, ring, mesh)
+
+
+def _decode_cache(cfg, caches, max_len, ring, mesh):
     if ring is None:
         ring = PF.get().ring_buffer_decode and \
             cfg.attn_kind in ("swa", "hybrid_rglru")
-    src = prefill_cache
-    ref = src["length"]
-    b = ref.shape[0]
+    src = caches[0]
     leaf = src.get("k", src.get("last_tm"))
-    dst, = S.init_cache(cfg, b, max_len, leaf.dtype, one_rank(ref.device),
-                        ring=ring)
-    for key, val in src.items():
+    dst = S.init_cache(cfg, src["length"].shape[0], max_len, leaf.dtype,
+                       mesh, ring=ring)
+    for key in src:
+        got = SH.held([c[key] for c in caches])
+        put = SH.held([c[key] for c in dst])
         if key not in ("k", "v"):
-            dst[key].copy_(val)
-    if "k" in src:
-        s, slots = src["k"].shape[2], dst["k"].shape[2]
-        if not ring and s > slots:
-            raise ValueError(f"{s} prompt positions do not fit a linear "
-                             f"cache of {slots}")
-        first = max(0, s - slots)
-        t = torch.arange(first, s, device=ref.device)
-        for key in ("k", "v"):
-            dst[key].index_copy_(2, t % slots, src[key][:, :, first:])
+            for d, t in zip(put, got):
+                d.copy_(t)
+            continue
+        for li in range(leaf.shape[0]):
+            _place_kv([d[li] for d in put],
+                      mesh.all_gather([t[li] for t in got], 1), ring)
     return dst

@@ -22,38 +22,42 @@ every tensor IN PLACE (the slot runner hands them views of one slot's
 rows) and return the same list.
 
 Attention over a sequence-split cache: each new K/V position is written
-into the rank holding it (the query and K/V heads, split by the weights,
-are gathered first), each rank attends over its own key slice with the
-masks on global positions, and the slices' outputs are merged by a
-log-sum-exp combine on rank 0: the reference's flash-decode via GSPMD
-psum (``sharding.py:11-13``). A merge of one part is the identity, so a
-tp-1 TE computes what one tree on one device computes, bit for bit.
+into the rank holding it (the K/V heads, split by the weights, are
+gathered first), each rank attends over its own key slice with the masks
+on global positions, and the slices' outputs are merged by a log-sum-exp
+combine on rank 0: the reference's flash-decode via GSPMD psum
+(``sharding.py:11-13``). A merge of one part is the identity, so a tp-1 TE
+computes what one tree on one device computes, bit for bit. A rank whose
+slice holds no key a row may see gives that row a finite ``NEG`` log-sum-
+exp, and so a merge weight of 0.
 
-The reference's branches, all ported:
+The reference's branches, all ported, at every tp:
   * prefill into a cache of ``Smax <= 2048`` attends jointly over the
     cache after writing the chunk's K/V (the engine's chunked prefill);
     past 2048 the single-shot branch attends over the chunk's fresh K/V
-    by ``transformer.self_attention`` (the ``flash_prefill`` kernel on the
-    card) and writes the cache apart. That branch ignores the cached
-    prefix, so the port refuses it for a cache whose length is not 0
-    (the reference would silently drop the prefix).
+    by ``transformer.self_attention``, each rank of ``block_qkv`` over its
+    own heads (the ``flash_prefill`` kernel on the card, one launch per
+    such rank), and writes the cache apart. That branch ignores the
+    cached prefix, so the port refuses it for a cache whose length is not
+    0 (the reference would silently drop the prefix).
   * decode writes the new token at ``length`` of a linear cache, or at
     ``length mod Smax`` of a rotating buffer: the reference's choice
     (``serving.py:343-346``) takes the ring for ``swa`` and
     ``hybrid_rglru`` caches of at most ``ring_len(cfg)`` slots, which
     ``init_cache(..., ring=True)`` makes. With ``perf_flags.
     windowed_decode`` a linear windowed cache attends only its trailing
-    window + 1 slots. The step reads nothing on the host: on a full
-    linear cache the new token's K/V are dropped, as the reference's
-    scatter drops them. ``check_room`` refuses that case; the entry points
-    a user calls (``get_model(...).decode_step``, ``steps.
-    build_decode_step``) call it first, while the slot engine refuses a
-    request that would outgrow its slot at admission.
+    window + 1 slots, each rank those of them in its part. The step reads
+    nothing on the host: on a full linear cache the new token's K/V are
+    dropped, as the reference's scatter drops them. ``check_room``
+    refuses that case; the entry points a user calls (``get_model(...).
+    decode_step``, ``steps.build_decode_step``) call it first, while the
+    slot engine refuses a request that would outgrow its slot at
+    admission.
   * decode attention stays plain masked attention: the reference runs no
     Pallas kernel there.
-At tp > 1 only the slot engine's caches are ported (``global`` and
-``hybrid_rglru`` attention of at most 2048 positions, no ring); the rest
-raises (ROADMAP Queue 1 item 10).
+Every cache kind splits at tp > 1 (``swa``, ``local_global``, the ring,
+past 2048 positions), as the reference's ``cache_specs`` splits it; a
+length tp does not divide is replicated (one part, on rank 0).
 """
 from __future__ import annotations
 
@@ -71,7 +75,6 @@ from repro_torch.models.transformer import GLOBAL_WINDOW
 
 Cache = Dict[str, Any]
 JOINT_PREFILL_MAX = 2048      # the reference's joint-over-cache limit
-TP_TODO = "ROADMAP Queue 1 item 10 (the long-context path at tp > 1)"
 
 
 def attn_layer_count(cfg: ModelConfig) -> int:
@@ -169,16 +172,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     rotating buffer of ``ring_len`` slots with ``ring``), one per rank of
     ``mesh``, split by ``engine_cache_specs``: each rank's part in
     storage of its own on its device (the kernels take a rank's state as
-    a whole tensor), a replicated leaf once on rank 0's. At tp > 1 the
-    windowed towers, the ring and an attention cache past 2048 positions
-    are not ported."""
+    a whole tensor), a replicated leaf once on rank 0's."""
     like = cache_like(cfg, batch, max_len, dtype, ring=ring)
-    if mesh.tp > 1 and (cfg.attn_kind in ("swa", "local_global") or ring
-                        or ("k" in like
-                            and like["k"].shape[2] > JOINT_PREFILL_MAX)):
-        raise NotImplementedError(
-            f"{cfg.name} at tp {mesh.tp} (attn_kind {cfg.attn_kind!r}, "
-            f"max_len {max_len}, ring={ring}): {TP_TODO}")
     specs = SH.engine_cache_specs(cfg, like, mesh.tp)
     parts = {k: SH.rank_zeros(v.shape, v.dtype, specs[k], mesh)
              for k, v in like.items()}
@@ -215,9 +210,10 @@ def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
 
     A cache of more than 2048 positions takes the reference's single-shot
     branch (module docstring): attention over the chunk's fresh K/V by
-    ``transformer.self_attention`` at ``attn_impl`` (past 2048 tokens the
-    ``flash_prefill`` kernel on the card, under ``impl="auto"``); it
-    raises unless every sequence starts at length 0. MoE blocks take the
+    ``transformer.self_attention`` at ``attn_impl``, each rank of
+    ``block_qkv`` over its own heads (past 2048 tokens one ``flash_prefill``
+    launch per such rank on the card, under ``impl="auto"``); it raises
+    unless every sequence starts at length 0. MoE blocks take the
     reference's capacity groups over the chunk's B x s rows."""
     b, s = tokens.shape
     nv = s if n_valid is None else n_valid
@@ -227,21 +223,18 @@ def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
                                               device=tokens.device)[None, :]
     x = T.embed(cfg, ps, tokens, mesh)
     if cfg.vision is not None and vision_embeds is not None:
-        _fill_cross_cache(cfg, ps, vision_embeds, c0, mesh)
+        fill_cross_cache(cfg, ps, vision_embeds, c0, mesh)
     if cfg.encoder is not None:
         if frames is None:
             raise ValueError(f"{cfg.name}: an enc-dec prefill needs frames")
-        _fill_cross_cache(cfg, ps, T.encode(cfg, ps, frames, mesh,
-                                            attn_impl=attn_impl), c0, mesh)
+        fill_cross_cache(cfg, ps, T.encode(cfg, ps, frames, mesh,
+                                           attn_impl=attn_impl), c0, mesh)
 
     plan, fresh = None, None
     if "k" in c0:
         plan = _prefill_plan(caches, positions, s, mesh)
         smax = _cache_len(caches)
         if smax > JOINT_PREFILL_MAX:
-            if mesh.tp > 1:
-                raise NotImplementedError(
-                    f"a cache of {smax} positions at tp {mesh.tp}: {TP_TODO}")
             if bool((start != 0).any()):
                 raise ValueError(
                     f"a cache of {smax} > {JOINT_PREFILL_MAX} positions "
@@ -255,13 +248,13 @@ def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
         return T.block_out(cfg, lps, x, _seq_attention(
             cfg, lps, x, positions, plan, ai, win, mesh, fresh), mesh,
             groups=groups)
-    x = _tower(cfg, ps, x, caches, mesh, attend, n_valid, impl)
+    x = tower(cfg, ps, x, caches, mesh, attend, n_valid, impl)
     c0["length"].add_(nv)
     logits = T.unembed(cfg, ps, x[:, nv - 1:nv, :], mesh)
     return logits[:, 0, :], caches
 
 
-def _tower(cfg, ps, x, caches, mesh, attend, n_valid, impl):
+def tower(cfg, ps, x, caches, mesh, attend, n_valid, impl):
     """Every layer of the tower, prefill and decode alike: rwkv blocks,
     the hybrid tower's RG-LRU and attention blocks, or the attention
     blocks of a cross tower, each followed by its cross block.
@@ -407,36 +400,49 @@ def _attend(items, cap, mesh) -> torch.Tensor:
 def _seq_attention(cfg, lps, x, positions, plan, ai, win, mesh,
                    fresh=None):
     """One self-attention block's attention over attention layer ``ai``'s
-    sequence-split cache, prefill or decode alike: its q/k/v heads
-    gathered from ``block_qkv``'s ranks, the new K/V written into the
-    parts (``plan``), each rank's queries over its part (the gathered
-    trailing window of a windowed decode's). ``fresh`` = (attn_impl,
-    impl): the single-shot prefill, whose queries attend over the chunk's
-    own K/V instead (one rank). Returns the heads' output as
-    ``block_qkv``'s ranks hold it, before the output projection."""
-    qkv = T.block_qkv(cfg, lps, x, mesh.broadcast(positions), mesh)
-    q, k_new, v_new = (mesh.all_gather(list(t), 2) for t in zip(*qkv))
+    sequence-split cache, prefill or decode alike: its K/V heads gathered
+    from ``block_qkv``'s ranks and written into the parts (``plan``), then
+    each rank's queries (all heads) over its part (the trailing window's
+    columns there, in a windowed decode). ``fresh`` = (attn_impl, impl):
+    the single-shot prefill, whose queries attend over the chunk's own
+    K/V instead, each rank of ``block_qkv`` over its own heads
+    (``fresh_heads``). Returns the heads' output as ``block_qkv``'s ranks
+    hold it, before the output projection."""
+    pos = mesh.broadcast(positions)
+    qkv = T.block_qkv(cfg, lps, x, pos, mesh)
+    k_new, v_new = (mesh.all_gather([t[i] for t in qkv], 2) for i in (1, 2))
+    for part, kr, vr in zip(plan, mesh.broadcast(k_new),
+                            mesh.broadcast(v_new)):
+        _write(part["k"][ai], kr, part)
+        _write(part["v"][ai], vr, part)
+    if fresh is not None:
+        return fresh_heads(cfg, qkv, pos, win, *fresh)
+    q = mesh.all_gather([t[0] for t in qkv], 2)
     items = []
-    for part, qr, kr, vr in zip(plan, *(mesh.broadcast(t)
-                                        for t in (q, k_new, v_new))):
+    for part, qr in zip(plan, mesh.broadcast(q)):
         ck, cv = part["k"][ai], part["v"][ai]
-        _write(ck, kr, part)
-        _write(cv, vr, part)
-        if fresh is not None:
-            continue
         if part.get("cols") is not None:
             at = (part["bidx"], part["cols"])
             ck, cv = ck[at], cv[at]
         items.append((qr, ck.to(q.dtype), cv.to(q.dtype), _mask(part, win)))
-    if fresh is None:
-        o = _attend(items, cfg.attn_logit_softcap, mesh)
-    else:
-        o = T.self_attention(cfg, q, k_new, v_new, positions, positions, win,
-                             fresh[0], impl=fresh[1], from_scratch=True)
+    o = _attend(items, cfg.attn_logit_softcap, mesh)
     return mesh.scatter(o, len(qkv), 2)
 
 
-def _fill_cross_cache(cfg, ps, mem, c0, mesh) -> None:
+def fresh_heads(cfg: ModelConfig, qkv: list, positions: list, win: int,
+                attn_impl: str, impl: str) -> list:
+    """From-scratch attention of ``block_qkv``'s ranks (q, k, v at
+    positions 0..S-1), each over its own heads by
+    ``transformer.self_attention`` (past 2048 keys the dense
+    ``flash_prefill`` kernel on the card, one launch per rank): the
+    single-shot prefill's and the prefill builders' attention. Heads do
+    not mix in attention, so no K/V crosses ranks."""
+    return [T.self_attention(cfg, q, k, v, p, p, win, attn_impl, impl=impl,
+                             from_scratch=True)
+            for (q, k, v), p in zip(qkv, positions)]
+
+
+def fill_cross_cache(cfg, ps, mem, c0, mesh) -> None:
     """Project the modality memory (B, P, D) through every cross block's
     K/V weights into the replicated cross cache, in place
     (``serving.py:282-291``)."""
@@ -498,7 +504,7 @@ def decode_step(cfg: ModelConfig, ps: list, token: torch.Tensor,
     def attend(lps, x, ai, win):
         return T.block_out(cfg, lps, x, _seq_attention(
             cfg, lps, x, positions, plan, ai, win, mesh), mesh)
-    x = _tower(cfg, ps, x, caches, mesh, attend, None, impl)
+    x = tower(cfg, ps, x, caches, mesh, attend, None, impl)
     lengths.add_(1)
     logits = T.unembed(cfg, ps, x, mesh)
     return logits[:, 0, :], caches
@@ -511,7 +517,9 @@ def _decode_plan(cfg, caches, positions, mesh) -> List[dict]:
     (``is_ring``), where slot j holds the newest token t = j (mod Smax);
     the whole cache is attended and masks do the rest, or, with
     ``perf_flags.windowed_decode`` on a linear windowed cache, only its
-    trailing window + 1 slots (tp 1). The new token's K/V land in the
+    trailing window + 1 columns: each rank gathers those of them in its
+    part and masks the rest (a rank holding none of them gives fully
+    masked rows, merged with weight 0). The new token's K/V land in the
     rank holding its slot; the other ranks write their slot's own value
     back."""
     ks, vs, sr = _held_kv(caches)
@@ -522,9 +530,6 @@ def _decode_plan(cfg, caches, positions, mesh) -> List[dict]:
     span = None
     if (PF.get().windowed_decode and not ring and static_win is not None
             and static_win + 1 < smax):
-        if mesh.tp > 1:
-            raise NotImplementedError(f"windowed decode at tp {mesh.tp}: "
-                                      f"{TP_TODO}")
         span = static_win + 1
     plan = []
     for r, (k, v, pos) in enumerate(zip(ks, vs, mesh.broadcast(positions))):
@@ -548,8 +553,8 @@ def _decode_plan(cfg, caches, positions, mesh) -> List[dict]:
         if span is not None:
             cols = (lm1 - static_win).clamp(0, smax - span)[:, None] \
                 + torch.arange(span, device=pos.device)[None, :]
-            part.update(cols=cols, k_pos=torch.where(
-                cols <= lm1[:, None], cols,
-                torch.full_like(cols, GLOBAL_WINDOW + 1)))
+            mine = (cols >= lo) & (cols < lo + sr) & (cols <= lm1[:, None])
+            part.update(cols=(cols - lo).clamp(0, sr - 1), k_pos=torch.where(
+                mine, cols, torch.full_like(cols, GLOBAL_WINDOW + 1)))
         plan.append(part)
     return plan

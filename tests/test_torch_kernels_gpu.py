@@ -11,7 +11,9 @@ storage (rwkv6-1.6b's 16 heads, recurrentgemma-2b's 1280 channels), and
 the bf16 tensor-core prefill at G =
 1-8 and hd 64-256 (hd 120 padded to 128), and the dense prefill entry at
 32,768 and 524,288 tokens (row blocks against the plain blockwise
-function); the hot loop under sync-debug
+function), and the fp32 body at recurrentgemma-2b's G 10 x hd 256
+(its query heads in chunks that fit shared memory); the hot loop under
+sync-debug
 "error", the cross-attention towers' prefill chunk and decode and a tp-2
 slot decode_sample included;
 and the fleet control plane: a fork's weights bit-equal in new storage, a
@@ -162,6 +164,21 @@ def test_flash_prefill_dense_524k(cuda, h, hkv, hd, window):
     assert 524288 * 32 * 128 == 2 ** 31
     _long_prefill(cuda, 524288, h, hkv, hd, window, None,
                   (0, 262144 - 128, 524288 - 256))
+
+
+@pytest.mark.gpu
+def test_flash_prefill_fp32_heads_past_shared_memory(cuda):
+    """The fp32 body at recurrentgemma-2b's attention (H 10 / Hkv 1, hd
+    256, window 2048; replicated at every tp), 2292 tokens in pages of 4
+    rows: one KV head's 160 query rows would need 416 KB of shared
+    memory, past the card's 227 KB, and the launch failed (cudaError 1)
+    until the body split the query heads into chunks that fit."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda) for shape in
+               ((1, 2292, 10, 256), (1, 2292, 1, 256), (1, 2292, 1, 256)))
+    _close(ops.flash_prefill(q, k, v, None, 2048),
+           ops.flash_prefill(q, k, v, None, 2048, impl="ref"),
+           torch.float32)
 
 
 # one tensor-parallel rank's attention shapes: qwen3-8b at tp 2 (H 16,

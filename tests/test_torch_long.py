@@ -34,7 +34,7 @@ from repro_torch.configs import SHAPES, get_config, list_configs, \
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as KR
 from repro_torch.launch import steps as ST
-from repro_torch.launch.mesh import make_engine_mesh, one_rank
+from repro_torch.launch.mesh import one_rank
 from repro_torch.models import layers as L
 from repro_torch.models import perf_flags as PF
 from repro_torch.models import serving as S
@@ -486,21 +486,6 @@ def test_full_linear_cache_refuses_decode():
     roomy = ST.decode_cache(cfg, cache, 16)
     lg, roomy = dec(p, toks[:, 0], roomy)
     assert roomy["length"].tolist() == [9, 9]
-
-
-def test_tp_refuses_the_new_branches():
-    mesh = make_engine_mesh(2, 0, device="cpu")
-    for arch, kw in (("h2o-danube-3-4b", {}), ("gemma2-9b", {}),
-                     ("recurrentgemma-2b", {"ring": True}),
-                     ("recurrentgemma-2b", {"max_len": 4096}),
-                     ("seamless-m4t-large-v2", {"max_len": 4096})):
-        cfg = smoke_config(get_config(arch))
-        with pytest.raises(NotImplementedError, match="item 10"):
-            S.init_cache(cfg, 2, kw.pop("max_len", 64), torch.float32, mesh,
-                         **kw)
-    # the slot engine's caches still split
-    cfg = smoke_config(get_config("recurrentgemma-2b"))
-    assert len(S.init_cache(cfg, 2, 64, torch.float32, mesh)) == 2
 
 
 # --------------------------------------------------- the prefill builders
