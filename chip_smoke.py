@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only train  # phases 1 and 8 alone
     python3 chip_smoke.py --only long   # phases 1 and 9 alone
     python3 chip_smoke.py --only switches  # phases 1 and 10 alone
+    python3 chip_smoke.py --only programs  # phases 1 and 11 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -261,7 +262,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                 batched prefill, and of the 1024-token hit and its cold
                 run, against the fp32 forward of the same bf16 weights,
                 each pair within twice the default path's own error.
-The last lines are the switch rows ({"switches": {...}}), the
+ 11. programs — the decode hot loop's device programs (each paged K-step
+                horizon and each slot decode step one CUDA graph, captured
+                at its key's first use and replayed after) against the
+                eager horizon, at full width in bf16: qwen3-8b (36
+                layers), granite-moe-3b-a800m (MoE), rwkv6-1.6b and
+                recurrentgemma-2b, each served twice in one process on
+                phase 3's request set and engine config, once through the
+                eager horizon and once through the programs, each way in
+                two passes (the requests, then the same lengths with every
+                id shifted by one: the same buckets, no prefix hit). The
+                greedy tokens equal bit for bit, the sampled ids valid,
+                the launches per decode iteration equal (and one per
+                layer), no program built in the second pass, and a steady
+                replay of one program under sync-debug "error"; TPOT,
+                decode tok/s, the programs' capture ms and the graph
+                pool's GiB printed. Phases 3-10 run their decode through
+                the programs too. ``--only programs`` then builds qwen3-8b's
+                whole warmup grid (144 programs: seconds, capture ms, the
+                pool's GiB) and serves inside it, building none.
+The last lines are the program rows ({"programs": [...]}), the switch
+rows ({"switches": {...}}), the
 long-context rows ({"long": {...}}), the training
 rows ({"train": {...}}), the per-rank
 kernel rows ({"tp_kernels": [...]}),
@@ -1157,6 +1178,7 @@ def serve(cfg, dev, n_greedy, n_sampled, tp=1):
             [dec for _, pf, dec, _, _ in steps if pf == 0]),
         launches=launches,
         launches_per_step=sum(launches.values()) / te.steps,
+        jit_compiles=te.jit_compiles,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         card=card_line())
     if te.pool is None:
@@ -4659,11 +4681,255 @@ def phase10(dev):
     return out
 
 
+# phase 11: the decode programs against the eager horizon, on phase 3's
+# request sets (n greedy + n sampled) and engine config
+PROGRAM_ARCHS = (("qwen3-8b", 8, 2), ("granite-moe-3b-a800m", 6, 2),
+                 ("rwkv6-1.6b", 6, 2), ("recurrentgemma-2b", 6, 2))
+
+
+def _eager_decode(te):
+    """Make ``te`` serve through the eager horizon (the paged runner's
+    ``decode_eager``, the slot runner's ``decode_sample_eager``): the
+    comparison of phase 11 only; the engine itself never picks it on one
+    card."""
+    rt = te.runner
+    if te.pool is not None:
+        rt.decode_fused = rt.decoder.decode_eager
+    else:
+        rt.decode_sample = rt.decoder.decode_sample_eager
+
+
+def _shifted(cfg, reqs, tag):
+    """``reqs`` again with every prompt id moved by one (the same lengths,
+    so the same buckets, and no prefix-cache hit on the first pass)."""
+    from repro_torch.engine import Request
+    v = cfg.vocab_size
+    return [Request(prompt_tokens=[t + 1 if t + 1 < v else 3
+                                   for t in r.prompt_tokens],
+                    sampling=r.sampling, req_id=f"{tag}{i}")
+            for i, r in enumerate(reqs)]
+
+
+def program_pass(te, cfg, reqs, tag):
+    """Serve ``reqs`` on ``te`` (launch counts zeroed just before the
+    first arrives, read just after the last completes); the tokens in
+    request order, TPOT, the decode rate over the steps that ran no
+    prefill pass, launches and the programs this pass built."""
+    import torch
+    from repro_torch.kernels import ops
+    builds0, d0, p0 = te.jit_compiles, te.decode_steps, te.prefill_dispatches
+    ops.reset_launches()
+    t0 = time.monotonic()
+    for r in reqs:
+        te.add_request(r)
+    comps, dec_s, dec_tok = [], 0.0, 0
+    while te.has_work():
+        assert te.steps < 4000, "serving did not converge"
+        pf, tk, ts = te.prefill_dispatches, te.decode_tokens, time.monotonic()
+        comps += te.step()
+        if te.prefill_dispatches == pf:
+            dec_s += time.monotonic() - ts
+            dec_tok += te.decode_tokens - tk
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    _check_comps(comps, reqs, cfg)
+    by_id = {c.req_id: c for c in comps}
+    row = dict(pass_=tag, wall_s=wall,
+               tokens=[by_id[r.req_id].tokens for r in reqs],
+               tpot_ms_mean=_mean([c.tpot * 1e3 for c in comps]),
+               decode_tok_per_s=dec_tok / max(dec_s, 1e-9),
+               launches=ops.launch_counts(), switch=tag,
+               decode_iterations=te.decode_steps - d0,
+               prefill_passes=te.prefill_dispatches - p0,
+               programs_built=te.jit_compiles - builds0)
+    _hold_launches(cfg, row)
+    name = PATH_KERNELS[cfg.name][0]
+    row["launches_per_iteration"] = row["launches"][name] / (
+        row["decode_iterations"] + (0 if te.pool is not None
+                                    else row["prefill_passes"]))
+    return row
+
+
+def _graph_pool_gib(te) -> float:
+    """The GiB the caching allocator holds in ``te``'s graph pool (its
+    segments in a memory snapshot)."""
+    import torch
+    pid = te.runner.programs.pool_id
+    if pid is None:
+        return 0.0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pid)) / 2**30
+
+
+def steady_replays_sync_free(te, cfg, reqs):
+    """Two of ``reqs`` prefilled, then one decode program (a paged
+    horizon of 4 over the hot state rebuilt from them, or the slot step)
+    called three times: the first call outside, the next two under
+    sync-debug "error". Returns the program's key; the TE is left
+    unservable (its device rows ran ahead of the host)."""
+    import numpy as np
+    import torch
+    for r in reqs[:2]:
+        te.add_request(r)
+    while te.scheduler.waiting or te.scheduler.prefilling \
+            or len(te.scheduler.running) < 2:
+        te.step()
+    live = list(te.scheduler.running)
+    if te.pool is not None:
+        hot = te._hot_state()
+        for sq in live:
+            te._ensure_pages_no_preempt(sq, len(sq.tokens) + 12)
+        hot.reset()
+        hot.sync([(sq.seq_id, sq.pages, len(sq.tokens), sq.tokens[-1], 0.0,
+                   1.0) for sq in live])
+        call = lambda: te.runner.decode_fused(hot, 4)          # noqa: E731
+        key = (4, hot.bb, hot.pb, True)
+    else:
+        temps = np.zeros((te.ecfg.n_slots,), np.float32)
+        top_ps = np.ones((te.ecfg.n_slots,), np.float32)
+        call = lambda: te.runner.decode_sample(                 # noqa: E731
+            live, temps, top_ps, te._gen)
+        key = (True,)
+    for n in range(3):
+        torch.cuda.synchronize()
+        if n:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert int(toks.max()) < cfg.vocab_size
+    assert key in te.runner.programs.programs, key
+    return key
+
+
+def program_model(name, n_greedy, n_sampled, dev):
+    """One model at full width, bf16: the eager horizon and the programs
+    serve the same two passes (the phase-3 requests, then the same
+    lengths shifted by one id); greedy tokens equal bit for bit, sampled
+    ids valid, the same launches per iteration, no program built in the
+    second pass, and a steady replay with no host sync."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import FlowServe
+    from repro_torch.models import transformer as T
+    cfg = get_config(name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(cfg, gen, torch.bfloat16, dev)
+    reqs = _requests(cfg, n_greedy, n_sampled)
+    again = _shifted(cfg, reqs, "s")
+    runs = {}
+    for mode in ("eager", "programs"):
+        te = FlowServe(cfg, params, _engine_config(cfg, torch.bfloat16),
+                       name=f"te-{mode}", device=dev)
+        if mode == "eager":
+            _eager_decode(te)
+        runs[mode] = [program_pass(te, cfg, reqs, "first"),
+                      program_pass(te, cfg, again, "second")]
+        if mode == "programs":
+            progs = list(te.runner.programs.programs.values())
+            cap = sorted(p.capture_ms for p in progs)
+            out = dict(model=name, programs=len(progs),
+                       jit_compiles=te.jit_compiles,
+                       capture_ms_median=cap[len(cap) // 2],
+                       capture_ms_max=cap[-1], capture_ms_sum=sum(cap),
+                       graph_pool_gib=_graph_pool_gib(te),
+                       replay_launches={str(p.key): p.launches
+                                        for p in progs[:3]})
+            out["sync_free_key"] = str(steady_replays_sync_free(
+                te, cfg, _shifted(cfg, reqs, "z")))
+        del te
+        _release()
+    for i, tag in enumerate(("first", "second")):
+        e, g = runs["eager"][i], runs["programs"][i]
+        same = sum(a == b for a, b in zip(e["tokens"][:n_greedy],
+                                          g["tokens"][:n_greedy]))
+        assert same == n_greedy, \
+            f"{name} {tag} pass: {same} of {n_greedy} greedy requests equal"
+        assert e["launches_per_iteration"] == g["launches_per_iteration"] \
+            and e["decode_iterations"] == g["decode_iterations"], (e, g)
+        out[tag] = {k: dict(eager=e[k], programs=g[k]) for k in (
+            "tpot_ms_mean", "decode_tok_per_s", "wall_s",
+            "launches_per_iteration", "decode_iterations",
+            "programs_built")}
+        out[tag]["greedy_equal"] = f"{same}/{n_greedy}"
+    assert runs["programs"][1]["programs_built"] == 0, \
+        f"{name}: the second pass over the same buckets built programs"
+    log("  programs: " + json.dumps(out))
+    del params
+    _release()
+    return out
+
+
+def program_warmup(dev):
+    """qwen3-8b at full width, bf16, phase 3's engine config:
+    ``warmup_decode`` builds the whole grid (4 batch x 9 page x 4 horizon
+    buckets = 144 programs, all-greedy); its seconds, each program's
+    capture ms, the graph pool's GiB and the device memory it added; then
+    phase 3's request set, all greedy, served inside the grid builds no
+    program. Run by ``--only programs`` alone (about 2 min)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import FlowServe
+    from repro_torch.models import transformer as T
+    log(f"phase 11: the warmup grid [{time.monotonic() - T0:.1f} s]")
+    cfg = get_config("qwen3-8b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(cfg, gen, torch.bfloat16, dev)
+    te = FlowServe(cfg, params, _engine_config(cfg, torch.bfloat16),
+                   device=dev)
+    torch.cuda.synchronize()
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.monotonic()
+    n = te.warmup_decode()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    cap = sorted(p.capture_ms for p in te.runner.programs.programs.values())
+    by_k = {}
+    for key, p in te.runner.programs.programs.items():
+        by_k.setdefault(key[0], []).append(p.capture_ms)
+    out = dict(model=cfg.name, shapes_run=n, programs=te.jit_compiles,
+               warmup_s=secs, capture_ms_median=cap[len(cap) // 2],
+               capture_ms_max=cap[-1], capture_ms_sum=sum(cap),
+               capture_ms_mean_by_horizon={k: _mean(v) for k, v in
+                                           sorted(by_k.items())},
+               graph_pool_gib=_graph_pool_gib(te),
+               allocated_gib_added=(torch.cuda.memory_allocated() - alloc0)
+               / 2**30,
+               reserved_gib_added=(torch.cuda.memory_reserved() - res0)
+               / 2**30)
+    assert n == te.jit_compiles == 4 * 9 * 4, out
+    row = program_pass(te, cfg, _requests(cfg, 10, 0), "warm")
+    assert row["programs_built"] == 0, row["programs_built"]
+    out.update({k: row[k] for k in ("tpot_ms_mean", "decode_tok_per_s",
+                                    "programs_built")})
+    log("  warmup grid: " + json.dumps(out))
+    del te, params
+    _release()
+    return out
+
+
+def phase11(dev):
+    """The decode programs at full width: each of ``PROGRAM_ARCHS`` served
+    through the eager horizon and through the captured programs in one
+    process. Returns the rows."""
+    log(f"phase 11: decode programs [{time.monotonic() - T0:.1f} s]")
+    rows = []
+    for name, n_greedy, n_sampled in PROGRAM_ARCHS:
+        log(f"phase 11: {name} [{time.monotonic() - T0:.1f} s]")
+        rows.append(program_model(name, n_greedy, n_sampled, dev))
+    log(f"phase 11 done [{time.monotonic() - T0:.1f} s]")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet",
                                        "tp", "train", "long",
-                                       "long-process", "switches"],
+                                       "long-process", "switches",
+                                       "programs"],
                     default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
                          "new kernel); 'pd' runs phases 1 and 5 alone, "
@@ -4671,7 +4937,7 @@ def main() -> int:
                          "'train' phases 1 and 8, 'long' phases 1 and 9 "
                          "('long-process': phase 9 alone, the process "
                          "phase9_process starts), 'switches' phases 1 and "
-                         "10")
+                         "10, 'programs' phases 1 and 11")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4710,6 +4976,11 @@ def main() -> int:
         return 0
     if args.only == "switches":
         log(json.dumps({"switches": phase10(dev)}))
+        log(card)
+        return 0
+    if args.only == "programs":
+        log(json.dumps({"programs": phase11(dev),
+                        "warmup": program_warmup(dev)}))
         log(card)
         return 0
     if args.only in ("pd", "fleet", "tp"):
@@ -4776,6 +5047,7 @@ def main() -> int:
     train = phase8(dev)
     longctx = phase9_process()
     switches = phase10(dev)
+    programs = phase11(dev)
     for r in rows:
         r["launches_pd"] = pd[r["arch"], r["name"]]
         r["launches_fleet"] = fleet[r["arch"], r["name"]]
@@ -4784,6 +5056,7 @@ def main() -> int:
         r["launches_switches"] = switches["launches"][r["name"]]
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
+    log(json.dumps({"programs": programs}))
     log(json.dumps({"switches": switches}))
     log(json.dumps({"long": longctx}))
     log(json.dumps({"train": train}))

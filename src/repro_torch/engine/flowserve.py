@@ -7,13 +7,14 @@ plane.
   * paged family (attention-only towers): a page pool with the RTC prefix
     cache. A step packs every planned prefill chunk into ONE ragged
     prefill pass (first tokens sampled in it) and runs decode as K-step
-    fused horizons over the device-resident batch state, fetching each
-    horizon's tokens one horizon late.
+    fused horizons over the device-resident batch state, each horizon one
+    device program (``engine/programs.py``: a CUDA graph replayed on a
+    card), fetching each horizon's tokens one horizon late.
   * slot family (rwkv6, recurrentgemma, seamless-m4t enc-dec,
     llama-3.2-vision): dense per-slot caches, no pool and no RTC. Prefill
     is chunked per sequence on its slot, with the request's modality
     inputs (``Request.extra``) refilling the cross cache at every chunk;
-    decode is one all-slot step with sampling in the same pass; prefix
+    decode is one all-slot step with sampling in the same program; prefix
     reuse restores a state checkpoint taken when an earlier request
     released its slot.
 
@@ -267,6 +268,12 @@ class FlowServe:
         self._completed_buf: List[Completion] = []
         self._sp_cache: tuple = (None, None, None)  # batch-keyed temps/top_ps
 
+    @property
+    def jit_compiles(self) -> int:
+        """Decode-path programs built (bucketed keys => 0 in steady state;
+        the reference's count of its decode-path jit cache misses)."""
+        return self.runner.jit_compiles
+
     # ---------------------------------------------------------------- scaling
     @classmethod
     def fork_from(cls, source: "FlowServe", ecfg: EngineConfig,
@@ -343,9 +350,10 @@ class FlowServe:
         non-blocking copies from the card, waited for (``transfer_timing``
         gets "pin_s" and "d2h"). Returns the host copy of the ranks' trees,
         one copy per distinct storage (``to_host=True``), or None; either
-        way the TE drops its device references and stops being a fork
-        source (the memory returns once no other TE shares the tree). Call
-        only after the TE is empty: it cannot serve afterwards."""
+        way the TE drops its device references and its decode programs
+        (a captured graph holds the weights' addresses) and stops being a
+        fork source (the memory returns once no other TE shares the tree).
+        Call only after the TE is empty: it cannot serve afterwards."""
         from repro_torch.core.scaling import copy_to_host
         params = self.runner.params
         if params is None:
@@ -354,6 +362,7 @@ class FlowServe:
         if to_host:
             host, pin_s, ev = copy_to_host(params)
             self.transfer_timing.update(pin_s=pin_s, d2h=ev)
+        self.runner.programs.release()
         self.runner.params = None
         if self.family.uses_pages:
             self.runner.layers = None       # views of the stacked weights
@@ -690,11 +699,12 @@ class FlowServe:
     # ------------------------------------------------------- decode hot loop
     def warmup_decode(self, max_pages: Optional[int] = None,
                       horizons: Optional[List[int]] = None) -> int:
-        """Run every pow2 batch bucket up to ``max_decode_batch`` x every
-        pow2 page bucket up to ``max_pages`` x every pow2 horizon up to
-        ``decode_horizon`` once on the scratch page (builds the kernels,
-        warms the allocator). Returns the number of shapes run (0 for the
-        slot family, which has no horizon buckets)."""
+        """Build the decode program of every pow2 batch bucket up to
+        ``max_decode_batch`` x every pow2 page bucket up to ``max_pages`` x
+        every pow2 horizon up to ``decode_horizon`` (all-greedy keys), each
+        run once on the scratch page: serving inside that grid builds no
+        program. Returns the number of shapes run (0 for the slot family,
+        which has no horizon buckets)."""
         if not self.family.uses_pages or not self.ecfg.fused_decode:
             return 0
         if max_pages is None:

@@ -48,6 +48,15 @@ def to_device(arr, device: torch.device, dtype=None) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def upload_into(dst: torch.Tensor, arr) -> None:
+    """Copy a host array into ``dst`` in place, without draining the
+    stream (from pinned memory, non-blocking, on a card)."""
+    t = torch.as_tensor(np.asarray(arr), dtype=dst.dtype)
+    if dst.device.type == "cuda":
+        t = t.pin_memory()
+    dst.copy_(t, non_blocking=True)
+
+
 def upload_i32(device, *arrays) -> List[torch.Tensor]:
     """Host int32 arrays -> device views, in ONE host-to-device copy that
     does not drain the stream."""

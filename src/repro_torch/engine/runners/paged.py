@@ -14,9 +14,17 @@ decode phases, with attention through the port's kernels.
     ``decode`` and the fused K-step ``decode_fused`` horizon, attention by
     the paged decode kernel (where the JAX engine calls its jnp oracle).
 
-PyTorch runs eagerly, so a "dispatch" is the sequence of launches one call
-enqueues; ``decode_fused`` enqueues its K steps with no host sync inside
-the horizon. Capturing a horizon as one CUDA graph is later work.
+Each fused horizon is one device program (``engine/programs.py``), keyed
+(K, Bb, Pb, all-greedy) as the reference keys its jits (K, Bb, Pb): on a
+card the K decode+sample steps are captured once as one CUDA graph and
+replayed per horizon; on the CPU the program runs the same body directly.
+The reference's key has no greedy flag because its ``lax.cond`` picks the
+sampler inside the jit; the port picks it on the host
+(``DecodeHotState.all_greedy``), so in an all-greedy run both count the
+same programs (``jit_compiles``). ``decode_eager`` is the horizon's eager
+form, kept for the comparisons in the tests and ``chip_smoke.py``; the
+engine runs it only for a TE whose ranks lie on more than one device,
+which keeps no program (decided from the mesh when the runner is built).
 
 The KV pool is updated in place (``index_put_``) where the JAX package
 donates the pool to its jit and gets a new one back. Padding tokens and
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.hotloop import upload_i32
+from repro_torch.engine.programs import Program, ProgramCache
 from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.sampling import greedy_core, sample_core
 from repro_torch.kernels import flash_prefill as FP
@@ -65,6 +74,13 @@ class PagedRunner:
                         for w in T.window_schedule(cfg)]
         self.prefill = PagedPrefillRunner(self)
         self.decoder = PagedDecodeRunner(self)
+        self.programs = ProgramCache(self.mesh)   # the decode horizons'
+
+    @property
+    def jit_compiles(self) -> int:
+        """Decode programs built (warmup included): the reference's count
+        of decode-path jit cache misses."""
+        return self.programs.builds
 
     def layer_attn_inputs(self, li: int, r: int, q, k_new, v_new, pages,
                           slots):
@@ -301,38 +317,77 @@ class PagedDecodeRunner:
             x = T.block_out(cfg, ps, x, os, mesh)
         return T.unembed(cfg, rt.params, x, mesh)[:, 0]
 
-    @torch.no_grad()
-    def decode_fused(self, state, k_steps: int) -> torch.Tensor:
-        """The NPU-centric horizon (DESIGN.md §8): ``k_steps`` decode+sample
-        iterations over the device-resident batch state, enqueued with no
-        host sync inside the horizon. Lengths and last tokens advance on
-        the device; padding rows keep their token and length so their KV
-        write stays parked on the scratch page. Returns the (k_steps, Bb)
-        int32 token block WITHOUT copying it to the host."""
+    def _horizon(self, k_steps: int, greedy: bool, gen, bt, lengths, last,
+                 active, temps, top_ps):
+        """``k_steps`` decode+sample iterations: (k_steps, Bb) int32 token
+        block, the advanced last tokens and lengths. Padding rows keep
+        their token and length so their KV write stays parked on the
+        scratch page."""
         cfg = self.rt.cfg
-        out = torch.empty((k_steps, state.bb), dtype=torch.int32,
-                          device=state.bt.device)
-        act = state.active.to(torch.int32)
-        last, lengths = state.last_tok, state.lengths
-        greedy = state.all_greedy
+        out = torch.empty((k_steps, bt.shape[0]), dtype=torch.int32,
+                          device=bt.device)
+        act = active.to(torch.int32)
         for j in range(k_steps):
-            logits = self.body(last, state.bt, lengths)
+            logits = self.body(last, bt, lengths)
             if greedy:
                 toks = greedy_core(logits, cfg.vocab_size)
             else:
-                toks = sample_core(logits, state.temps, state.top_ps,
-                                   state.gen, cfg.vocab_size)
-            last = torch.where(state.active, toks, last)
+                toks = sample_core(logits, temps, top_ps, gen,
+                                   cfg.vocab_size)
+            last = torch.where(active, toks, last)
             out[j] = last
             lengths = lengths + act
+        return out, last, lengths
+
+    @torch.no_grad()
+    def decode_fused(self, state, k_steps: int) -> torch.Tensor:
+        """The NPU-centric horizon (DESIGN.md §8): ``k_steps`` decode+sample
+        iterations over the device-resident batch state as ONE program
+        (the reference's one dispatch), with no host sync. Lengths and
+        last tokens advance on the device and are written back into
+        ``state`` in place. Returns the (k_steps, Bb) int32 token block
+        WITHOUT copying it to the host; on a card it is the program's
+        static output, so copy it before the next horizon is enqueued."""
+        rt = self.rt
+        if not rt.programs.enabled:
+            return self.decode_eager(state, k_steps)
+        key = (k_steps, state.bb, state.pb, state.all_greedy)
+        prog = rt.programs.get(key, lambda: self._program(key, state))
+        out, last, lengths = prog(
+            bt=state.bt, lengths=state.lengths, last=state.last_tok,
+            active=state.active, temps=state.temps, top_ps=state.top_ps)
+        state.last_tok.copy_(last)
+        state.lengths.copy_(lengths)
+        return out
+
+    def _program(self, key: tuple, state) -> Program:
+        k_steps, _, _, greedy = key
+        gen = None if greedy else state.gen
+        inputs = {name: torch.empty_like(t) for name, t in (
+            ("bt", state.bt), ("lengths", state.lengths),
+            ("last", state.last_tok), ("active", state.active),
+            ("temps", state.temps), ("top_ps", state.top_ps))}
+
+        def horizon(**t):
+            return self._horizon(k_steps, greedy, gen, **t)
+        return Program(key, horizon, inputs, self.rt.programs, gen)
+
+    @torch.no_grad()
+    def decode_eager(self, state, k_steps: int) -> torch.Tensor:
+        """The same horizon as eager launches over ``state``'s own tensors
+        (each step enqueues every op of every layer)."""
+        out, last, lengths = self._horizon(
+            k_steps, state.all_greedy, state.gen, state.bt, state.lengths,
+            state.last_tok, state.active, state.temps, state.top_ps)
         state.last_tok, state.lengths = last, lengths
         return out
 
     @torch.no_grad()
     def warmup_fused(self, batch_buckets, page_buckets, horizons,
                      gen: torch.Generator) -> int:
-        """Run every horizon x batch bucket x page bucket once with all rows
-        inactive on the scratch page (no live page is touched). Returns the
+        """Build (or run) the program of every horizon x batch bucket x page
+        bucket with all rows inactive on the scratch page (no live page is
+        touched), so serving inside that grid builds none. Returns the
         number of bucket shapes run."""
         dev = self.rt.pool.device
         scratch = self.rt.pool.scratch_page()

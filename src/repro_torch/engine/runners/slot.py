@@ -14,7 +14,14 @@ based (DESIGN.md §4).
     with ``bucket_prefill=False``, with the sequence's modality inputs
     (uploaded once, reused by every chunk).
   * ``SlotDecodeRunner.decode_sample`` — the all-slot decode step plus
-    in-pass sampling; only the (n_slots,) token vector is returned.
+    in-pass sampling as one device program (``engine/programs.py``; the
+    reference's ``_sample_fn``), keyed by the all-greedy flag that the
+    reference decides inside its jit and the port on the host: a CUDA
+    graph captured once and replayed per step on a card, the same body
+    run directly on the CPU. Only the (n_slots,) token vector is
+    returned. ``decode_sample_eager`` is its eager form, kept for the
+    comparisons in the tests and ``chip_smoke.py``; the engine runs it
+    only for a TE whose ranks lie on more than one device.
     ``SlotDecodeRunner.decode`` is the unfused step (the engine's
     ``fused_decode=False``): the live rows' logits, sampled on the host.
 
@@ -40,7 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.engine.distflow import _nbytes, map_distinct
-from repro_torch.engine.hotloop import pow2_bucket, to_device
+from repro_torch.engine.hotloop import pow2_bucket, to_device, upload_into
+from repro_torch.engine.programs import Program, ProgramCache
 from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.sampling import greedy_core, sample_core
 from repro_torch.launch import sharding as SH
@@ -98,6 +106,13 @@ class SlotRunner:
         self.extra_dev: Dict[str, Dict[str, torch.Tensor]] = {}
         self.prefill = SlotPrefillRunner(self)
         self.decoder = SlotDecodeRunner(self)
+        self.programs = ProgramCache(mesh)        # the decode step's
+
+    @property
+    def jit_compiles(self) -> int:
+        """Decode programs built: the reference's count of decode-path jit
+        cache misses (``repro/engine/runners/slot.py:236``)."""
+        return self.programs.builds
 
     def _slot_slice(self, slot: int) -> List[Dict[str, torch.Tensor]]:
         """Each rank's views of one slot's rows of every cache tensor
@@ -217,16 +232,25 @@ class SlotPrefillRunner:
 class SlotDecodeRunner:
     def __init__(self, rt: SlotRunner):
         self.rt = rt
+        # the host arrays last uploaded as the sampled program's
+        # temps/top_ps: the engine passes new arrays only when the batch's
+        # composition changes
+        self._sp_src: tuple = (None, None)
 
-    def _step(self, seqs: List[SequenceState]) -> torch.Tensor:
-        """One decode step of every slot (each live slot fed its sequence's
-        last token); returns the (n_slots, Vp) logits."""
-        rt = self.rt
-        tokens = np.zeros((rt.n_slots,), np.int64)
+    def _tokens(self, seqs: List[SequenceState]) -> np.ndarray:
+        """The (n_slots,) token vector: each live slot fed its sequence's
+        last token."""
+        tokens = np.zeros((self.rt.n_slots,), np.int64)
         for s in seqs:
             tokens[s.slot] = s.tokens[-1]
+        return tokens
+
+    def _step(self, seqs: List[SequenceState]) -> torch.Tensor:
+        """One decode step of every slot; returns the (n_slots, Vp)
+        logits."""
+        rt = self.rt
         logits, _ = S.decode_step(rt.cfg, rt.params,
-                                  to_device(tokens, rt.device),
+                                  to_device(self._tokens(seqs), rt.device),
                                   rt.caches, rt.mesh, impl=rt.impl)
         for s in seqs:
             s.n_cached = len(s.tokens)
@@ -245,11 +269,59 @@ class SlotDecodeRunner:
     def decode_sample(self, seqs: List[SequenceState], temps: np.ndarray,
                       top_ps: np.ndarray, gen: torch.Generator
                       ) -> torch.Tensor:
-        """Decode every slot one step and sample in the same pass.
+        """Decode every slot one step and sample in the same program.
         ``temps``/``top_ps`` are (n_slots,) host arrays indexed by SLOT
         (free slots greedy); the all-greedy shortcut is decided from them
-        on the host. Returns the (n_slots,) int32 token vector on the
-        device; the caller reads its live rows by slot."""
+        on the host. The token vector is uploaded into the program's
+        static input (pinned, non-blocking), ``temps``/``top_ps`` only
+        when the engine hands in new arrays. Returns the (n_slots,) int32
+        token vector on the device (on a card the program's static
+        output: read it before the next step); the caller reads its live
+        rows by slot."""
+        rt = self.rt
+        if not rt.programs.enabled:
+            return self.decode_sample_eager(seqs, temps, top_ps, gen)
+        greedy = float(temps.max()) <= 0.0
+        prog = rt.programs.get((greedy,),
+                               lambda: self._program(greedy, gen))
+        if not greedy and (self._sp_src[0] is not temps
+                           or self._sp_src[1] is not top_ps):
+            upload_into(prog.inputs["temps"], temps)
+            upload_into(prog.inputs["top_ps"], top_ps)
+            self._sp_src = (temps, top_ps)
+        upload_into(prog.inputs["tokens"], self._tokens(seqs))
+        (toks,) = prog()
+        for s in seqs:
+            s.n_cached = len(s.tokens)
+        return toks
+
+    def _program(self, greedy: bool, gen: torch.Generator) -> Program:
+        rt = self.rt
+        n, dev = rt.n_slots, rt.device
+        inputs = {"tokens": torch.zeros((n,), dtype=torch.int64, device=dev)}
+        if not greedy:
+            inputs["temps"] = torch.zeros((n,), dtype=torch.float32,
+                                          device=dev)
+            inputs["top_ps"] = torch.ones((n,), dtype=torch.float32,
+                                          device=dev)
+            self._sp_src = (None, None)
+
+        def step(tokens, temps=None, top_ps=None):
+            logits, _ = S.decode_step(rt.cfg, rt.params, tokens, rt.caches,
+                                      rt.mesh, impl=rt.impl)
+            if greedy:
+                return (greedy_core(logits, rt.cfg.vocab_size),)
+            return (sample_core(logits, temps, top_ps, gen,
+                                rt.cfg.vocab_size),)
+        return Program((greedy,), step, inputs, rt.programs,
+                       None if greedy else gen)
+
+    @torch.no_grad()
+    def decode_sample_eager(self, seqs: List[SequenceState],
+                            temps: np.ndarray, top_ps: np.ndarray,
+                            gen: torch.Generator) -> torch.Tensor:
+        """The same step as eager launches (each op of every layer
+        enqueued), the sampling params uploaded at every call."""
         rt = self.rt
         logits = self._step(seqs)
         if float(temps.max()) <= 0.0:

@@ -6,7 +6,11 @@ Fleet worker threads launch concurrently, so the process-wide totals are
 updated under a lock, and each thread also keeps its own tally: a TE's
 step runs on one thread, so the change of that thread's tally across the
 step is exactly that TE's launches (``FlowServe.kernel_launches``),
-whatever other TEs launch on other threads meanwhile."""
+whatever other TEs launch on other threads meanwhile.
+
+A captured CUDA graph launches its kernels without Python, so a decode
+program (``engine/programs.py``) adds its body's tally on every replay
+and takes back what its body counted while it was being captured."""
 from __future__ import annotations
 
 import threading
@@ -26,10 +30,10 @@ def _tally() -> Dict[str, int]:
     return tally
 
 
-def add(name: str) -> None:
+def add(name: str, n: int = 1) -> None:
     with _lock:
-        _totals[name] += 1
-    _tally()[name] += 1
+        _totals[name] += n
+    _tally()[name] += n
 
 
 def totals() -> Dict[str, int]:

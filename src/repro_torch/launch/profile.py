@@ -247,7 +247,8 @@ def main() -> None:
     out["untraced"] = timed_window(te, cfg, args.requests, args.prompt_len,
                                    args.max_new, seed=args.seed + 2)
     out.update(arch=cfg.name, layers=cfg.n_layers, requests=args.requests,
-               prompt_len=args.prompt_len, max_new=args.max_new)
+               prompt_len=args.prompt_len, max_new=args.max_new,
+               decode_programs=getattr(te, "jit_compiles", None))
     print(json.dumps(out), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -95,8 +95,12 @@ def moe_apply(ps: list, x: torch.Tensor, cfg: MoEConfig, act: str, mesh,
     y = mesh.all_reduce([_experts(p, xr, act) for p, xr in
                          zip(ps[:cfg.d_expert // width], mesh.broadcast(xg))])
     y = y * (sel_scores * keep)[..., None].to(y.dtype)
+    # an accumulating index_put_ sums each token's rows in flat order (a
+    # sort, then one pass per token, in fp32 on the card), the same every
+    # run; index_add_'s float atomics add them in another order from run
+    # to run, so the same bf16 inputs could give other tokens
     out = torch.zeros((t, d), dtype=y.dtype, device=x.device)
-    out.index_add_(0, flat, y.reshape(-1, d))
+    out.index_put_((flat,), y.reshape(-1, d), accumulate=True)
     return out.view(b, s, d)
 
 
