@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only long   # phases 1 and 9 alone
     python3 chip_smoke.py --only switches  # phases 1 and 10 alone
     python3 chip_smoke.py --only programs  # phases 1 and 11 alone
+    python3 chip_smoke.py --only prefill-programs  # phases 1 and 12 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -281,7 +282,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the programs too. ``--only programs`` then builds qwen3-8b's
                 whole warmup grid (144 programs: seconds, capture ms, the
                 pool's GiB) and serves inside it, building none.
-The last lines are the program rows ({"programs": [...]}), the switch
+ 12. prefill-programs — the prefill programs (each ragged pass keyed (Tb,
+                Pb, Sb, all-greedy), each slot chunk keyed by its length
+                bucket with n_valid a device operand and the slot's rows
+                staged through a batch-1 cache) against the eager
+                prefill, at full width in bf16: phase 11's four models and
+                seamless-m4t-large-v2 (seeded frames), each served with
+                the eager prefill and the decode programs and with both
+                kinds of program, two passes each as in phase 11. The
+                greedy tokens equal bit for bit, the sampled ids valid,
+                the launches per prefill dispatch and per decode
+                iteration equal, no program of either kind built in the
+                second pass, and steady replays of one prefill program
+                under sync-debug "error"; TTFT p50 / max, TPOT, the
+                engine's prefill call ms, prefill_jit_compiles, capture ms
+                and the pool's GiB printed. In the whole run phases 11 and
+                12 share each model's run through both kinds of program.
+                Phases 3-11 prefill through the programs too (the MoE
+                census of phase 3 counts through the eager forms), and
+                phase 10's per-sequence, unfused and raw-length switches
+                are also served through their eager forms and held to the
+                same bf16 tokens and launches. ``--only prefill-programs``
+                then builds qwen3-8b's whole prefill warmup grid (99
+                programs: seconds, capture ms, the pool's GiB, the memory
+                added) and serves inside it, building none.
+The last lines are the prefill program rows ({"prefill_programs":
+[...]}), the program rows ({"programs": [...]}), the switch
 rows ({"switches": {...}}), the
 long-context rows ({"long": {...}}), the training
 rows ({"train": {...}}), the per-rank
@@ -1254,14 +1280,18 @@ def moe_census(te, cfg, rng, n=8):
     assignments and the kept ones, over a prefill pass's real rows and
     over all its rows (its bucket's padding rows are routed too, and take
     capacity). A decode iteration (at most 8 rows) keeps every token: its
-    capacity is its row count."""
+    capacity is its row count. The census counts in Python around every
+    MoE call, so the TE serves it through its eager forms (a program's
+    replay calls no Python)."""
     import torch
     from repro_torch.engine import Request, SamplingParams
     from repro_torch.engine.runners.paged import PagedPrefillRunner
     from repro_torch.models import moe as M
+    _eager_decode(te)
+    _eager_prefill(te)
     calls = []
     n_real = []                     # the pass's real rows (device scalar)
-    orig, orig_pf = M.moe_apply, PagedPrefillRunner.prefill_ragged
+    orig, orig_pf = M.moe_apply, PagedPrefillRunner.prefill_ragged_eager
 
     def counted(ps, x, mcfg, act, mesh, groups=1):
         t = x.shape[0] * x.shape[1]
@@ -1294,11 +1324,11 @@ def moe_census(te, cfg, rng, n=8):
             prompt_tokens=[int(t) for t in rng.randint(
                 3, cfg.vocab_size, int(rng.randint(64, 1025)))],
             sampling=sp, req_id=f"census{i}"))
-    M.moe_apply, PagedPrefillRunner.prefill_ragged = counted, prefill
+    M.moe_apply, PagedPrefillRunner.prefill_ragged_eager = counted, prefill
     try:
         te.run_to_completion()
     finally:
-        M.moe_apply, PagedPrefillRunner.prefill_ragged = orig, orig_pf
+        M.moe_apply, PagedPrefillRunner.prefill_ragged_eager = orig, orig_pf
     out = {}
     for phase, sel in (("prefill", lambda t: t > 8),
                        ("decode", lambda t: t <= 8)):
@@ -4223,6 +4253,11 @@ SLOT_SWITCHES = (("fused_decode", False), ("bucket_prefill", False))
 PAGED_SAME = (("async_sched", False), ("enable_prefix_cache", False),
               ("decode_horizon", 1))
 SLOT_SAME = (("fused_decode", False),)
+# the switches whose passes are programs of their own (the per-sequence
+# chunk, the unfused step, the raw-length slot chunk): each also served
+# through its eager forms in bf16 and held to the same tokens and launches
+EAGER_HELD = (("batched_prefill", False), ("fused_decode", False),
+              ("bucket_prefill", False))
 SWITCH_SLOT_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
 # the slot runs prefill every prompt (64-512 ids) in one chunk of the first
 # step, so the teacher-forced forward is their oracle (the all-slot decode
@@ -4257,14 +4292,17 @@ def _switch_te(cfg, params, dev, dtype, switch, **ecfg_kw):
 
 
 def switch_run(cfg, params, dev, dtype, make_reqs, switch=None,
-               **ecfg_kw):
+               eager=False, **ecfg_kw):
     """Serve ``make_reqs()`` (made just before they arrive) on a TE with
-    ``switch``; the launches are counted from just before the first
-    request to just after the last completion. Returns the tokens in
-    request order and what the run counted and took."""
+    ``switch`` (through its eager forms with ``eager``); the launches are
+    counted from just before the first request to just after the last
+    completion. Returns the tokens in request order and what the run
+    counted and took."""
     import torch
     from repro_torch.kernels import ops
     te = _switch_te(cfg, params, dev, dtype, switch, **ecfg_kw)
+    if eager:
+        _eager_all(te)
     chunks = []
     if switch == ("batched_prefill", False):
         # the (start, length) of every per-sequence pass, for the kernel
@@ -4397,6 +4435,22 @@ def switch_set(cfg, dev, switches, same, n_req, max_prompt=1024,
                     f"{n_req} ({card_line()})")
                 if sw in same:
                     assert row["tokens"] == base["tokens"], row["switch"]
+                if sw in EAGER_HELD:
+                    # the switch's programs against its eager forms: the
+                    # same kernels and arithmetic, so the same bf16 tokens
+                    # and launches
+                    erow, _ = switch_run(cfg, params, dev, dtype, make_reqs,
+                                         sw, eager=True, **ecfg_kw)
+                    assert erow["tokens"] == row["tokens"] \
+                        and erow["launches"] == row["launches"], \
+                        (row["switch"], erow["launches"], row["launches"])
+                    row.update(eager_tokens_equal=True, eager_ttft_ms_p50=erow[
+                        "ttft_ms_p50"], eager_tpot_ms_mean=erow[
+                        "tpot_ms_mean"])
+                    log(f"  switches {cfg.name} bf16 {row['switch']} "
+                        f"through its eager forms: the same tokens and "
+                        f"launches; TTFT p50 {erow['ttft_ms_p50']:.1f} ms, "
+                        f"TPOT {erow['tpot_ms_mean']:.2f} ms")
                 rows.append({k: v for k, v in row.items()
                              if k not in ("tokens", "chunks")})
         else:
@@ -4455,13 +4509,13 @@ def prefix_check(cfg, params, dev, dtype):
     # the first token
     first = []
     pre = te.runner.prefill
-    ragged = pre.prefill_ragged
+    ragged = pre.prefill_ragged_host
 
     def keep(*a, **kw):
         logits, toks = ragged(*a, **kw)
-        first.append(logits[0])
+        first.append(logits[0].clone())    # the program's static output
         return logits, toks
-    pre.prefill_ragged = keep
+    pre.prefill_ragged_host = keep
     sp = SamplingParams(temperature=0.0, max_new_tokens=32,
                         stop_on_eos=False)
     out = dict(switch="prefix_cache_hits", ttft_ms=[], card=card_line())
@@ -4586,7 +4640,7 @@ def prefill_logits(cfg, params, dev, prompts):
                     bt, np.zeros(sb), FP.build_tiles(cu, tb),
                     np.asarray(cu[1:]) - 1),
         None, None, True, None)
-    batched = [row[:v].float() for row in logits]
+    batched = [row[:v].float() for row in logits.clone()]
     for pg in pages:
         pool.release(pg)
     del te
@@ -4685,18 +4739,43 @@ def phase10(dev):
 # request sets (n greedy + n sampled) and engine config
 PROGRAM_ARCHS = (("qwen3-8b", 8, 2), ("granite-moe-3b-a800m", 6, 2),
                  ("rwkv6-1.6b", 6, 2), ("recurrentgemma-2b", 6, 2))
+# phase 12: the prefill programs against the eager prefill, the same
+# request sets (seamless's with seeded frames)
+PREFILL_PROGRAM_ARCHS = PROGRAM_ARCHS + (("seamless-m4t-large-v2", 6, 2),)
 
 
 def _eager_decode(te):
-    """Make ``te`` serve through the eager horizon (the paged runner's
+    """Make ``te`` decode through the eager horizon (the paged runner's
     ``decode_eager``, the slot runner's ``decode_sample_eager``): the
-    comparison of phase 11 only; the engine itself never picks it on one
-    card."""
+    comparisons of phases 3 (the MoE census), 10 and 11 only; the engine
+    itself never picks it on one card."""
     rt = te.runner
     if te.pool is not None:
         rt.decode_fused = rt.decoder.decode_eager
     else:
         rt.decode_sample = rt.decoder.decode_sample_eager
+
+
+def _eager_prefill(te):
+    """Make ``te`` prefill through the eager forms (the ragged pass and
+    the per-sequence chunk, or the slot chunk on the slot's own rows with
+    an int ``n_valid``): the comparisons of phases 3, 10 and 12 only."""
+    pre = te.runner.prefill
+    pre.prefill_chunk = pre.prefill_chunk_eager
+    if te.pool is not None:
+        pre.prefill_ragged_host = pre.prefill_ragged_host_eager
+
+
+def _eager_all(te):
+    """Every program of ``te`` replaced by its eager form, the unfused
+    step's too (phase 10's comparisons)."""
+    _eager_decode(te)
+    _eager_prefill(te)
+    te.runner.decoder.decode = te.runner.decoder.decode_step_eager
+
+
+MODES = {"eager": _eager_decode, "eager_prefill": _eager_prefill,
+         "programs": None}
 
 
 def _shifted(cfg, reqs, tag):
@@ -4706,21 +4785,34 @@ def _shifted(cfg, reqs, tag):
     v = cfg.vocab_size
     return [Request(prompt_tokens=[t + 1 if t + 1 < v else 3
                                    for t in r.prompt_tokens],
-                    sampling=r.sampling, req_id=f"{tag}{i}")
+                    sampling=r.sampling, req_id=f"{tag}{i}",
+                    extra=r.extra)
             for i, r in enumerate(reqs)]
 
 
 def program_pass(te, cfg, reqs, tag):
     """Serve ``reqs`` on ``te`` (launch counts zeroed just before the
     first arrives, read just after the last completes); the tokens in
-    request order, TPOT, the decode rate over the steps that ran no
-    prefill pass, launches and the programs this pass built."""
+    request order, TTFT, TPOT, the decode rate over the steps that ran no
+    prefill pass, the wall of the engine's prefill calls, launches and
+    the programs of each kind this pass built."""
     import torch
     from repro_torch.kernels import ops
-    builds0, d0, p0 = te.jit_compiles, te.decode_steps, te.prefill_dispatches
+    builds0, pbuilds0 = te.jit_compiles, te.prefill_jit_compiles
+    d0, p0 = te.decode_steps, te.prefill_dispatches
+    walls = []
+    attr = "_prefill_batched" if te.pool is not None else "_prefill_slot"
+    prefill = getattr(te, attr)
+
+    def timed(entries):
+        t0 = time.monotonic()
+        prefill(entries)
+        walls.append(time.monotonic() - t0)
+    setattr(te, attr, timed)
     ops.reset_launches()
     t0 = time.monotonic()
     for r in reqs:
+        r.arrival = t0              # the set is served again in each mode
         te.add_request(r)
     comps, dec_s, dec_tok = [], 0.0, 0
     while te.has_work():
@@ -4732,21 +4824,35 @@ def program_pass(te, cfg, reqs, tag):
             dec_tok += te.decode_tokens - tk
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    delattr(te, attr)
     _check_comps(comps, reqs, cfg)
     by_id = {c.req_id: c for c in comps}
+    ttft = sorted(c.ttft * 1e3 for c in comps)
     row = dict(pass_=tag, wall_s=wall,
                tokens=[by_id[r.req_id].tokens for r in reqs],
+               ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
                tpot_ms_mean=_mean([c.tpot * 1e3 for c in comps]),
                decode_tok_per_s=dec_tok / max(dec_s, 1e-9),
+               prefill_call_ms_mean=1e3 * _mean(walls),
                launches=ops.launch_counts(), switch=tag,
                decode_iterations=te.decode_steps - d0,
                prefill_passes=te.prefill_dispatches - p0,
-               programs_built=te.jit_compiles - builds0)
-    _hold_launches(cfg, row)
-    name = PATH_KERNELS[cfg.name][0]
-    row["launches_per_iteration"] = row["launches"][name] / (
-        row["decode_iterations"] + (0 if te.pool is not None
-                                    else row["prefill_passes"]))
+               programs_built=te.jit_compiles - builds0,
+               prefill_programs_built=te.prefill_jit_compiles - pbuilds0)
+    names = PATH_KERNELS[cfg.name]
+    if names:
+        _hold_launches(cfg, row)
+        row["launches_per_iteration"] = row["launches"][names[0]] / (
+            row["decode_iterations"] + (0 if te.pool is not None
+                                        else row["prefill_passes"]))
+    else:
+        assert not any(row["launches"].values()), row["launches"]
+        row["launches_per_iteration"] = 0.0
+    # the prefill kernel's launches per prefill dispatch (the slot
+    # family's recurrence launches per dispatch the same in every pass)
+    row["launches_per_prefill"] = (
+        row["launches"][names[-1]] / row["prefill_passes"]
+        if names and te.pool is not None else row["launches_per_iteration"])
     return row
 
 
@@ -4761,6 +4867,22 @@ def _graph_pool_gib(te) -> float:
                if tuple(seg["segment_pool_id"]) == tuple(pid)) / 2**30
 
 
+def _sync_free(call, cfg, n=3):
+    """``call`` (one program's key) run ``n`` times: the first outside,
+    the rest under sync-debug "error" (a blocking device call raises)."""
+    import torch
+    for i in range(n):
+        torch.cuda.synchronize()
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if toks is not None:
+            assert int(toks.max()) < cfg.vocab_size
+
+
 def steady_replays_sync_free(te, cfg, reqs):
     """Two of ``reqs`` prefilled, then one decode program (a paged
     horizon of 4 over the hot state rebuilt from them, or the slot step)
@@ -4768,7 +4890,6 @@ def steady_replays_sync_free(te, cfg, reqs):
     sync-debug "error". Returns the program's key; the TE is left
     unservable (its device rows ran ahead of the host)."""
     import numpy as np
-    import torch
     for r in reqs[:2]:
         te.add_request(r)
     while te.scheduler.waiting or te.scheduler.prefilling \
@@ -4790,25 +4911,80 @@ def steady_replays_sync_free(te, cfg, reqs):
         call = lambda: te.runner.decode_sample(                 # noqa: E731
             live, temps, top_ps, te._gen)
         key = (True,)
-    for n in range(3):
-        torch.cuda.synchronize()
-        if n:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            toks = call()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        assert int(toks.max()) < cfg.vocab_size
+    _sync_free(call, cfg)
     assert key in te.runner.programs.programs, key
     return key
 
 
-def program_model(name, n_greedy, n_sampled, dev):
-    """One model at full width, bf16: the eager horizon and the programs
-    serve the same two passes (the phase-3 requests, then the same
-    lengths shifted by one id); greedy tokens equal bit for bit, sampled
-    ids valid, the same launches per iteration, no program built in the
-    second pass, and a steady replay with no host sync."""
+def steady_prefill_sync_free(te, cfg, req):
+    """One prefill program called three times, the first outside and the
+    next two under sync-debug "error": a ragged pass over ``req``'s first
+    512 ids parked on the scratch page (an all-padding plan's key of this
+    serve, all greedy), or one 256-id chunk of ``req`` on a free slot (its
+    rows staged in and out, its modality inputs copied in). The first
+    tokens are fetched outside. Returns the program's key."""
+    import numpy as np
+    from repro_torch.engine.hotloop import pow2_bucket
+    from repro_torch.engine.runners.base import SequenceState
+    from repro_torch.kernels import flash_prefill as FP
+    rt = te.runner
+    if te.pool is not None:
+        s = rt.pool.scratch_page()
+        sb = pow2_bucket(te.ecfg.max_prefill_seqs)
+        cu = [0] * (sb + 1)
+        toks = (req.prompt_tokens * 8)[:512]
+        arrays = (toks, np.zeros(512), np.full(512, s),
+                  np.zeros(512), cu, np.full((sb, 64), s), np.zeros(sb),
+                  FP.build_tiles(cu, 512), np.zeros(sb))
+        temps = np.zeros((sb,), np.float32)
+        _sync_free(lambda: rt.prefill_ragged_host(
+            arrays, temps, np.ones_like(temps), te._gen)[1], cfg)
+        key = ("ragged", 512, 64, sb, True)
+    else:
+        seq = SequenceState(seq_id="sync",
+                            tokens=(req.prompt_tokens * 4)[:256],
+                            n_prompt=10 ** 6, extra=dict(req.extra))
+        assert rt.alloc_slot(seq)
+        _sync_free(lambda: rt.prefill_chunk(seq, seq.tokens), cfg)
+        rt.free_slot(seq)
+        key = ("slot_prefill", 256) + ((tuple(sorted(req.extra)),)
+                                       if req.extra else ())
+    prog = rt.programs.prefill_programs[key]
+    assert prog.graph is not None or te.device.type != "cuda", key
+    return key
+
+
+def _phase_requests(cfg, n_greedy, n_sampled):
+    """Phase 3's request set of ``cfg`` (its prompts and sampling), each
+    request with its own seeded modality inputs where the model takes
+    them."""
+    import numpy as np
+    reqs = _requests(cfg, n_greedy, n_sampled)
+    rs = np.random.RandomState(1)
+    for r in reqs:
+        r.extra = modality(cfg, rs)
+    return reqs
+
+
+def _capture_stats(progs):
+    cap = sorted(p.capture_ms for p in progs) or [0.0]
+    return dict(programs=len(progs), capture_ms_median=cap[len(cap) // 2],
+                capture_ms_max=cap[-1], capture_ms_sum=sum(cap),
+                replay_launches={str(p.key): p.launches for p in progs[:3]})
+
+
+def program_model(name, n_greedy, n_sampled, dev,
+                  modes=("eager", "programs")):
+    """One model at full width, bf16, served in one process once per mode
+    of ``modes``: "eager" (the eager horizon, prefill programs: phase 11's
+    comparison), "eager_prefill" (the eager prefill, decode programs:
+    phase 12's) and "programs" (both kinds), each in two passes (the
+    phase-3 requests, then the same lengths shifted by one id). Against
+    the programs: greedy tokens equal bit for bit, sampled ids valid, the
+    same launches per decode iteration and per prefill dispatch, no
+    program of either kind built in the second pass, and a steady replay
+    with no host sync. Returns {"decode": phase 11's row, "prefill":
+    phase 12's row} for the comparisons ``modes`` holds."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.engine import FlowServe
@@ -4817,46 +4993,67 @@ def program_model(name, n_greedy, n_sampled, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = T.init_params(cfg, gen, torch.bfloat16, dev)
-    reqs = _requests(cfg, n_greedy, n_sampled)
+    reqs = _phase_requests(cfg, n_greedy, n_sampled)
     again = _shifted(cfg, reqs, "s")
-    runs = {}
-    for mode in ("eager", "programs"):
+    runs, stats = {}, {}
+    for mode in modes:
         te = FlowServe(cfg, params, _engine_config(cfg, torch.bfloat16),
                        name=f"te-{mode}", device=dev)
-        if mode == "eager":
-            _eager_decode(te)
+        if MODES[mode] is not None:
+            MODES[mode](te)
         runs[mode] = [program_pass(te, cfg, reqs, "first"),
                       program_pass(te, cfg, again, "second")]
         if mode == "programs":
-            progs = list(te.runner.programs.programs.values())
-            cap = sorted(p.capture_ms for p in progs)
-            out = dict(model=name, programs=len(progs),
-                       jit_compiles=te.jit_compiles,
-                       capture_ms_median=cap[len(cap) // 2],
-                       capture_ms_max=cap[-1], capture_ms_sum=sum(cap),
-                       graph_pool_gib=_graph_pool_gib(te),
-                       replay_launches={str(p.key): p.launches
-                                        for p in progs[:3]})
-            out["sync_free_key"] = str(steady_replays_sync_free(
-                te, cfg, _shifted(cfg, reqs, "z")))
+            progs = te.runner.programs
+            stats["decode"] = dict(
+                _capture_stats(list(progs.programs.values())),
+                jit_compiles=te.jit_compiles)
+            stats["prefill"] = dict(
+                _capture_stats(list(progs.prefill_programs.values())),
+                prefill_jit_compiles=te.prefill_jit_compiles)
+            for k in stats:
+                stats[k]["graph_pool_gib"] = _graph_pool_gib(te)
+            if "eager_prefill" in modes:
+                stats["prefill"]["sync_free_key"] = str(
+                    steady_prefill_sync_free(te, cfg, reqs[0]))
+            if "eager" in modes:
+                stats["decode"]["sync_free_key"] = str(
+                    steady_replays_sync_free(te, cfg, _shifted(cfg, reqs,
+                                                               "z")))
         del te
         _release()
-    for i, tag in enumerate(("first", "second")):
-        e, g = runs["eager"][i], runs["programs"][i]
-        same = sum(a == b for a, b in zip(e["tokens"][:n_greedy],
-                                          g["tokens"][:n_greedy]))
-        assert same == n_greedy, \
-            f"{name} {tag} pass: {same} of {n_greedy} greedy requests equal"
-        assert e["launches_per_iteration"] == g["launches_per_iteration"] \
-            and e["decode_iterations"] == g["decode_iterations"], (e, g)
-        out[tag] = {k: dict(eager=e[k], programs=g[k]) for k in (
-            "tpot_ms_mean", "decode_tok_per_s", "wall_s",
-            "launches_per_iteration", "decode_iterations",
-            "programs_built")}
-        out[tag]["greedy_equal"] = f"{same}/{n_greedy}"
-    assert runs["programs"][1]["programs_built"] == 0, \
-        f"{name}: the second pass over the same buckets built programs"
-    log("  programs: " + json.dumps(out))
+    out = {}
+    for kind, base, keys in (
+            ("decode", "eager", ("tpot_ms_mean", "decode_tok_per_s",
+                                 "wall_s", "launches_per_iteration",
+                                 "decode_iterations", "programs_built")),
+            ("prefill", "eager_prefill", (
+                "ttft_ms_p50", "ttft_ms_max", "tpot_ms_mean",
+                "prefill_call_ms_mean", "wall_s", "launches_per_prefill",
+                "launches_per_iteration", "prefill_passes",
+                "prefill_programs_built", "programs_built"))):
+        if base not in modes:
+            continue
+        row = dict(model=name, **stats[kind])
+        for i, tag in enumerate(("first", "second")):
+            e, g = runs[base][i], runs["programs"][i]
+            same = sum(a == b for a, b in zip(e["tokens"][:n_greedy],
+                                              g["tokens"][:n_greedy]))
+            assert same == n_greedy, \
+                f"{name} {kind} {tag} pass: {same} of {n_greedy} greedy " \
+                f"requests equal"
+            for k in ("launches_per_iteration", "launches_per_prefill",
+                      "decode_iterations", "prefill_passes"):
+                assert e[k] == g[k], (kind, tag, k, e[k], g[k])
+            row[tag] = {k: dict(eager=e[k], programs=g[k]) for k in keys}
+            row[tag]["greedy_equal"] = f"{same}/{n_greedy}"
+        second = runs["programs"][1]
+        assert second["programs_built"] == 0 \
+            and second["prefill_programs_built"] == 0, \
+            f"{name}: the second pass over the same buckets built programs"
+        row["card"] = card_line()
+        log(f"  {kind} programs: " + json.dumps(row))
+        out[kind] = row
     del params
     _release()
     return out
@@ -4911,17 +5108,107 @@ def program_warmup(dev):
     return out
 
 
+def prefill_warmup(dev):
+    """qwen3-8b at full width, bf16, phase 3's engine config:
+    ``warmup_prefill`` builds its whole grid (pow2s(512 + 8) = 11 token
+    buckets x pow2s(2048 // 8) = 9 page buckets = 99 ragged programs, all
+    greedy, Sb 8); its seconds, each program's capture ms, the graph
+    pool's GiB and the memory it added at its peak and after; then phase
+    3's request set, all greedy, served inside the grid builds no prefill
+    program. Run by ``--only prefill-programs`` alone."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import FlowServe
+    from repro_torch.models import transformer as T
+    log(f"phase 12: the prefill warmup grid [{time.monotonic() - T0:.1f} s]")
+    cfg = get_config("qwen3-8b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(cfg, gen, torch.bfloat16, dev)
+    te = FlowServe(cfg, params, _engine_config(cfg, torch.bfloat16),
+                   device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.monotonic()
+    n = te.warmup_prefill()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    progs = te.runner.programs.prefill_programs
+    by_tb = {}
+    for key, p in progs.items():
+        by_tb.setdefault(key[1], []).append(p.capture_ms)
+    out = dict(model=cfg.name, shapes_run=n,
+               prefill_programs=te.prefill_jit_compiles, warmup_s=secs,
+               **{k: v for k, v in _capture_stats(list(
+                   progs.values())).items() if k != "replay_launches"},
+               capture_ms_mean_by_token_bucket={
+                   k: _mean(v) for k, v in sorted(by_tb.items())},
+               graph_pool_gib=_graph_pool_gib(te),
+               allocated_gib_added=(torch.cuda.memory_allocated() - alloc0)
+               / 2**30,
+               peak_gib_added=(torch.cuda.max_memory_allocated() - alloc0)
+               / 2**30,
+               reserved_gib_added=(torch.cuda.memory_reserved() - res0)
+               / 2**30, card=card_line())
+    assert n == te.prefill_jit_compiles == 11 * 9, out
+    row = program_pass(te, cfg, _requests(cfg, 10, 0), "warm")
+    assert row["prefill_programs_built"] == 0, row["prefill_programs_built"]
+    out.update({k: row[k] for k in ("ttft_ms_p50", "ttft_ms_max",
+                                    "tpot_ms_mean", "prefill_call_ms_mean",
+                                    "prefill_programs_built")})
+    log("  prefill warmup grid: " + json.dumps(out))
+    del te, params
+    _release()
+    return out
+
+
 def phase11(dev):
     """The decode programs at full width: each of ``PROGRAM_ARCHS`` served
     through the eager horizon and through the captured programs in one
     process. Returns the rows."""
     log(f"phase 11: decode programs [{time.monotonic() - T0:.1f} s]")
-    rows = []
+    out = []
     for name, n_greedy, n_sampled in PROGRAM_ARCHS:
         log(f"phase 11: {name} [{time.monotonic() - T0:.1f} s]")
-        rows.append(program_model(name, n_greedy, n_sampled, dev))
+        out.append(program_model(name, n_greedy, n_sampled, dev)["decode"])
     log(f"phase 11 done [{time.monotonic() - T0:.1f} s]")
-    return rows
+    return out
+
+
+def phase12(dev):
+    """The prefill programs at full width: each of
+    ``PREFILL_PROGRAM_ARCHS`` served through the eager prefill and through
+    the captured programs in one process. Returns the rows."""
+    log(f"phase 12: prefill programs [{time.monotonic() - T0:.1f} s]")
+    out = []
+    for name, n_greedy, n_sampled in PREFILL_PROGRAM_ARCHS:
+        log(f"phase 12: {name} [{time.monotonic() - T0:.1f} s]")
+        out.append(program_model(name, n_greedy, n_sampled, dev,
+                                 ("eager_prefill", "programs"))["prefill"])
+    log(f"phase 12 done [{time.monotonic() - T0:.1f} s]")
+    return out
+
+
+def phase11_12(dev):
+    """Phases 11 and 12 of the whole run in one pass over the models: each
+    served with the eager horizon, with the eager prefill and with both
+    kinds of program (the last run shared by both comparisons), seamless
+    with the latter two. Returns (phase 11's rows, phase 12's rows)."""
+    log(f"phases 11-12: decode and prefill programs "
+        f"[{time.monotonic() - T0:.1f} s]")
+    decode, prefill = [], []
+    for name, n_greedy, n_sampled in PREFILL_PROGRAM_ARCHS:
+        log(f"phases 11-12: {name} [{time.monotonic() - T0:.1f} s]")
+        modes = ("eager", "eager_prefill", "programs") \
+            if (name, n_greedy, n_sampled) in PROGRAM_ARCHS \
+            else ("eager_prefill", "programs")
+        rows = program_model(name, n_greedy, n_sampled, dev, modes)
+        if "decode" in rows:
+            decode.append(rows["decode"])
+        prefill.append(rows["prefill"])
+    log(f"phases 11-12 done [{time.monotonic() - T0:.1f} s]")
+    return decode, prefill
 
 
 def main() -> int:
@@ -4929,7 +5216,7 @@ def main() -> int:
     ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet",
                                        "tp", "train", "long",
                                        "long-process", "switches",
-                                       "programs"],
+                                       "programs", "prefill-programs"],
                     default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
                          "new kernel); 'pd' runs phases 1 and 5 alone, "
@@ -4937,7 +5224,8 @@ def main() -> int:
                          "'train' phases 1 and 8, 'long' phases 1 and 9 "
                          "('long-process': phase 9 alone, the process "
                          "phase9_process starts), 'switches' phases 1 and "
-                         "10, 'programs' phases 1 and 11")
+                         "10, 'programs' phases 1 and 11, "
+                         "'prefill-programs' phases 1 and 12")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4981,6 +5269,11 @@ def main() -> int:
     if args.only == "programs":
         log(json.dumps({"programs": phase11(dev),
                         "warmup": program_warmup(dev)}))
+        log(card)
+        return 0
+    if args.only == "prefill-programs":
+        log(json.dumps({"prefill_programs": phase12(dev),
+                        "warmup": prefill_warmup(dev)}))
         log(card)
         return 0
     if args.only in ("pd", "fleet", "tp"):
@@ -5047,7 +5340,7 @@ def main() -> int:
     train = phase8(dev)
     longctx = phase9_process()
     switches = phase10(dev)
-    programs = phase11(dev)
+    programs, prefill_programs = phase11_12(dev)
     for r in rows:
         r["launches_pd"] = pd[r["arch"], r["name"]]
         r["launches_fleet"] = fleet[r["arch"], r["name"]]
@@ -5056,6 +5349,7 @@ def main() -> int:
         r["launches_switches"] = switches["launches"][r["name"]]
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
+    log(json.dumps({"prefill_programs": prefill_programs}))
     log(json.dumps({"programs": programs}))
     log(json.dumps({"switches": switches}))
     log(json.dumps({"long": longctx}))

@@ -7,13 +7,15 @@ plane.
   * paged family (attention-only towers): a page pool with the RTC prefix
     cache. A step packs every planned prefill chunk into ONE ragged
     prefill pass (first tokens sampled in it) and runs decode as K-step
-    fused horizons over the device-resident batch state, each horizon one
+    fused horizons over the device-resident batch state, fetching each
+    horizon's tokens one horizon late. Each pass and each horizon is one
     device program (``engine/programs.py``: a CUDA graph replayed on a
-    card), fetching each horizon's tokens one horizon late.
+    card), counted as ``prefill_jit_compiles`` and ``jit_compiles``.
   * slot family (rwkv6, recurrentgemma, seamless-m4t enc-dec,
     llama-3.2-vision): dense per-slot caches, no pool and no RTC. Prefill
     is chunked per sequence on its slot, with the request's modality
-    inputs (``Request.extra``) refilling the cross cache at every chunk;
+    inputs (``Request.extra``) refilling the cross cache at every chunk,
+    each chunk one program per length bucket over the slot's staged rows;
     decode is one all-slot step with sampling in the same program; prefix
     reuse restores a state checkpoint taken when an earlier request
     released its slot.
@@ -27,6 +29,7 @@ previous one runs; ``batched_prefill=False`` gives a paged TE one prefill
 pass per sequence per chunk (the first token then comes from the decode
 path); ``fused_decode=False`` runs one decode step per iteration and
 samples its logits on the host (``_commit_tokens``), for both families.
+Every one of these paths runs through its programs on one device.
 
 Modes (§4.5): "colocated" (chunked prefill and decode in one TE),
 "prefill" (a P-TE: prefill only; a finished prompt waits in
@@ -76,8 +79,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.distflow import (BufferInfo, DistFlow, TransferFault,
                                          _nbytes, tree_leaves)
-from repro_torch.engine.hotloop import (DecodeHotState, pow2_bucket, pow2s,
-                                        to_device, upload_i32)
+from repro_torch.engine.hotloop import DecodeHotState, pow2_bucket, pow2s
 from repro_torch.engine.kv_cache import (OutOfPagesError, PagedKVPool,
                                          pages_needed)
 from repro_torch.engine.rtc import RelationalTensorCache, RTCCostModel
@@ -274,6 +276,12 @@ class FlowServe:
         the reference's count of its decode-path jit cache misses)."""
         return self.runner.jit_compiles
 
+    @property
+    def prefill_jit_compiles(self) -> int:
+        """Prefill-path programs built (0 after ``warmup_prefill``; the
+        reference's count of its prefill-path jit cache misses)."""
+        return self.runner.prefill_jit_compiles
+
     # ---------------------------------------------------------------- scaling
     @classmethod
     def fork_from(cls, source: "FlowServe", ecfg: EngineConfig,
@@ -350,8 +358,9 @@ class FlowServe:
         non-blocking copies from the card, waited for (``transfer_timing``
         gets "pin_s" and "d2h"). Returns the host copy of the ranks' trees,
         one copy per distinct storage (``to_host=True``), or None; either
-        way the TE drops its device references and its decode programs
-        (a captured graph holds the weights' addresses) and stops being a
+        way the TE drops its device references and its programs of both
+        kinds (a captured graph holds the weights' addresses) and stops
+        being a
         fork source (the memory returns once no other TE shares the tree).
         Call only after the TE is empty: it cannot serve afterwards."""
         from repro_torch.core.scaling import copy_to_host
@@ -568,20 +577,16 @@ class FlowServe:
         flat_pg += [scratch] * n_pad
         flat_sl += [0] * n_pad
 
-        dev = self.device
-        ops_i32 = upload_i32(dev, flat_t, flat_p, flat_pg, flat_sl, cu,
-                             entry_bt, entry_start,
-                             FP.build_tiles(cu, tb), final_idx)
-        all_greedy = not bool((temps > 0.0).any())
-        t_dev = p_dev = None
-        if not all_greedy:
-            t_dev = to_device(temps, dev)
-            p_dev = to_device(top_ps, dev)
-        _, toks_dev = self.runner.prefill_ragged(*ops_i32, t_dev, p_dev,
-                                                 all_greedy, self._gen)
+        # one upload into the program of (Tb, Pb, Sb, all-greedy): its
+        # static operands are views of one int32 buffer
+        _, toks_dev = self.runner.prefill_ragged_host(
+            (flat_t, flat_p, flat_pg, flat_sl, cu, entry_bt, entry_start,
+             FP.build_tiles(cu, tb), final_idx), temps, top_ps, self._gen)
         self.prefill_dispatches += 1
 
-        # ---- commit: lengths, extension first-tokens, queue transitions
+        # ---- commit: lengths, extension first-tokens, queue transitions;
+        # the first tokens are fetched right after the program (its static
+        # output), before any other program of the TE runs
         toks = None
         if any(ext for _, _, _, ext in packed):
             toks = toks_dev.cpu().numpy()
@@ -717,9 +722,11 @@ class FlowServe:
 
     def warmup_prefill(self, max_tokens: Optional[int] = None,
                        max_pages: Optional[int] = None) -> int:
-        """Run every pow2 token bucket up to the step budget (plus one
-        extension token per prompt row) x every pow2 page bucket up to
-        ``max_pages`` once as an all-padding plan. Returns the number of
+        """Build the ragged prefill program of every pow2 token bucket up
+        to the step budget (plus one extension token per prompt row) x
+        every pow2 page bucket up to ``max_pages`` (all-greedy keys), each
+        run once as an all-padding plan on the scratch page: serving
+        inside that grid builds no prefill program. Returns the number of
         shapes run (0 for the slot family)."""
         if not self.family.uses_pages:
             return 0

@@ -57,19 +57,35 @@ def upload_into(dst: torch.Tensor, arr) -> None:
     dst.copy_(t, non_blocking=True)
 
 
+def pack_i32(*arrays) -> np.ndarray:
+    """Host arrays as one flat int32 array, in order (the layout
+    ``split_views`` cuts)."""
+    return np.concatenate([np.asarray(a, np.int32).reshape(-1)
+                           for a in arrays])
+
+
+def split_views(buf: torch.Tensor, shapes) -> List[torch.Tensor]:
+    """Views of consecutive runs of the flat ``buf``, one per shape."""
+    out, off = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        out.append(buf[off:off + n].view(tuple(shape)))
+        off += n
+    return out
+
+
+def i32_buffer(shapes, device) -> torch.Tensor:
+    """A zeroed flat int32 buffer holding one run per shape (the layout
+    ``split_views`` cuts and ``pack_i32`` fills)."""
+    return torch.zeros((sum(int(np.prod(sh)) for sh in shapes),),
+                       dtype=torch.int32, device=device)
+
+
 def upload_i32(device, *arrays) -> List[torch.Tensor]:
     """Host int32 arrays -> device views, in ONE host-to-device copy that
     does not drain the stream."""
-    flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
-                           for a in arrays])
-    buf = to_device(flat, device)
-    out, off = [], 0
-    for a in arrays:
-        shape = np.shape(a)
-        n = int(np.prod(shape))
-        out.append(buf[off:off + n].view(shape))
-        off += n
-    return out
+    return split_views(to_device(pack_i32(*arrays), device),
+                       [np.shape(a) for a in arrays])
 
 
 def pow2_bucket(n: int) -> int:

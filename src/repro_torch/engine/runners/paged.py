@@ -21,10 +21,17 @@ replayed per horizon; on the CPU the program runs the same body directly.
 The reference's key has no greedy flag because its ``lax.cond`` picks the
 sampler inside the jit; the port picks it on the host
 (``DecodeHotState.all_greedy``), so in an all-greedy run both count the
-same programs (``jit_compiles``). ``decode_eager`` is the horizon's eager
-form, kept for the comparisons in the tests and ``chip_smoke.py``; the
-engine runs it only for a TE whose ranks lie on more than one device,
-which keeps no program (decided from the mesh when the runner is built).
+same programs (``jit_compiles``). The prefill is programs too, counted as
+``prefill_jit_compiles``: the ragged pass keyed ("ragged", Tb, Pb, Sb,
+all-greedy) (the reference's ``_ragged_fn`` (Tb, Pb, Sb)), the
+per-sequence chunk ("chunk", c, npages); and so is the unfused step,
+("step", B, maxp), counted as ``jit_compiles``. Each program's operands
+are views of one int32 static buffer that the engine uploads into in one
+copy. ``decode_eager``, ``prefill_ragged_eager``, ``prefill_chunk_eager``
+and ``decode_step_eager`` are the eager forms, kept for the comparisons
+in the tests and ``chip_smoke.py``; the engine runs them only for a TE
+whose ranks lie on more than one device, which keeps no program (decided
+from the mesh when the runner is built).
 
 The KV pool is updated in place (``index_put_``) where the JAX package
 donates the pool to its jit and gets a new one back. Padding tokens and
@@ -46,7 +53,8 @@ from typing import List
 import numpy as np
 import torch
 
-from repro_torch.engine.hotloop import upload_i32
+from repro_torch.engine.hotloop import (i32_buffer, pack_i32, split_views,
+                                        to_device, upload_i32, upload_into)
 from repro_torch.engine.programs import Program, ProgramCache
 from repro_torch.engine.runners.base import SequenceState
 from repro_torch.engine.sampling import greedy_core, sample_core
@@ -74,13 +82,19 @@ class PagedRunner:
                         for w in T.window_schedule(cfg)]
         self.prefill = PagedPrefillRunner(self)
         self.decoder = PagedDecodeRunner(self)
-        self.programs = ProgramCache(self.mesh)   # the decode horizons'
+        self.programs = ProgramCache(self.mesh)   # both kinds
 
     @property
     def jit_compiles(self) -> int:
         """Decode programs built (warmup included): the reference's count
         of decode-path jit cache misses."""
         return self.programs.builds
+
+    @property
+    def prefill_jit_compiles(self) -> int:
+        """Prefill programs built (warmup included): the reference's count
+        of prefill-path jit cache misses."""
+        return self.programs.prefill_builds
 
     def layer_attn_inputs(self, li: int, r: int, q, k_new, v_new, pages,
                           slots):
@@ -99,6 +113,9 @@ class PagedRunner:
 
     def prefill_ragged(self, *args, **kw):
         return self.prefill.prefill_ragged(*args, **kw)
+
+    def prefill_ragged_host(self, arrays, temps, top_ps, gen):
+        return self.prefill.prefill_ragged_host(arrays, temps, top_ps, gen)
 
     def prefill_chunk(self, seq: SequenceState, chunk_tokens: List[int]):
         return self.prefill.prefill_chunk(seq, chunk_tokens)
@@ -156,11 +173,32 @@ class PagedPrefillRunner:
     def __init__(self, rt: PagedRunner):
         self.rt = rt
 
+    @property
+    def captures(self) -> bool:
+        """Whether the prefill runs through its programs: on one device,
+        unless the TE runs the plain kernel versions (``impl="ref"``),
+        whose paged varlen prefill (``kernels/ref.py::paged_prefill_ref``)
+        reads its entry offsets on the host and so cannot be captured:
+        such a TE keeps the eager prefill, as its construction decides."""
+        return self.rt.programs.enabled and self.rt.impl != "ref"
+
+    # ------------------------------------------------------------ ragged
+    @staticmethod
+    def ragged_shapes(tb: int, pb: int, sb: int) -> tuple:
+        """The shapes of the nine int32 operands of the ragged key (Tb, Pb,
+        Sb), in ``prefill_ragged``'s order: fixed per key
+        (``build_tiles`` returns (``max_tiles(Tb, Sb)``, 3))."""
+        return ((tb,), (tb,), (tb,), (tb,), (sb + 1,), (sb, pb), (sb,),
+                (FP.max_tiles(tb, sb), 3), (sb,))
+
     @torch.no_grad()
     def prefill_ragged(self, tokens, positions, pages, slots, cu_tokens,
                        entry_bt, entry_start, tiles, final_idx, temps,
                        top_ps, all_greedy: bool, gen: torch.Generator):
-        """The whole step's prefill plan (DESIGN.md §12). Operands, all on
+        """The whole step's prefill plan (DESIGN.md §12) through the
+        program of (Tb, Pb, Sb, all-greedy): the reference's ``_ragged_fn``
+        keys (Tb, Pb, Sb) and picks the sampler inside its jit, the port
+        picks it on the host, as for the decode horizon. Operands, all on
         the pool's device:
           tokens/positions/pages/slots  (Tb,)   flat ragged token stream;
                                                 padding tokens point at the
@@ -171,8 +209,89 @@ class PagedPrefillRunner:
                                                 (``flash_prefill.build_tiles``)
           final_idx (Sb,)                       each entry's chunk-final row
           temps/top_ps (Sb,)                    per-entry sampling params
-        ``all_greedy`` is decided on the host from ``temps``. Returns
-        (logits (Sb, Vp), sampled tokens (Sb,) int32)."""
+        ``all_greedy`` is decided on the host from ``temps``. Each operand
+        is copied into the program's static buffer (device to device);
+        the engine uploads its host arrays there directly
+        (``prefill_ragged_host``). Returns (logits (Sb, Vp), sampled tokens
+        (Sb,) int32): on a card the program's static outputs, consumed
+        before the next program call."""
+        ops_ = (tokens, positions, pages, slots, cu_tokens, entry_bt,
+                entry_start, tiles, final_idx)
+        if not self.captures:
+            return self.prefill_ragged_eager(*ops_, temps, top_ps,
+                                             all_greedy, gen)
+        prog = self._ragged_program(tokens.shape[0], *entry_bt.shape[::-1],
+                                    all_greedy, gen)
+        for dst, src in zip(split_views(prog.inputs["ops"], [
+                t.shape for t in ops_]), ops_):
+            dst.copy_(src, non_blocking=True)
+        return prog(**({} if all_greedy else dict(temps=temps,
+                                                  top_ps=top_ps)))
+
+    @torch.no_grad()
+    def prefill_ragged_host(self, arrays, temps: np.ndarray,
+                            top_ps: np.ndarray, gen: torch.Generator):
+        """``prefill_ragged`` from the engine's host arrays (the nine int32
+        operands in order, (Sb,) temps / top_ps): one host-to-device copy
+        into the program's static buffer (pinned, non-blocking), the
+        sampling params only for a sampled key."""
+        rt = self.rt
+        if not self.captures:
+            return self.prefill_ragged_host_eager(arrays, temps, top_ps, gen)
+        greedy = not bool((temps > 0.0).any())
+        sb, pb = np.shape(arrays[5])
+        prog = self._ragged_program(len(arrays[0]), pb, sb, greedy, gen)
+        upload_into(prog.inputs["ops"], pack_i32(*arrays))
+        if not greedy:
+            upload_into(prog.inputs["temps"], temps)
+            upload_into(prog.inputs["top_ps"], top_ps)
+        return prog()
+
+    @torch.no_grad()
+    def prefill_ragged_host_eager(self, arrays, temps: np.ndarray,
+                                  top_ps: np.ndarray, gen: torch.Generator):
+        """``prefill_ragged_host`` as eager launches (the operands uploaded
+        in one copy, then ``prefill_ragged_eager``)."""
+        dev = self.rt.pool.device
+        greedy = not bool((temps > 0.0).any())
+        t_dev = p_dev = None
+        if not greedy:
+            t_dev, p_dev = to_device(temps, dev), to_device(top_ps, dev)
+        return self.prefill_ragged_eager(*upload_i32(dev, *arrays), t_dev,
+                                         p_dev, greedy, gen)
+
+    def _ragged_program(self, tb: int, pb: int, sb: int, greedy: bool,
+                        gen) -> Program:
+        key = ("ragged", tb, pb, sb, greedy)
+        return self.rt.programs.get(
+            key, lambda: self._make_ragged(key, gen), "prefill")
+
+    def _make_ragged(self, key: tuple, gen) -> Program:
+        _, tb, pb, sb, greedy = key
+        dev = self.rt.pool.device
+        shapes = self.ragged_shapes(tb, pb, sb)
+        inputs = {"ops": i32_buffer(shapes, dev)}
+        if not greedy:
+            inputs["temps"] = torch.zeros((sb,), dtype=torch.float32,
+                                          device=dev)
+            inputs["top_ps"] = torch.ones((sb,), dtype=torch.float32,
+                                          device=dev)
+        gen = None if greedy else gen
+
+        def ragged(ops, temps=None, top_ps=None):
+            return self.prefill_ragged_eager(*split_views(ops, shapes),
+                                             temps, top_ps, greedy, gen)
+        return Program(key, ragged, inputs, self.rt.programs, gen,
+                       kind="prefill")
+
+    @torch.no_grad()
+    def prefill_ragged_eager(self, tokens, positions, pages, slots,
+                             cu_tokens, entry_bt, entry_start, tiles,
+                             final_idx, temps, top_ps, all_greedy: bool,
+                             gen: torch.Generator):
+        """The ragged prefill as eager launches on the given operands (the
+        programs' body; kept for the comparisons in the tests and
+        ``chip_smoke.py``, and run by a TE over several devices)."""
         rt = self.rt
         cfg = rt.cfg
         x = self._layers(tokens, positions, pages, slots, cu_tokens,
@@ -185,28 +304,69 @@ class PagedPrefillRunner:
             toks = sample_core(logits, temps, top_ps, gen, cfg.vocab_size)
         return logits, toks
 
-    @torch.no_grad()
-    def prefill_chunk(self, seq: SequenceState, chunk_tokens: List[int]):
-        """One chunk of one sequence (the reference's per-sequence
-        ``prefill_chunk``, ``repro/engine/runners/paged.py:166-235``): its
-        K/V written into the sequence's pages (already allocated), each
-        token attending its prefix and the chunk before it with the layer's
-        window and softcap, through the paged varlen prefill as a single
-        entry. Advances ``n_cached``; returns the last position's (Vp,)
-        logits once the prompt is covered, else None."""
-        rt = self.rt
-        ps = rt.pool.page_size
+    # ----------------------------------------------------- per sequence
+    def _chunk_arrays(self, seq: SequenceState, chunk_tokens: List[int]):
+        """The eight int32 operands of one sequence's chunk as a single
+        entry of the paged varlen prefill."""
+        ps = self.rt.pool.page_size
         c = len(chunk_tokens)
         start = seq.n_cached
         pos = np.arange(start, start + c)
         bt = np.asarray(seq.pages, np.int32)
-        x = self._layers(*upload_i32(
-            rt.pool.device, chunk_tokens, pos, bt[pos // ps], pos % ps,
-            [0, c], bt[None], [start], FP.build_tiles([0, c], c)))
-        seq.n_cached = start + c
-        if seq.n_cached < seq.n_prompt:
-            return None
-        return T.unembed(rt.cfg, rt.params, x[-1:], rt.mesh)[0, 0]
+        return (chunk_tokens, pos, bt[pos // ps], pos % ps, [0, c], bt[None],
+                [start], FP.build_tiles([0, c], c))
+
+    @torch.no_grad()
+    def prefill_chunk(self, seq: SequenceState, chunk_tokens: List[int]):
+        """One chunk of one sequence (the reference's per-sequence
+        ``prefill_chunk``, ``repro/engine/runners/paged.py:166-235``)
+        through the program of (c, npages), its jit's key: its K/V written
+        into the sequence's pages (already allocated), each token attending
+        its prefix and the chunk before it with the layer's window and
+        softcap, through the paged varlen prefill as a single entry; the
+        operands uploaded in one copy into the program's static buffer.
+        Advances ``n_cached``; returns the last position's (Vp,) logits (a
+        copy) once the prompt is covered, else None."""
+        rt = self.rt
+        if not self.captures:
+            return self.prefill_chunk_eager(seq, chunk_tokens)
+        arrays = self._chunk_arrays(seq, chunk_tokens)
+        key = ("chunk", len(chunk_tokens), len(seq.pages))
+        prog = rt.programs.get(key, lambda: self._make_chunk(key),
+                               "prefill")
+        upload_into(prog.inputs["ops"], pack_i32(*arrays))
+        (logits,) = prog()
+        return self._chunk_done(seq, len(chunk_tokens), logits.clone())
+
+    def _make_chunk(self, key: tuple) -> Program:
+        _, c, npages = key
+        shapes = ((c,), (c,), (c,), (c,), (2,), (1, npages), (1,),
+                  (FP.max_tiles(c, 1), 3))
+        inputs = {"ops": i32_buffer(shapes, self.rt.pool.device)}
+
+        def chunk(ops):
+            return (self._chunk_logits(*split_views(ops, shapes)),)
+        return Program(key, chunk, inputs, self.rt.programs, kind="prefill")
+
+    def _chunk_logits(self, *ops) -> torch.Tensor:
+        """Every layer over one chunk's operands; the last row's (Vp,)
+        logits."""
+        x = self._layers(*ops)
+        return T.unembed(self.rt.cfg, self.rt.params, x[-1:],
+                         self.rt.mesh)[0, 0]
+
+    def _chunk_done(self, seq: SequenceState, c: int, logits):
+        seq.n_cached += c
+        return logits if seq.n_cached >= seq.n_prompt else None
+
+    @torch.no_grad()
+    def prefill_chunk_eager(self, seq: SequenceState,
+                            chunk_tokens: List[int]):
+        """``prefill_chunk`` as eager launches (the comparisons; a TE over
+        several devices)."""
+        logits = self._chunk_logits(*upload_i32(
+            self.rt.pool.device, *self._chunk_arrays(seq, chunk_tokens)))
+        return self._chunk_done(seq, len(chunk_tokens), logits)
 
     def _layers(self, tokens, positions, pages, slots, cu_tokens, entry_bt,
                 entry_start, tiles) -> torch.Tensor:
@@ -238,25 +398,22 @@ class PagedPrefillRunner:
         return x
 
     def warmup_ragged(self, token_buckets, page_buckets, n_rows: int) -> int:
-        """Run every token bucket x page bucket once with every token parked
-        on the scratch page (all-padding plan, so no live page is touched):
-        builds the kernels and warms the allocator ahead of serving.
-        Returns the number of bucket shapes run."""
-        rt = self.rt
-        dev = rt.pool.device
-        scratch = rt.pool.scratch_page()
+        """Build the all-greedy program of every token bucket x page bucket
+        (``n_rows`` entries), each run once with every token parked on the
+        scratch page (an all-padding plan, so no live page is touched):
+        serving inside that grid builds no prefill program. Returns the
+        number of bucket shapes run."""
+        scratch = self.rt.pool.scratch_page()
         cu = [0] * (n_rows + 1)
+        temps = np.zeros((n_rows,), np.float32)
         n = 0
         for tb in sorted(set(token_buckets)):
             for pb in sorted(set(page_buckets)):
-                def i32(a):
-                    return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
-                self.prefill_ragged(
-                    i32(np.zeros(tb)), i32(np.zeros(tb)),
-                    i32(np.full(tb, scratch)), i32(np.zeros(tb)), i32(cu),
-                    i32(np.full((n_rows, pb), scratch)), i32(np.zeros(n_rows)),
-                    i32(FP.build_tiles(cu, tb)), i32(np.zeros(n_rows)),
-                    None, None, True, None)
+                self.prefill_ragged_host(
+                    (np.zeros(tb), np.zeros(tb), np.full(tb, scratch),
+                     np.zeros(tb), cu, np.full((n_rows, pb), scratch),
+                     np.zeros(n_rows), FP.build_tiles(cu, tb),
+                     np.zeros(n_rows)), temps, np.ones_like(temps), None)
                 n += 1
         return n
 
@@ -270,22 +427,54 @@ class PagedDecodeRunner:
     def __init__(self, rt: PagedRunner):
         self.rt = rt
 
-    @torch.no_grad()
-    def decode(self, seqs: List[SequenceState]) -> torch.Tensor:
-        """One decode step for a batch of sequences (the legacy path). The
-        new token of each seq is seqs[i].tokens[-1]; its KV is written at
-        position len(tokens)-1. Returns (B, Vp) logits."""
-        dev = self.rt.pool.device
-        b = len(seqs)
+    def _step_arrays(self, seqs: List[SequenceState]):
+        """(B,) last tokens, (B, maxp) block table, (B,) lengths: host
+        int32 operands of one unfused step."""
         maxp = max(len(s.pages) for s in seqs)
-        bt = np.zeros((b, maxp), np.int32)
+        bt = np.zeros((len(seqs), maxp), np.int32)
         for i, s in enumerate(seqs):
             bt[i, :len(s.pages)] = s.pages
-        tokens = torch.tensor([s.tokens[-1] for s in seqs], dtype=torch.int32)
-        lengths = torch.tensor([len(s.tokens) for s in seqs],
-                               dtype=torch.int32)
-        logits = self.body(tokens.to(dev), torch.from_numpy(bt).to(dev),
-                           lengths.to(dev))
+        return ([s.tokens[-1] for s in seqs], bt,
+                [len(s.tokens) for s in seqs])
+
+    @torch.no_grad()
+    def decode(self, seqs: List[SequenceState]) -> torch.Tensor:
+        """One decode step for a batch of sequences (the unfused path,
+        ``fused_decode=False``) through the program of (B, maxp). The new
+        token of each seq is seqs[i].tokens[-1]; its KV is written at
+        position len(tokens)-1. B is not bucketed, as in the reference
+        (padded rows would change the matmuls' shapes and so the bits);
+        its jit counts a new maxp and retraces silently for a new B, the
+        port builds and counts one program per (B, maxp). Returns (B, Vp)
+        logits: on a card the program's static output, sampled before
+        the next program call."""
+        rt = self.rt
+        if not rt.programs.enabled:
+            return self.decode_step_eager(seqs)
+        arrays = self._step_arrays(seqs)
+        key = ("step",) + arrays[1].shape
+        prog = rt.programs.get(key, lambda: self._make_step(key))
+        upload_into(prog.inputs["ops"], pack_i32(*arrays))
+        (logits,) = prog()
+        for s in seqs:
+            s.n_cached = len(s.tokens)
+        return logits
+
+    def _make_step(self, key: tuple) -> Program:
+        _, b, maxp = key
+        shapes = ((b,), (b, maxp), (b,))
+        inputs = {"ops": i32_buffer(shapes, self.rt.pool.device)}
+
+        def step(ops):
+            return (self.body(*split_views(ops, shapes)),)
+        return Program(key, step, inputs, self.rt.programs)
+
+    @torch.no_grad()
+    def decode_step_eager(self, seqs: List[SequenceState]) -> torch.Tensor:
+        """``decode`` as eager launches (the comparisons; a TE over several
+        devices)."""
+        logits = self.body(*upload_i32(self.rt.pool.device,
+                                       *self._step_arrays(seqs)))
         for s in seqs:
             s.n_cached = len(s.tokens)
         return logits

@@ -12,18 +12,24 @@ based (DESIGN.md §4).
     masked tail (``n_valid``: pad steps are exact identities for the
     recurrences and causally masked for attention), or at its raw length
     with ``bucket_prefill=False``, with the sequence's modality inputs
-    (uploaded once, reused by every chunk).
+    (uploaded once, reused by every chunk). Each bucket is one device
+    program (``engine/programs.py``; the reference's ``_prefill_fn``),
+    counted as ``prefill_jit_compiles``: ``n_valid`` is a device operand,
+    and the slot's rows are staged through a batch-1 cache, so one
+    program serves every length in the bucket and every slot.
   * ``SlotDecodeRunner.decode_sample`` — the all-slot decode step plus
-    in-pass sampling as one device program (``engine/programs.py``; the
-    reference's ``_sample_fn``), keyed by the all-greedy flag that the
-    reference decides inside its jit and the port on the host: a CUDA
-    graph captured once and replayed per step on a card, the same body
-    run directly on the CPU. Only the (n_slots,) token vector is
-    returned. ``decode_sample_eager`` is its eager form, kept for the
-    comparisons in the tests and ``chip_smoke.py``; the engine runs it
-    only for a TE whose ranks lie on more than one device.
+    in-pass sampling as one device program (the reference's
+    ``_sample_fn``), keyed by the all-greedy flag that the reference
+    decides inside its jit and the port on the host: a CUDA graph
+    captured once and replayed per step on a card, the same body run
+    directly on the CPU. Only the (n_slots,) token vector is returned.
     ``SlotDecodeRunner.decode`` is the unfused step (the engine's
-    ``fused_decode=False``): the live rows' logits, sampled on the host.
+    ``fused_decode=False``), one program too: the live rows' logits,
+    sampled on the host. ``prefill_chunk_eager``,
+    ``decode_sample_eager`` and ``decode_step_eager`` are the eager
+    forms, kept for the comparisons in the tests and ``chip_smoke.py``;
+    the engine runs them only for a TE whose ranks lie on more than one
+    device.
 
 Both phases run the recurrences through ``ops.wkv6`` / ``ops.rglru``: the
 port's kernels on a CUDA cache, their plain versions on a CPU one, once
@@ -83,6 +89,7 @@ class SlotRunner:
         self.params = params                # the ranks' weights trees
         self.n_slots = n_slots
         self.max_len = max_len
+        self.dtype = dtype                  # the caches'
         self.impl = impl                    # "auto" (kernels) | "ref"
         # pow2-bucketed prefill chunks with a masked tail; set False to run
         # each chunk at its raw length (read at every chunk)
@@ -106,13 +113,19 @@ class SlotRunner:
         self.extra_dev: Dict[str, Dict[str, torch.Tensor]] = {}
         self.prefill = SlotPrefillRunner(self)
         self.decoder = SlotDecodeRunner(self)
-        self.programs = ProgramCache(mesh)        # the decode step's
+        self.programs = ProgramCache(mesh)        # both kinds
 
     @property
     def jit_compiles(self) -> int:
         """Decode programs built: the reference's count of decode-path jit
         cache misses (``repro/engine/runners/slot.py:236``)."""
         return self.programs.builds
+
+    @property
+    def prefill_jit_compiles(self) -> int:
+        """Prefill programs built: the reference's count of prefill-path
+        jit cache misses (``repro/engine/runners/slot.py:163``)."""
+        return self.programs.prefill_builds
 
     def _slot_slice(self, slot: int) -> List[Dict[str, torch.Tensor]]:
         """Each rank's views of one slot's rows of every cache tensor
@@ -197,31 +210,111 @@ class SlotRunner:
 class SlotPrefillRunner:
     def __init__(self, rt: SlotRunner):
         self.rt = rt
+        # one batch-1 cache per rank, allocated once per TE at its first
+        # program: the slot's rows are staged through it
+        self._stage: Optional[List[Dict[str, torch.Tensor]]] = None
 
-    @torch.no_grad()
-    def prefill_chunk(self, seq: SequenceState, chunk_tokens: List[int]
-                      ) -> Optional[torch.Tensor]:
-        """Run one chunk of ``seq`` (pow2-bucketed with a masked tail, or
-        at its raw length without ``bucket_prefill``) on its slot. Returns
-        the last real position's logits once the prompt is covered, else
-        None."""
+    def _extra(self, seq: SequenceState) -> Dict[str, torch.Tensor]:
+        """The sequence's modality inputs on the device (in the weights'
+        dtype), uploaded at its first chunk."""
         rt = self.rt
-        c = len(chunk_tokens)
-        cb = pow2_bucket(c) if rt.bucket_prefill else c
-        toks = np.zeros((1, cb), np.int64)
-        toks[0, :c] = chunk_tokens
         extra = rt.extra_dev.get(seq.seq_id)
         if extra is None:
             dt = rt.params[0]["embed"].dtype
             extra = rt.extra_dev[seq.seq_id] = {
                 k: to_device(v, rt.device, dt) for k, v in seq.extra.items()}
+        return extra
+
+    def _bucket(self, c: int) -> int:
+        return pow2_bucket(c) if self.rt.bucket_prefill else c
+
+    @torch.no_grad()
+    def prefill_chunk(self, seq: SequenceState, chunk_tokens: List[int]
+                      ) -> Optional[torch.Tensor]:
+        """Run one chunk of ``seq`` (pow2-bucketed with a masked tail, or
+        at its raw length without ``bucket_prefill``) on its slot, through
+        the program of ("slot_prefill", cb) plus the sorted names of the
+        request's modality inputs (the reference's jit keys cb alone,
+        ``repro/engine/runners/slot.py:152-163``). Its static inputs are
+        the token bucket and ``n_valid`` (one int64 buffer, one upload:
+        ``n_valid`` a device operand, so one program serves every real
+        length in the bucket) and the modality inputs (copied device to
+        device into buffers of the key's shapes); the slot's rows of every
+        rank's cache are copied into the TE's batch-1 staging cache before
+        the program and back after, in stream order, so one program
+        serves every slot (the reference's jit takes the slot's slice and
+        writes it back, ``:147-154``). Returns the last real position's
+        logits (a copy) once the prompt is covered, else None."""
+        rt = self.rt
+        if not rt.programs.enabled:
+            return self.prefill_chunk_eager(seq, chunk_tokens)
+        c = len(chunk_tokens)
+        cb = self._bucket(c)
+        extra = self._extra(seq)
+        key = ("slot_prefill", cb) + ((tuple(sorted(extra)),) if extra
+                                      else ())
+        prog = rt.programs.get(key, lambda: self._make(key, extra),
+                               "prefill")
+        ops_ = np.zeros((cb + 1,), np.int64)
+        ops_[:c] = chunk_tokens
+        ops_[cb] = c
+        upload_into(prog.inputs["ops"], ops_)
+        rows = rt._slot_slice(seq.slot)
+        _copy_rows(self._stage, rows)
+        (logits,) = prog(**extra)
+        _copy_rows(rows, self._stage)
+        seq.n_cached += c
+        if seq.n_cached >= seq.n_prompt:
+            return logits[0].clone()
+        return None
+
+    def _make(self, key: tuple, extra: Dict[str, torch.Tensor]) -> Program:
+        rt = self.rt
+        cb = key[1]
+        if self._stage is None:
+            self._stage = S.init_cache(rt.cfg, 1, rt.max_len, rt.dtype,
+                                       rt.mesh)
+        stage = self._stage
+        inputs = {"ops": torch.zeros((cb + 1,), dtype=torch.int64,
+                                     device=rt.device)}
+        inputs.update({k: torch.zeros_like(v) for k, v in extra.items()})
+
+        def chunk(ops, **mem):
+            logits, _ = S.prefill(rt.cfg, rt.params, ops[:cb].view(1, cb),
+                                  stage, rt.mesh, n_valid=ops[cb],
+                                  impl=rt.impl, **mem)
+            return (logits,)
+        return Program(key, chunk, inputs, rt.programs, kind="prefill")
+
+    @torch.no_grad()
+    def prefill_chunk_eager(self, seq: SequenceState,
+                            chunk_tokens: List[int]
+                            ) -> Optional[torch.Tensor]:
+        """``prefill_chunk`` as eager launches straight on the slot's rows,
+        ``n_valid`` a Python int (the comparisons; a TE over several
+        devices)."""
+        rt = self.rt
+        c = len(chunk_tokens)
+        cb = self._bucket(c)
+        toks = np.zeros((1, cb), np.int64)
+        toks[0, :c] = chunk_tokens
         logits, _ = S.prefill(rt.cfg, rt.params, to_device(toks, rt.device),
                               rt._slot_slice(seq.slot), rt.mesh, n_valid=c,
-                              impl=rt.impl, **extra)
+                              impl=rt.impl, **self._extra(seq))
         seq.n_cached += c
         if seq.n_cached >= seq.n_prompt:
             return logits[0]
         return None
+
+
+def _copy_rows(dst: List[Dict[str, torch.Tensor]],
+               src: List[Dict[str, torch.Tensor]]) -> None:
+    """Copy every leaf of the ranks' caches ``src`` into ``dst`` (one
+    slot's rows each; a replicated leaf once), device to device."""
+    for k in src[0]:
+        for d, s_ in zip(SH.held([c[k] for c in dst]),
+                         SH.held([c[k] for c in src])):
+            d.copy_(s_, non_blocking=True)
 
 
 # ===========================================================================
@@ -259,11 +352,41 @@ class SlotDecodeRunner:
     @torch.no_grad()
     def decode(self, seqs: List[SequenceState]) -> torch.Tensor:
         """The unfused all-slot step (``repro/engine/runners/slot.py:
-        202-213``): returns the live rows' (B, Vp) logits in ``seqs``
-        order, for the engine's host-side sampler."""
-        rows = to_device(np.asarray([s.slot for s in seqs], np.int64),
+        202-213``) through one program (key ("step",): the reference's
+        ``_decode_jit``, ``:192-199``) that returns the (n_slots, Vp)
+        logits; the token vector is uploaded into its static input. Returns
+        the live rows' (B, Vp) logits in ``seqs`` order (a gather after the
+        program, so a copy), for the engine's host-side sampler."""
+        rt = self.rt
+        if not rt.programs.enabled:
+            return self.decode_step_eager(seqs)
+        prog = rt.programs.get(("step",), self._step_program)
+        upload_into(prog.inputs["tokens"], self._tokens(seqs))
+        (logits,) = prog()
+        for s in seqs:
+            s.n_cached = len(s.tokens)
+        return logits.index_select(0, self._rows(seqs))
+
+    def _rows(self, seqs: List[SequenceState]) -> torch.Tensor:
+        return to_device(np.asarray([s.slot for s in seqs], np.int64),
                          self.rt.device)
-        return self._step(seqs).index_select(0, rows)
+
+    def _step_program(self) -> Program:
+        rt = self.rt
+        inputs = {"tokens": torch.zeros((rt.n_slots,), dtype=torch.int64,
+                                        device=rt.device)}
+
+        def step(tokens):
+            logits, _ = S.decode_step(rt.cfg, rt.params, tokens, rt.caches,
+                                      rt.mesh, impl=rt.impl)
+            return (logits,)
+        return Program(("step",), step, inputs, rt.programs)
+
+    @torch.no_grad()
+    def decode_step_eager(self, seqs: List[SequenceState]) -> torch.Tensor:
+        """``decode`` as eager launches (the comparisons; a TE over several
+        devices)."""
+        return self._step(seqs).index_select(0, self._rows(seqs))
 
     @torch.no_grad()
     def decode_sample(self, seqs: List[SequenceState], temps: np.ndarray,

@@ -248,7 +248,8 @@ def main() -> None:
                                    args.max_new, seed=args.seed + 2)
     out.update(arch=cfg.name, layers=cfg.n_layers, requests=args.requests,
                prompt_len=args.prompt_len, max_new=args.max_new,
-               decode_programs=getattr(te, "jit_compiles", None))
+               decode_programs=getattr(te, "jit_compiles", None),
+               prefill_programs=getattr(te, "prefill_jit_compiles", None))
     print(json.dumps(out), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

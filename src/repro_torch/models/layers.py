@@ -200,6 +200,28 @@ def banded_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, s, h, hd)
 
 
+def valid_steps(t: int, n_valid, device) -> Optional[torch.Tensor]:
+    """(t,) bool: which of a chunk's ``t`` positions are real under the
+    bucketed-prefill contract (the first ``n_valid``), or None where all
+    are (``n_valid`` None or an int of at least t). A 0-d tensor
+    ``n_valid`` (the slot prefill program's device operand) always gives
+    the mask, so it is never read on the host: a real step kept by the
+    mask is its own value, exactly."""
+    if n_valid is None or (not torch.is_tensor(n_valid) and n_valid >= t):
+        return None
+    return torch.arange(t, device=device) < n_valid
+
+
+def take_run(x: torch.Tensor, start, n: int, dim: int = 1) -> torch.Tensor:
+    """``n`` consecutive entries of ``x`` along ``dim`` from ``start``: a
+    slice for an int, an ``index_select`` at device indices for a 0-d
+    tensor (the same values, no host read)."""
+    if not torch.is_tensor(start):
+        return x.narrow(dim, start, n)
+    idx = start.reshape(1).long() + torch.arange(n, device=x.device)
+    return x.index_select(dim, idx)
+
+
 def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if act in ("swiglu", "geglu"):
         # the gate's activation before the up projection: three (T, d_ff)

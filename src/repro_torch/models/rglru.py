@@ -14,13 +14,13 @@ once per rank of the TE's mesh at that rank's channels."""
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import split_ranks
+from repro_torch.models import layers as L
 
 _C = 8.0
 
@@ -66,17 +66,18 @@ def _rglru_coeffs(p: dict, u_all: torch.Tensor, u: torch.Tensor):
 
 
 def rglru_scan(p: dict, u_all: torch.Tensor, u: torch.Tensor,
-               h0: torch.Tensor, n_valid: Optional[int] = None,
+               h0: torch.Tensor, n_valid=None,
                impl: str = "auto"):
     """The recurrence over a rank's channels, in prefill and in decode (T =
     1). u_all: (B, T, W); u: (B, T, W_r); h0: (B, W_r). Positions >=
-    n_valid are padding: their steps become exact identities (a -> 1,
+    n_valid (an int, or a 0-d device tensor never read on the host) are
+    padding: their steps become exact identities (a -> 1,
     b -> 0), so the returned final state equals h_{n_valid-1}. Returns
     (h, h_last), both fp32."""
     a, b = _rglru_coeffs(p, u_all, u)
-    t = u.shape[1]
-    if n_valid is not None and n_valid < t:
-        valid = (torch.arange(t, device=u.device) < n_valid)[None, :, None]
+    valid = L.valid_steps(u.shape[1], n_valid, u.device)
+    if valid is not None:
+        valid = valid[None, :, None]
         a = torch.where(valid, a, torch.ones_like(a))
         b = torch.where(valid, b, torch.zeros_like(b))
     return ops.rglru(a.contiguous(), b.contiguous(),
@@ -84,7 +85,7 @@ def rglru_scan(p: dict, u_all: torch.Tensor, u: torch.Tensor,
 
 
 def conv1d_apply(p: dict, u: torch.Tensor, conv_state: torch.Tensor,
-                 n_valid: Optional[int] = None):
+                 n_valid=None):
     """Depthwise causal conv. u: (B, T, W); conv_state: (B, cw-1, W), the
     inputs trailing the previous call. Returns (y, new_conv_state); with
     ``n_valid`` set the new state holds the cw-1 inputs trailing the last
@@ -103,12 +104,12 @@ def conv1d_apply(p: dict, u: torch.Tensor, conv_state: torch.Tensor,
     else:
         # token j sits at full[:, (cw-1)+j]: the run ending at n_valid-1
         # starts at index n_valid
-        new_state = full[:, n_valid:n_valid + cw - 1, :]
+        new_state = L.take_run(full, n_valid, cw - 1)
     return y.to(u.dtype), new_state
 
 
 def rglru_block_apply(ps: list, x: torch.Tensor, h0s: list, convs: list,
-                      mesh, n_valid: Optional[int] = None,
+                      mesh, n_valid=None,
                       impl: str = "auto"):
     """The Griffin recurrent block over the ranks of ``mesh``: (gelu gate) *
     (conv -> RG-LRU) -> out projection. ``ps``: the ranks' trees, whose

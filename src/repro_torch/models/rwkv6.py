@@ -15,7 +15,6 @@ for the CPU tests."""
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import wkv6_ref
 from repro_torch.launch.mesh import split_ranks
+from repro_torch.models import layers as L
 
 # Clamp on the per-token log-decay inside the chunked form's within-chunk
 # products, so its exp(-cumsum) factors stay in fp32 range (lossless at
@@ -131,15 +131,17 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     return torch.cat([last[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
 
 
-def _last_valid(x: torch.Tensor, n_valid: Optional[int]) -> torch.Tensor:
+def _last_valid(x: torch.Tensor, n_valid) -> torch.Tensor:
     """x[:, n_valid-1, :]: the carried last-token input comes from the last
-    REAL position, not a pad."""
-    return x[:, -1, :] if n_valid is None else x[:, n_valid - 1, :]
+    REAL position, not a pad (``n_valid`` an int or a 0-d device
+    tensor)."""
+    return x[:, -1, :] if n_valid is None else \
+        L.take_run(x, n_valid - 1, 1)[:, 0, :]
 
 
 def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
                   last_x: torch.Tensor, mesh,
-                  n_valid: Optional[int] = None, impl: str = "auto"):
+                  n_valid=None, impl: str = "auto"):
     """The time mix over the ranks of ``mesh``. ``ps``: the ranks' time-mix
     trees; x: (B, T, D) on rank 0; ``states``: the ranks' (B, H_r, hd, hd)
     fp32 states (one tensor the ranks share when the heads replicate),
@@ -154,7 +156,8 @@ def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
     ``wo``'s row partials are all-reduced. Over one rank this is the
     one-tree arithmetic, bit for bit.
 
-    ``n_valid`` marks positions >= n_valid as padding (the bucketed-prefill
+    ``n_valid`` (an int, or a 0-d device tensor that is never read on the
+    host) marks positions >= n_valid as padding (the bucketed-prefill
     contract): their recurrence steps become exact identities (w -> 1,
     k -> 0) and new_last_x is taken at n_valid-1."""
     b, t, d = x.shape
@@ -185,10 +188,9 @@ def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
     gs = [F.silu(g) for g in proj(mixed(4), "wg")]
     dls = mesh.broadcast(mixed(3).to(x.dtype) @ p0["decay_lora_a"])
     del lora, delta
-    valid = None
-    if n_valid is not None and n_valid < t:
-        valid = (torch.arange(t, device=x.device) < n_valid)[None, :, None,
-                                                             None]
+    valid = L.valid_steps(t, n_valid, x.device)
+    if valid is not None:
+        valid = valid[None, :, None, None]
     ys = []
     for r, (p, state, dl, rr, kk, vv, g) in enumerate(
             zip(ps, parts, dls, rs, ks, vs, gs)):
@@ -218,7 +220,7 @@ def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
 
 
 def rwkv_channel_mix(ps: list, x: torch.Tensor, last_x: torch.Tensor,
-                     mesh, d_ff: int, n_valid: Optional[int] = None):
+                     mesh, d_ff: int, n_valid=None):
     """Squared-relu channel mix with token shift over the ranks of
     ``mesh``: ``cm_k`` split on its ``d_ff`` columns and ``cm_v`` on its
     rows (partials all-reduced), ``cm_r`` on its ``d_model`` output (the

@@ -187,7 +187,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
             caches: List[Cache], mesh: EngineMesh,
-            n_valid: Optional[int] = None, impl: str = "auto",
+            n_valid=None, impl: str = "auto",
             vision_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, attn_impl: str = "auto"
             ) -> Tuple[torch.Tensor, List[Cache]]:
@@ -200,7 +200,12 @@ def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
     s chunk positions are real. Pad positions are exact identity steps in
     the recurrences, causally masked in attention (their KV writes land in
     slots a later chunk overwrites or decode masks), and excluded from the
-    length and the logits.
+    length and the logits. It is an int, or a 0-d int tensor on the
+    cache's device (the slot prefill program's operand), which no
+    function on this path reads on the host: the recurrences' mask is
+    then always applied, the last real position is gathered at device
+    indices and the length advanced by the tensor, giving the int's
+    results bit for bit.
 
     A cross-attention tower refills its cross cache from the modality
     memory at every chunk, as the reference does (``serving.py:113-118``):
@@ -250,7 +255,7 @@ def prefill(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
             groups=groups)
     x = tower(cfg, ps, x, caches, mesh, attend, n_valid, impl)
     c0["length"].add_(nv)
-    logits = T.unembed(cfg, ps, x[:, nv - 1:nv, :], mesh)
+    logits = T.unembed(cfg, ps, L.take_run(x, nv - 1, 1), mesh)
     return logits[:, 0, :], caches
 
 

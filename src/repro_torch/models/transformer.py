@@ -386,7 +386,7 @@ def moe_groups(tokens: int) -> int:
 def rwkv_block_apply(cfg: ModelConfig, ps: list, x: torch.Tensor,
                      states: list, last_tm: torch.Tensor,
                      last_cm: torch.Tensor, mesh,
-                     n_valid: Optional[int] = None, impl: str = "auto"):
+                     n_valid=None, impl: str = "auto"):
     """Pre-norm time mix + channel mix (``transformer.py:251-261``) over
     the ranks' layer trees ``ps``; each rank's state in ``states`` is
     advanced in place (``rwkv6.rwkv_time_mix``). Returns (x, last_tm,
@@ -405,7 +405,7 @@ def rwkv_block_apply(cfg: ModelConfig, ps: list, x: torch.Tensor,
 
 def rglru_block_apply(cfg: ModelConfig, ps: list, x: torch.Tensor,
                       h0s: list, convs: list, mesh,
-                      n_valid: Optional[int] = None, impl: str = "auto"):
+                      n_valid=None, impl: str = "auto"):
     """Pre-norm recurrent block + MLP (``transformer.py:264-272``) over the
     ranks' layer trees ``ps`` and their (B, W_r) states and conv inputs.
     Returns (x, [h per rank], [conv state per rank]) for the ranks holding
