@@ -2885,9 +2885,14 @@ def slot_tp(dev, rows, launches):
 TRAIN_SEQ, TRAIN_BATCH = 256, 8
 # qwen3-8b's depth cut: 12 bytes a param (bf16 weights and grads, fp32 m
 # and v) over 193 M a layer and 1.24 B of embed + head: 8 of 36 layers are
-# 2.8 B params, ~33.5 GB before activations and the update's temporaries
-TRAIN_CUT = {"qwen3-8b": 8}
-TRAIN_RUNS = (("qwen3-8b", 10), ("rwkv6-1.6b", 3), ("recurrentgemma-2b", 3))
+# 2.8 B params, ~33.5 GB before activations and the update's temporaries;
+# granite-moe-3b-a800m at its full 32 layers is 3.3 B params, ~39.6 GB.
+# rwkv6-1.6b's cut is for the script's time: its plain WKV loop is ~1.1 x
+# 10^4 graph nodes a layer, and its 24 layers took 30-44 s to capture and
+# 8-12 s an eager step on the card (the reason of each cut is logged)
+TRAIN_CUT = {"qwen3-8b": 8, "rwkv6-1.6b": 8}
+TRAIN_RUNS = (("qwen3-8b", 10), ("granite-moe-3b-a800m", 4),
+              ("rwkv6-1.6b", 3), ("recurrentgemma-2b", 3))
 CKPT_LAYERS = 1                 # rwkv6-1.6b: ~3.9 GB of train state on disk
 
 
@@ -2983,12 +2988,72 @@ def train_guard(dev):
             f"impl='ref' loss {float(lv):.4f}, finite grads")
 
 
+def _median(xs):
+    return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+
+def _event():
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _pools_bytes():
+    """Bytes the caching allocator holds in graph pools, by pool id."""
+    import torch
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg["segment_pool_id"])
+        if pid != (0, 0):
+            out[pid] = out.get(pid, 0) + seg["total_size"]
+    return out
+
+
+def eager_train(bundle, params, batches, tcfg, dev):
+    """``make_train_step``'s body, eager, over ``tcfg.steps`` batches from
+    ``params`` (not changed) as ``train`` ran it before its program: each
+    batch uploaded, ``make_grad_fn`` then ``adamw_update`` (the two halves
+    of the step, timed apart by CUDA events), the loss and grad norm read
+    each step. Returns (final params, per-step ms from one batch's fetch
+    to the next, the update's ms, losses, grad norms)."""
+    import torch
+    from repro_torch.training import adamw_update, init_opt_state
+    from repro_torch.training.train_loop import make_grad_fn
+    grad_fn = make_grad_fn(bundle, tcfg)
+    opt = init_opt_state(params)
+    extra = {k: v.expand((TRAIN_BATCH,) + tuple(v.shape[1:])) for k, v in
+             bundle.extra_inputs(1, dtype=params["embed"].dtype,
+                                 device=dev).items()}
+    p, marks, upd, losses, gnorms = params, [], [], [], []
+    for _ in range(tcfg.steps):
+        marks.append(_event())
+        tokens, targets, mask = (torch.from_numpy(a).to(dev)
+                                 for a in next(batches))
+        loss, grads = grad_fn(p, tokens, targets, mask, extra)
+        e0 = _event()
+        p, opt, m = adamw_update(tcfg.opt, p, grads, opt)
+        upd.append((e0, _event()))
+        del grads
+        losses.append(float(loss))
+        gnorms.append(float(m["grad_norm"]))
+    marks.append(_event())
+    torch.cuda.synchronize()
+    ms = [x.elapsed_time(y) for x, y in zip(marks, marks[1:])]
+    return p, ms, [x.elapsed_time(y) for x, y in upd], losses, gnorms
+
+
 def train_run(name, steps, dev):
-    """``train()`` at full width in bf16, remat on, on packed batches of
-    TRAIN_BATCH x TRAIN_SEQ at lr 1e-3 (2 warmup steps): every step's
-    time by CUDA events (from one batch's fetch to the next), losses and
-    grad norms from the log, peak memory, launches (none), and every leaf
-    moved."""
+    """One model at full width in bf16, remat on, on packed batches of
+    TRAIN_BATCH x TRAIN_SEQ at lr 1e-3 (2 warmup steps), from the same
+    params and batches twice: the eager body (``eager_train``), then
+    ``train()``, whose steps are one train program (a CUDA graph captured
+    at the first step's key, replayed after). Each run's step ms (CUDA
+    events from one batch's fetch to the next; median of the steps after
+    the first), peak memory and launches (none); the eager update's ms;
+    the program's capture and instantiate ms, node count and graph pool;
+    losses, grad norms and every param after the steps bit-equal (else
+    the largest gap and where); every leaf moved."""
     import math
     import torch
     from repro_torch.configs import get_config
@@ -3003,71 +3068,116 @@ def train_run(name, steps, dev):
     n = cfg.param_count()
     need = 12 * n
     cut = "" if cfg.n_layers == full.n_layers else \
-        f", depth cut from {full.n_layers}: 12 B a param (bf16 weights " \
-        f"and grads, fp32 m and v) x {n / 1e9:.2f} B = {need / 1e9:.1f} GB " \
-        f"before activations"
+        f", depth cut from {full.n_layers}: " + (
+            "the capture of the plain recurrence's graph takes the "
+            "script's time" if cfg.rwkv is not None else
+            f"12 B a param (bf16 weights and grads, fp32 m and v) x "
+            f"{n / 1e9:.2f} B = {need / 1e9:.1f} GB before activations")
     log(f"phase 8: train {name} ({cfg.n_layers} layers{cut}; bf16, remat, "
-        f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ}) "
-        f"[{time.monotonic() - T0:.1f} s]")
+        f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, eager then "
+        f"program) [{time.monotonic() - T0:.1f} s]")
     _fits(need, f"{name} train state")
     bundle = get_model(cfg)
     params = bundle.init_params(torch.Generator(device=dev).manual_seed(0),
                                 torch.bfloat16, dev)
-    ds = PackedDataset(DataConfig(seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
-                                  n_docs=2048))
-    marks = []
+    tcfg = TrainConfig(steps=steps, log_every=1, ckpt_every=10 ** 9,
+                       opt=OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                           total_steps=steps))
 
-    def batches():
-        for b in ds.batches(epochs=100):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append(ev)
-            yield b
-    lines = []
+    def data():
+        return PackedDataset(DataConfig(
+            seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+            n_docs=2048)).batches(epochs=100)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    new, stats = train(bundle, params, batches(),
-                       TrainConfig(steps=steps, log_every=1,
-                                   ckpt_every=10 ** 9,
-                                   opt=OptimizerConfig(
-                                       lr=1e-3, warmup_steps=2,
-                                       total_steps=steps)),
-                       log=lines.append)
-    end = torch.cuda.Event(enable_timing=True)
-    end.record()
+    p, ms_e, upd, losses_e, gnorms_e = eager_train(bundle, params, data(),
+                                                   tcfg, dev)
+    launches_e = ops.launch_counts()
+    peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
+    host = [a.cpu() for a in TR.leaves(p)]
+    del p
+    _release()
+
+    marks, pools = [], {}
+
+    def batches():
+        for b in data():
+            marks.append(_event())
+            yield b
+
+    def keep(line):
+        if line.startswith(f"step {steps}:"):
+            pools.update(_pools_bytes())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    new, stats = train(bundle, params, batches(), tcfg, log=keep)
+    marks.append(_event())
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    assert not any(launches.values()), f"a train step launched {launches}"
-    marks.append(end)
+    assert not any(launches.values()) and not any(launches_e.values()), \
+        f"a train step launched {launches} / {launches_e}"
     ms = [a.elapsed_time(b) for a, b in zip(marks[:steps],
                                             marks[1:steps + 1])]
-    med = sorted(ms)[len(ms) // 2]
-    losses = [float(s.split("loss=")[1].split()[0]) for s in lines]
-    gnorms = [float(s.split("gnorm=")[1].split()[0]) for s in lines]
+    losses, gnorms = stats["losses"], stats["grad_norms"]
     assert len(losses) == steps and all(
-        math.isfinite(x) for x in losses + gnorms), lines
+        math.isfinite(x) for x in losses + gnorms), stats
+    (cap,) = stats["capture"]
+    assert stats["programs"] == 1 and len(pools) == 1, (stats, pools)
+    gaps = [(float((a.float() - b.to(dev).float()).abs().max()), path)
+            for (path, a), b in zip(TR.flatten_with_paths(new), host)
+            if not torch.equal(a, b.to(dev))]
+    same = losses == losses_e and gnorms == gnorms_e and not gaps
     moved = [p for (p, a), b in zip(TR.flatten_with_paths(new),
                                     TR.leaves(params))
              if torch.equal(a, b)]
     assert not moved, f"{name}: leaves that did not move: {moved}"
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    med, med_e = _median(ms[1:]), _median(ms_e[1:])
     row = {"arch": name, "layers": cfg.n_layers, "params": n,
            "dtype": "bfloat16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": steps, "step_ms": ms, "step_ms_median": med,
+           "steps": steps,
+           "eager": {"step_ms": ms_e, "step_ms_median": med_e,
+                     "update_ms": upd, "update_ms_median": _median(upd[1:]),
+                     "peak_gib": peak_e, "launches": launches_e},
+           "step_ms": ms, "step_ms_median": med,
            "tokens_per_s": tokens / (med / 1e3),
            "six_n_share_of_989tf": 6 * n * tokens / (med / 1e3) / BF16_FLOPS,
-           "peak_gib": peak, "loss_first": stats["loss_first"],
-           "loss_last": stats["loss_last"], "losses": losses,
-           "grad_norms": gnorms, "launches": launches}
+           "peak_gib": peak, "capture_ms": cap["capture_ms"],
+           "instantiate_ms": cap["instantiate_ms"], "nodes": cap["nodes"],
+           "pool_gib": sum(pools.values()) / 2 ** 30,
+           "loss_first": stats["loss_first"], "loss_last": stats["loss_last"],
+           "losses": losses, "grad_norms": gnorms, "launches": launches,
+           "bit_equal": same, "losses_equal": losses == losses_e,
+           "grad_norms_equal": gnorms == gnorms_e,
+           "params_differing": len(gaps),
+           "largest_gap": max(gaps) if gaps else None}
+    log(f"  eager: step ms median {med_e:.1f} (first {ms_e[0]:.1f}); "
+        f"update ms median {row['eager']['update_ms_median']:.2f} "
+        f"({row['eager']['update_ms_median'] / med_e:.3f} of the step); "
+        f"peak {peak_e:.2f} GiB; launches {launches_e}")
+    log(f"  program: step ms median {med:.1f} (first, with the eager run "
+        f"and the capture: {ms[0]:.1f}); capture {cap['capture_ms']:.1f} ms"
+        f", instantiate {cap['instantiate_ms']:.1f} ms, {cap['nodes']} "
+        f"nodes, pool {row['pool_gib']:.3f} GiB; peak {peak:.2f} GiB; "
+        f"{row['tokens_per_s']:.0f} tokens/s; 6*N*tokens/step = "
+        f"{row['six_n_share_of_989tf']:.3f} of 989 TFLOP/s; launches "
+        f"{launches}")
     log(f"  losses {losses}; grad norms {gnorms}")
-    log(f"  step ms median {med:.1f} (all: "
-        f"{', '.join(f'{x:.1f}' for x in ms)}); {row['tokens_per_s']:.0f} "
-        f"tokens/s; 6*N*tokens/step = {row['six_n_share_of_989tf']:.3f} of "
-        f"989 TFLOP/s; peak {peak:.2f} GiB; launches {launches}; every "
-        f"leaf moved")
-    del new, params
+    verdict = [
+        "losses " + ("equal" if row["losses_equal"]
+                     else f"differ (eager {losses_e})"),
+        "grad norms " + ("equal" if row["grad_norms_equal"]
+                         else f"differ (eager {gnorms_e})"),
+        f"params: {len(gaps)} of {len(host)} leaves differ" + (
+            f" (largest {max(gaps)[0]:.3e} at {max(gaps)[1]})" if gaps
+            else " (every leaf bit-equal)")]
+    log(f"  program vs eager: {'; '.join(verdict)}; every leaf moved")
+    assert same, f"{name}: the program differs from the eager body"
+    del new, params, host
     _release()
     return row
 
@@ -3205,12 +3315,128 @@ def train_checkpoint(dev):
     return row
 
 
+GATHER_ITERS = 200
+STAGING_ARCH, STAGING_STEPS = "qwen3-8b", 5
+
+
+def moe_gather_ab(dev):
+    """The MoE gather two ways on granite-moe-3b-a800m's rows (d 1536, 40
+    experts top-8, its capacity and capacity groups at each token count):
+    ``index_select`` (the gather it replaced) against indexing
+    (``models/moe.py``), in turns, CUDA events over GATHER_ITERS calls:
+    the forward at a decode iteration (8 tokens) and a prefill pass
+    (512), and forward + backward
+    at phase 8's train batch (2048; ``index_add_`` against an accumulating
+    ``index_put_``). Same rows asserted. Returns {shape: {way: ms}}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = get_config("granite-moe-3b-a800m")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for kind, t, grad in (("decode", 8, False), ("prefill", 512, False),
+                          ("train", TRAIN_BATCH * TRAIN_SEQ, True)):
+        tag = f"{kind} {t}" + (" fwd+bwd" if grad else "")
+        g = T.moe_groups(t)
+        tg = t // g
+        cap = min(M.moe_capacity(tg, cfg.moe), tg)
+        flat = (torch.randint(0, tg, (g, cfg.moe.n_experts, cap),
+                              device=dev, generator=gen)
+                + tg * torch.arange(g, device=dev)[:, None, None]
+                ).reshape(-1)
+        x = torch.randn((t, cfg.d_model), device=dev, generator=gen
+                        ).to(torch.bfloat16).requires_grad_(grad)
+        dy = torch.randn((flat.numel(), cfg.d_model), device=dev,
+                         generator=gen).to(torch.bfloat16)
+        ways = {"index_select": lambda: x.index_select(0, flat),
+                "indexing": lambda: x[flat]}
+        assert torch.equal(ways["index_select"](), ways["indexing"]())
+
+        def run(f):
+            if not grad:
+                with torch.no_grad():
+                    return f()
+            return torch.autograd.grad(f(), x, dy)
+
+        ms = {k: [] for k in ways}
+        for _ in range(2):
+            for k, f in ways.items():
+                run(f)
+                torch.cuda.synchronize()
+                ev = [_event()]
+                for _ in range(GATHER_ITERS):
+                    run(f)
+                ev.append(_event())
+                torch.cuda.synchronize()
+                ms[k].append(_ev_ms(ev) / GATHER_ITERS)
+        out[tag] = {"rows": flat.numel(), **ms}
+        log(f"  MoE gather {tag} ({flat.numel()} rows of {t}): "
+            + "; ".join(f"{k} {', '.join(f'{v:.4f}' for v in vs)} ms"
+                        for k, vs in ms.items()))
+    return out
+
+
+def staging_ab(dev):
+    """The train program's batch upload two ways on one program of
+    STAGING_ARCH (phase 8's depth cut and batch, bf16), in turns of
+    STAGING_STEPS steps: through its pinned buffers
+    (``TrainProgram.__call__``) and as pageable CPU tensors straight into
+    the program's static inputs (``torch.from_numpy``; the copy
+    ``Program.__call__`` makes). Each step's loss is read, as ``train``
+    does. Step ms: CUDA events from one batch's fetch to the next.
+    Returns {way: [step ms, ...]}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, PackedDataset
+    from repro_torch.models.model_factory import get_model
+    from repro_torch.training import (OptimizerConfig, TrainConfig,
+                                      TrainProgram, init_opt_state)
+    from repro_torch.training.train_loop import BATCH
+    full = get_config(STAGING_ARCH)
+    bundle = get_model(dataclasses.replace(
+        full, n_layers=TRAIN_CUT.get(STAGING_ARCH, full.n_layers)))
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0),
+                                torch.bfloat16, dev)
+    prog = TrainProgram(bundle, TrainConfig(opt=OptimizerConfig(
+        lr=1e-5, warmup_steps=2, total_steps=100)), params,
+        init_opt_state(params))
+    data = PackedDataset(DataConfig(seq_len=TRAIN_SEQ,
+                                    batch_size=TRAIN_BATCH,
+                                    n_docs=2048)).batches(epochs=100)
+    float(prog(*next(data))["loss"])             # the eager run, the capture
+    (program,) = prog.programs.all()
+    ways = {"pinned": lambda b: prog(*b)["loss"],
+            "pageable": lambda b: program(**{
+                n: torch.from_numpy(a) for n, a in zip(BATCH, b)})[0]}
+    ms = {k: [] for k in ways}
+    for _ in range(2):
+        for k, f in ways.items():
+            marks = []
+            for _ in range(STAGING_STEPS + 1):
+                marks.append(_event())
+                float(f(next(data)))
+            torch.cuda.synchronize()
+            ms[k] += [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    prog.release()
+    del prog, program, params
+    _release()
+    log(f"  batch upload, {STAGING_ARCH} program: "
+        + "; ".join(f"{k} step ms median {_median(v):.2f} (all "
+                    f"{', '.join(f'{x:.2f}' for x in v)})"
+                    for k, v in ms.items()))
+    return ms
+
+
 def phase8(dev):
     """Fine-tune jobs on the card: the launchers refuse autograd; qwen3-8b
-    (depth cut), rwkv6-1.6b and recurrentgemma-2b train at full width in
-    bf16 through ``train()`` with no kernel launched; the smoke train step
-    on the card against the CPU's; resume equivalence; a checkpoint round
-    trip. Returns {"runs": [...], "checkpoint": {...}}."""
+    (depth cut), granite-moe-3b-a800m, rwkv6-1.6b and recurrentgemma-2b
+    train at full width in bf16, eagerly and through ``train()``'s train
+    program, bit for bit alike, with no kernel launched; the MoE
+    gather's two forms and the batch upload's two ways; the smoke train
+    step on the card against the CPU's; resume equivalence; a checkpoint
+    round trip. Returns {"runs": [...], "moe_gather_ms": {...},
+    "upload_step_ms": {...}, "checkpoint": {...}}."""
     log(f"phase 8: train — the launchers refuse autograd "
         f"[{time.monotonic() - T0:.1f} s]")
     train_guard(dev)
@@ -3218,11 +3444,15 @@ def phase8(dev):
     q = runs[0]
     assert q["loss_last"] < q["loss_first"], \
         f"qwen3 loss did not fall: {q['losses']}"
+    log(f"phase 8: the MoE gather's two forms, the batch upload's two "
+        f"ways [{time.monotonic() - T0:.1f} s]")
+    gather, staging = moe_gather_ab(dev), staging_ab(dev)
     log(f"phase 8: train step card vs CPU, resume, checkpoint "
         f"[{time.monotonic() - T0:.1f} s]")
     train_vs_cpu(dev)
     train_resume(dev)
-    return {"runs": runs, "checkpoint": train_checkpoint(dev)}
+    return {"runs": runs, "moe_gather_ms": gather, "upload_step_ms": staging,
+            "checkpoint": train_checkpoint(dev)}
 
 
 # --------------------------------------------------------------------------
@@ -4076,17 +4306,24 @@ def long_tp_builders(dev):
 
 def train_4k(dev):
     """(e) train_4k's step (``training/train_loop.py::make_train_step``,
-    remat on) on TRAIN4K_B x TRAIN4K_S tokens in bf16 at full width cut
-    to TRAIN4K_LAYERS layers: attention past 2048 keys through the plain
-    blockwise flash (the kernels refuse autograd; no launch), then the
-    same step with ``attn_impl="naive"``; step ms (CUDA events, median)
-    and peak memory of each."""
+    remat on) on TRAIN4K_B x TRAIN4K_S tokens in TRAIN4K_MICRO
+    microbatches, bf16 at full width cut to TRAIN4K_LAYERS layers:
+    attention past 2048 keys through the plain blockwise flash (the
+    kernels refuse autograd; no launch) eagerly, then as the train program
+    (``training.TrainProgram``: the first call eager, then the
+    capture, then replays) from the same params on the same batch, its
+    losses, grad norms and params bit-equal to the eager run's; then the
+    eager step with ``attn_impl="naive"``. Step ms (CUDA events, median
+    after the first) and peak memory of each; the program's capture ms
+    and graph pool."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as ST
     from repro_torch.models.model_factory import get_model
-    from repro_torch.training import OptimizerConfig, TrainConfig
+    from repro_torch.training import (OptimizerConfig, TrainConfig,
+                                      TrainProgram)
+    from repro_torch.training import tree as TR
     from repro_torch.training.optimizer import init_opt_state
     cfg = dataclasses.replace(get_config(TRAIN4K_ARCH),
                               n_layers=TRAIN4K_LAYERS)
@@ -4095,46 +4332,93 @@ def train_4k(dev):
     seq = _long_tokens(cfg, TRAIN4K_B, TRAIN4K_S + 1, dev)
     tokens, targets = seq[:, :-1], seq[:, 1:]
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=dev)
+    host_batch = [t.cpu().numpy() for t in (tokens, targets, mask)]
     n = cfg.param_count()
-    rows = []
-    for attn_impl in ("auto", "naive"):
-        step = ST.build_train_step(bundle, TrainConfig(
+    rows, eager_auto = [], None
+
+    def tcfg(attn_impl):
+        return TrainConfig(
             remat=True, attn_impl=attn_impl, microbatches=TRAIN4K_MICRO,
             opt=OptimizerConfig(lr=1e-4, warmup_steps=1,
-                                total_steps=TRAIN4K_STEPS + 1)))
+                                total_steps=TRAIN4K_STEPS + 1))
+
+    def eager(attn_impl):
+        step = ST.build_train_step(bundle, tcfg(attn_impl))
         opt = init_opt_state(params)
-        p = params
-        ms, losses = [], []
-        _release()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
+        p, out = params, []
         for _ in range(TRAIN4K_STEPS + 1):
             (p, opt, m), _, d = _timed_call(
                 lambda: step(p, opt, tokens, targets, mask, {}))
-            ms.append(d)
-            losses.append(float(m["loss"]))
+            out.append((d, float(m["loss"]), float(m["grad_norm"])))
+        return out, p
+
+    def program():
+        p = TR.unflatten(params, [a.clone() for a in TR.leaves(params)])
+        prog = TrainProgram(bundle, tcfg("auto"), p,
+                                  init_opt_state(p))
+        out = []
+        for _ in range(TRAIN4K_STEPS + 1):
+            m, _, d = _timed_call(lambda: prog(*host_batch))
+            out.append((d, float(m["loss"]), float(m["grad_norm"])))
+        (pr,) = prog.programs.all()
+        extra = {"capture_ms": pr.capture_ms,
+                 "instantiate_ms": pr.instantiate_ms, "nodes": pr.nodes,
+                 "pool_gib": sum(_pools_bytes().values()) / 2 ** 30}
+        prog.release()
+        return out, p, extra
+
+    for kind in ("auto", "program", "naive"):
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        extra = {}
+        if kind == "program":
+            out, p, extra = program()
+        else:
+            out, p = eager(kind)
         launches = _launched()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms, losses, gnorms = (list(x) for x in zip(*out))
         assert not any(launches.values()), launches
         assert all(x == x and abs(x) < 1e4 for x in losses), losses
-        med = sorted(ms[1:])[len(ms[1:]) // 2]
+        if kind == "auto":
+            eager_auto = (losses, gnorms, [a.cpu() for a in TR.leaves(p)])
+        if kind == "program":
+            le, ge, host = eager_auto
+            differ = sum(not torch.equal(a, b.to(dev))
+                         for a, b in zip(TR.leaves(p), host))
+            extra.update(bit_equal_to_eager=losses == le and gnorms == ge
+                         and not differ, params_differing=differ)
+        del p
+        med = _median(ms[1:])
         tok = TRAIN4K_B * TRAIN4K_S
         rows.append({"arch": cfg.name, "layers": cfg.n_layers,
                      "batch": TRAIN4K_B, "seq": TRAIN4K_S,
                      "microbatches": TRAIN4K_MICRO,
-                     "attn_impl": attn_impl, "step_ms": ms,
+                     "attn_impl": "auto" if kind == "program" else kind,
+                     "program": kind == "program", "step_ms": ms,
                      "step_ms_median": med, "tokens_per_s": tok / med * 1e3,
                      "six_n_share_of_989tf":
                          6 * n * tok / (med / 1e3) / BF16_FLOPS,
                      "peak_gib": peak, "losses": losses,
-                     "launches": launches})
+                     "grad_norms": gnorms, "launches": launches, **extra})
+        what = "program" if kind == "program" else \
+            f"eager, attn_impl={kind!r}"
         log(f"  train_4k {cfg.name} x{cfg.n_layers} ({TRAIN4K_B} x "
-            f"{TRAIN4K_S} in {TRAIN4K_MICRO} microbatches, remat, "
-            f"attn_impl={attn_impl!r}): step ms median "
-            f"{med:.1f} (first {ms[0]:.1f}); {rows[-1]['tokens_per_s']:.0f} "
-            f"tokens/s; 6*N share {rows[-1]['six_n_share_of_989tf']:.3f}; "
-            f"peak {peak:.2f} GiB; losses {losses}; launches {launches}")
-        del opt, p, step
+            f"{TRAIN4K_S} in {TRAIN4K_MICRO} microbatches, remat, {what}):"
+            f" step ms median {med:.1f} (first {ms[0]:.1f}); "
+            f"{rows[-1]['tokens_per_s']:.0f} tokens/s; 6*N share "
+            f"{rows[-1]['six_n_share_of_989tf']:.3f}; peak {peak:.2f} GiB; "
+            f"losses {losses}; launches {launches}"
+            + (f"; capture {extra['capture_ms']:.1f} ms, instantiate "
+               f"{extra['instantiate_ms']:.1f} ms, {extra['nodes']} nodes, "
+               f"pool {extra['pool_gib']:.3f} GiB; losses, grad norms and "
+               f"params bit-equal to the eager run's: "
+               f"{extra['bit_equal_to_eager']} ({extra['params_differing']}"
+               f" leaves differ)" if kind == "program" else ""))
+        if kind == "program":
+            assert extra["bit_equal_to_eager"], \
+                "train_4k: the program differs from the eager step"
     del params
     _release()
     return rows
@@ -4859,12 +5143,10 @@ def program_pass(te, cfg, reqs, tag):
 def _graph_pool_gib(te) -> float:
     """The GiB the caching allocator holds in ``te``'s graph pool (its
     segments in a memory snapshot)."""
-    import torch
     pid = te.runner.programs.pool_id
     if pid is None:
         return 0.0
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg["segment_pool_id"]) == tuple(pid)) / 2**30
+    return _pools_bytes().get(tuple(pid), 0) / 2**30
 
 
 def _sync_free(call, cfg, n=3):

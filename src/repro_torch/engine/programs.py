@@ -1,5 +1,6 @@
-"""Device programs of the serving path: the port's counterpart of the
-reference's jit caches, one ``ProgramCache`` per TE holding both kinds:
+"""Device programs: the port's counterpart of the reference's jit caches.
+A ``ProgramCache`` holds programs of three kinds: each TE has one for the
+first two, and each ``training.train`` call one for the third:
 
   * decode programs, counted as ``jit_compiles``: ``_decode_fused_fn``
     (one K-step decode+sample program per (K, Bb, Pb),
@@ -15,9 +16,17 @@ reference's jit caches, one ``ProgramCache`` per TE holding both kinds:
     ("chunk", c, npages)) and the slot family's ``_prefill_fn``
     (``repro/engine/runners/slot.py:160-180``; key ("slot_prefill", cb)
     plus the names of the request's modality inputs, ``n_valid`` a static
-    input so one program serves every real length in a bucket).
+    input so one program serves every real length in a bucket);
+  * train programs, counted as ``train_builds``: ``step_fn =
+    jax.jit(make_train_step(bundle, tcfg))``
+    (``repro/training/train_loop.py:84``): the forward with per-block
+    remat, the gradients, the microbatch sums and AdamW of one step, the
+    weights and the optimizer state updated in place (key (B, S,
+    microbatches, the modality inputs' names and shapes);
+    ``training/train_loop.py::TrainProgram``). Its cache is built for the
+    one device of the weights (``launch/mesh.py::one_rank``).
 
-The keys of the two kinds are disjoint (the new ones lead with a tag).
+The keys of the serving kinds are disjoint (the new ones lead with a tag).
 The reference counts a jit cache miss; the port counts the programs it
 builds (the reference's ``_decode_fn`` also retraces for a new B without
 counting it, where the port builds and counts one program per (B, maxp)).
@@ -54,16 +63,25 @@ would count nothing: a program records the tally its body counted during
 capture, takes it back out (a capture launches nothing) and adds it on
 every replay.
 
-Every program of one TE shares one graph pool; programs of two TEs never
-share one. Captures serialize on one process lock and use the
-thread-local capture mode, so fleet threads may launch eagerly while one
-of them captures. A capture that fails raises, naming the kind and the
-key: nothing falls back to the eager body. A TE whose ranks lie on more
+Every program of one cache shares one graph pool; two caches never share
+one. Captures serialize on one process lock and use the thread-local
+capture mode, so fleet threads may launch eagerly while one of them
+captures. That mode also admits a train program's backward: autograd
+runs a CUDA backward on its own device thread, which launches into the
+capturing stream (so its work is captured) and whose allocations on that
+stream go to the pool; only the capturing thread is barred from unsafe
+calls. A capture that fails raises, naming the kind and the key: nothing
+falls back to the eager body. ``capture_ms`` is the host wall of the
+capture and the graph's instantiation. A train program keeps its
+``cudaGraph_t`` (``keep_graph``) to record its node count and
+instantiates it apart, timing that part as ``instantiate_ms``; the
+serving programs keep none. A TE whose ranks lie on more
 than one device keeps the eager bodies (``ProgramCache.enabled`` is
 decided from the mesh when the TE is built).
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import threading
 import time
@@ -80,6 +98,20 @@ Body = Callable[..., Tuple[torch.Tensor, ...]]
 _capture_lock = threading.Lock()
 
 
+def _node_count(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a graph captured with ``keep_graph`` (libcuda's
+    ``cuGraphGetNodes``)."""
+    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get_nodes.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_size_t))
+    get_nodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = get_nodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return int(n.value)
+
+
 class Program:
     """One body over static inputs (module docstring). ``inputs`` are the
     static input tensors by name, ``gen`` the generator the body draws
@@ -91,7 +123,7 @@ class Program:
                  gen: Optional[torch.Generator] = None,
                  kind: str = "decode"):
         self.key = key
-        self.kind = kind                     # "decode" | "prefill"
+        self.kind = kind                     # one of ProgramCache.KINDS
         self.body = body
         self.inputs = inputs
         self.gen = gen
@@ -99,7 +131,9 @@ class Program:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Tuple[torch.Tensor, ...] = ()
         self.launches: Dict[str, int] = {}   # kernel launches of one replay
-        self.capture_ms = 0.0                # host wall of the capture
+        self.capture_ms = 0.0                # host wall of the capture,
+        self.instantiate_ms = 0.0            # its instantiation a part of it
+        self.nodes: Optional[int] = None     # the graph's node count (train)
 
     def __call__(self, **src: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """Copy ``src`` into the static inputs of the same names, run the
@@ -128,8 +162,17 @@ class Program:
             cur.wait_stream(side)
             for t in out:
                 t.record_stream(cur)
+            if self.kind == "train":
+                # an eager train step leaves tensors in reference cycles
+                # (autograd and remat closures): collect them, so that the
+                # cache the capture empties first no longer holds them
+                # beside the pool
+                gc.collect()
             torch.cuda.synchronize(dev)
-            graph = torch.cuda.CUDAGraph()
+            # a train graph keeps its cudaGraph_t to count its nodes; the
+            # serving graphs (hundreds per TE) drop theirs at capture_end
+            keep = self.kind == "train"
+            graph = torch.cuda.CUDAGraph(keep_graph=keep)
             if self.gen is not None:
                 graph.register_generator_state(self.gen)
             before = counts.thread_tally()
@@ -156,6 +199,11 @@ class Program:
                          for n, c in counts.thread_tally().items()}
                 for name, n in taken.items():
                     counts.add(name, -n)
+            if keep:
+                self.nodes = _node_count(graph)
+                t1 = time.perf_counter()
+                graph.instantiate()
+                self.instantiate_ms = 1e3 * (time.perf_counter() - t1)
             self.capture_ms = 1e3 * (time.perf_counter() - t0)
         self.graph, self.outputs = graph, outputs
         self.launches = {n: c for n, c in taken.items() if c}
@@ -163,13 +211,14 @@ class Program:
 
 
 class ProgramCache:
-    """A TE's programs of both kinds by key, its graph pool and side
-    stream. ``builds`` counts the decode programs made (the reference's
-    ``jit_compiles``), ``prefill_builds`` the prefill programs (its
-    ``prefill_jit_compiles``): its bucketed keys make both 0 in steady
-    state after a warmup."""
+    """Programs of every kind by key, their graph pool and side stream:
+    a TE's, or a train job's. ``builds`` counts the decode programs made
+    (the reference's ``jit_compiles``), ``prefill_builds`` the prefill
+    programs (its ``prefill_jit_compiles``): its bucketed keys make both
+    0 in steady state after a warmup. ``train_builds`` counts the train
+    programs (one per batch shape)."""
 
-    KINDS = ("decode", "prefill")
+    KINDS = ("decode", "prefill", "train")
 
     def __init__(self, mesh):
         # a graph replays on one device: a TE spread over several keeps
@@ -200,8 +249,12 @@ class ProgramCache:
     def prefill_builds(self) -> int:
         return self.n_built["prefill"]
 
+    @property
+    def train_builds(self) -> int:
+        return self.n_built["train"]
+
     def all(self) -> List[Program]:
-        """Every program of both kinds."""
+        """Every program of every kind."""
         return [p for k in self.KINDS for p in self.by_kind[k].values()]
 
     def get(self, key: tuple, make: Callable[[], Program],
@@ -213,7 +266,7 @@ class ProgramCache:
         if prog is None:
             if self.released:
                 raise RuntimeError(
-                    f"{kind} program {key}: the TE released its weights")
+                    f"{kind} program {key}: its owner released its weights")
             prog = progs[key] = make()
             self.n_built[kind] += 1
         return prog
@@ -235,8 +288,8 @@ class ProgramCache:
         return self._side
 
     def release(self) -> None:
-        """Drop every program of both kinds and the pool (the TE's weights
-        are going: a graph must never replay over freed storage)."""
+        """Drop every program and the pool (the weights they read are
+        going: a graph must never replay over freed storage)."""
         for progs in self.by_kind.values():
             progs.clear()
         self._pool = self._side = None

@@ -2,7 +2,12 @@
 ``repro/launch/steps.py``): one builder per step kind.
 
   * ``build_train_step`` — ``training/train_loop.py::make_train_step``
-    (forward with remat -> grads -> AdamW), re-exported.
+    (forward with remat -> grads -> AdamW), re-exported: the eager body.
+    The reference jits that step only in its dry run
+    (``repro/launch/dryrun.py:158-161``, params and optimizer state
+    donated); the port's compiled form of that body is
+    ``training.TrainProgram``, which updates both in place, as donation
+    lets XLA do, and which ``training.train`` runs.
   * ``build_prefill_step`` — prompt -> (last-position logits, cache) from
     scratch, every family (dense and MoE, VLM, enc-dec, rwkv, hybrid)
     through one body: ``serving.tower``'s layers from zeroed caches, each

@@ -13,8 +13,11 @@ AdamW over packed synthetic batches, with sharded checkpoints and resume.
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 8 --ckpt-dir /tmp/ckpt --resume
 
-The train step runs the plain versions of the recurrences (the CUDA
-kernels have no backward), so it launches no hand-written kernel."""
+Every step runs through ``training.train``'s train program: on the card
+one CUDA graph per batch shape, captured at its first step and replayed
+after (the launcher prints how many were built). The train step runs the
+plain versions of the recurrences (the CUDA kernels have no backward), so
+it launches no hand-written kernel."""
 from __future__ import annotations
 
 import argparse
@@ -75,7 +78,8 @@ def main() -> None:
     _, stats = train(bundle, params, ds.batches(epochs=1000), tcfg,
                      ckpt=ckpt, resume=args.resume)
     print(f"done: loss {stats['loss_first']:.3f} -> {stats['loss_last']:.3f} "
-          f"in {stats['wall']:.1f}s")
+          f"in {stats['wall']:.1f}s; train programs built: "
+          f"{stats['programs']}")
 
 
 if __name__ == "__main__":

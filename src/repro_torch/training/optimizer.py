@@ -7,7 +7,9 @@ The state holds fp32 moments ``m`` and ``v`` shaped like the params and
 fp32 and casts each param back to its dtype (bf16 weights keep fp32
 moments, as in the reference; ``torch.optim.AdamW`` would keep bf16
 moments for bf16 params). Every quantity stays a tensor on the device:
-an update makes no host sync."""
+an update makes no host sync. ``adamw_update`` returns new params, as the
+reference does; ``adamw_update_`` writes the same values into the params
+and the step in place (the train program's form)."""
 from __future__ import annotations
 
 import math
@@ -62,6 +64,35 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in TR.leaves(tree)))
 
 
+def _coefficients(cfg: OptimizerConfig, grads, step: torch.Tensor):
+    """The step's grad norm, clip scale, learning rate and bias
+    corrections, from the grads and the new ``step``."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    b1, b2 = cfg.betas
+    return gnorm, scale, lr_at(cfg, step), 1 - b1 ** step.float(), \
+        1 - b2 ** step.float()
+
+
+def _updated(cfg: OptimizerConfig, p, g, m, v, scale, lr, bc1, bc2):
+    """One leaf's new param in its dtype; its moments ``m`` and ``v``
+    updated in place. The reference's expression, operation by operation
+    (no fused multiply-add), so the CPU update equals it."""
+    b1, b2 = cfg.betas
+    g = g.float() * scale
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g.square())
+    p32 = p.float()
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+        + cfg.weight_decay * p32
+    return (p32 - lr * delta).to(p.dtype)
+
+
+def _leaves(params, grads, opt_state):
+    return zip(TR.leaves(params), TR.leaves(grads),
+               TR.leaves(opt_state["m"]), TR.leaves(opt_state["v"]))
+
+
 def adamw_update(cfg: OptimizerConfig, params, grads, opt_state):
     """One AdamW step. Returns (new_params, new_opt_state, metrics
     {"grad_norm", "lr"}). The params come back as new tensors in their own
@@ -69,27 +100,23 @@ def adamw_update(cfg: OptimizerConfig, params, grads, opt_state):
     the optimizer's own and are updated IN PLACE (the new state holds the
     same tensors), so a step holds no second copy of them."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = lr_at(cfg, step)
-    b1, b2 = cfg.betas
-    bc1 = 1 - b1 ** step.float()
-    bc2 = 1 - b2 ** step.float()
-
-    def upd(p, g, m, v):
-        # the reference's expression, operation by operation (no fused
-        # multiply-add), so the CPU update equals it
-        g = g.float() * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g.square())
-        p32 = p.float()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-            + cfg.weight_decay * p32
-        return (p32 - lr * delta).to(p.dtype)
-
-    new = [upd(p, g, m, v) for p, g, m, v in zip(
-        TR.leaves(params), TR.leaves(grads), TR.leaves(opt_state["m"]),
-        TR.leaves(opt_state["v"]))]
+    gnorm, scale, lr, bc1, bc2 = _coefficients(cfg, grads, step)
+    new = [_updated(cfg, p, g, m, v, scale, lr, bc1, bc2)
+           for p, g, m, v in _leaves(params, grads, opt_state)]
     return TR.unflatten(params, new), \
         {"m": opt_state["m"], "v": opt_state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def adamw_update_(cfg: OptimizerConfig, params, grads, opt_state):
+    """``adamw_update`` with everything in place: each param takes its
+    new value (the same expression) and ``opt_state["step"]`` its
+    increment in their own storage, so a captured train program, which
+    holds raw addresses, replays over storage that never moves. One
+    leaf's new value lives at a time. Returns the metrics {"grad_norm",
+    "lr"}."""
+    step = opt_state["step"].add_(1)
+    gnorm, scale, lr, bc1, bc2 = _coefficients(cfg, grads, step)
+    for p, g, m, v in _leaves(params, grads, opt_state):
+        p.copy_(_updated(cfg, p, g, m, v, scale, lr, bc1, bc2))
+    return {"grad_norm": gnorm, "lr": lr}
