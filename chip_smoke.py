@@ -2886,11 +2886,10 @@ TRAIN_SEQ, TRAIN_BATCH = 256, 8
 # qwen3-8b's depth cut: 12 bytes a param (bf16 weights and grads, fp32 m
 # and v) over 193 M a layer and 1.24 B of embed + head: 8 of 36 layers are
 # 2.8 B params, ~33.5 GB before activations and the update's temporaries;
-# granite-moe-3b-a800m at its full 32 layers is 3.3 B params, ~39.6 GB.
-# rwkv6-1.6b's cut is for the script's time: its plain WKV loop is ~1.1 x
-# 10^4 graph nodes a layer, and its 24 layers took 30-44 s to capture and
-# 8-12 s an eager step on the card (the reason of each cut is logged)
-TRAIN_CUT = {"qwen3-8b": 8, "rwkv6-1.6b": 8}
+# granite-moe-3b-a800m at its full 32 layers is 3.3 B params, ~39.6 GB;
+# rwkv6-1.6b and recurrentgemma-2b train at full depth through the
+# reference's sequence forms (impl "scan")
+TRAIN_CUT = {"qwen3-8b": 8}
 TRAIN_RUNS = (("qwen3-8b", 10), ("granite-moe-3b-a800m", 4),
               ("rwkv6-1.6b", 3), ("recurrentgemma-2b", 3))
 CKPT_LAYERS = 1                 # rwkv6-1.6b: ~3.9 GB of train state on disk
@@ -2944,8 +2943,9 @@ def _smoke_batch(cfg, dev, seq=16, batch=2, seed=0):
 def train_guard(dev):
     """Each launcher refuses CUDA inputs that require grad, its count
     unmoved; a forward on the kernels (impl "auto") under autograd raises
-    on the recurrent towers, and the same loss on the plain versions
-    (impl "ref") gives finite gradients."""
+    on the recurrent towers, and the same loss on the train step's route
+    (impl "scan": the reference's sequence forms) gives finite
+    gradients."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.model_factory import cross_entropy, get_model
@@ -2980,12 +2980,201 @@ def train_guard(dev):
             raise AssertionError(f"{arch}: forward on the kernels ran "
                                  f"under autograd")
         assert ops.launch_counts() == before
-        lv, grads = value_and_grad(loss("ref"), params, tokens, targets,
+        lv, grads = value_and_grad(loss("scan"), params, tokens, targets,
                                    mask)
         assert torch.isfinite(lv) and all(
             torch.isfinite(g).all() for g in TR.leaves(grads))
+        assert ops.launch_counts() == before
         log(f"  {arch}: forward(impl='auto') under autograd raises; "
-            f"impl='ref' loss {float(lv):.4f}, finite grads")
+            f"impl='scan' loss {float(lv):.4f}, finite grads")
+
+
+# the recurrences' train forms against the per-token forms on the card:
+# full width, FORMS_LAYERS fp32 layers (TF32 off), one train batch. The
+# bounds are those the CPU tests hold the port's loss and gradients to
+# against the reference, either form (tests/test_torch_train.py), set
+# before the first run on the card
+FORMS_ARCHS, FORMS_LAYERS = ("rwkv6-1.6b", "recurrentgemma-2b"), 2
+FORMS_LOSS_RTOL, FORMS_NORM_RTOL, FORMS_LEAF_RTOL = 1e-5, 1e-4, 1e-4
+FORMS_ITERS = 5
+
+
+def train_forms(dev):
+    """rwkv6-1.6b and recurrentgemma-2b at full width, FORMS_LAYERS fp32
+    layers, on one packed batch of TRAIN_BATCH x TRAIN_SEQ, remat: the
+    train step's loss (``make_loss_fn``, impl "scan": the chunked WKV6,
+    the associative RG-LRU scan) and every gradient leaf against the same
+    loss through the per-token forms (impl "ref"). The arithmetic
+    differs, so they are not bit-equal: loss within FORMS_LOSS_RTOL
+    relative, grad norm within FORMS_NORM_RTOL, each leaf within
+    FORMS_LEAF_RTOL * max |g_ref| + 1e-7. Each form's loss-and-grad ms
+    (CUDA events, one call after a warm one); no kernel launched.
+    Returns {arch: row}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, PackedDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_factory import cross_entropy, get_model
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import tree as TR
+    from repro_torch.training.train_loop import make_loss_fn, value_and_grad
+    out = {}
+    for arch in FORMS_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=FORMS_LAYERS)
+        b = get_model(cfg)
+        params = b.init_params(torch.Generator(device=dev).manual_seed(0),
+                               torch.float32, dev)
+        batch = [torch.from_numpy(a).to(dev) for a in next(PackedDataset(
+            DataConfig(seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                       n_docs=2048)).batches())]
+        scan = make_loss_fn(b, True)
+        losses = {
+            "scan": lambda ps, t, y, m: scan(ps, t, y, m, {}),
+            "ref": lambda ps, t, y, m: cross_entropy(
+                b.forward(b.cfg, ps, t, impl="ref", remat=True), y, m,
+                b.cfg.vocab_size)}
+        res, ms = {}, {}
+        for form, fn in losses.items():
+            ops.reset_launches()
+            value_and_grad(fn, params, *batch)          # warm
+            ev = [_event()]
+            lv, g = value_and_grad(fn, params, *batch)
+            ev.append(_event())
+            torch.cuda.synchronize()
+            assert not any(ops.launch_counts().values()), \
+                f"{arch} {form}: launched {ops.launch_counts()}"
+            ms[form] = _ev_ms(ev)
+            res[form] = (float(lv), float(O.global_norm(g)),
+                         TR.flatten_with_paths(g))
+            del g
+        (l1, n1, g1), (l0, n0, g0) = res["scan"], res["ref"]
+        ratios = [(float((a - c).abs().max())
+                   / (FORMS_LEAF_RTOL * float(c.abs().max()) + 1e-7), p)
+                  for (p, a), (_, c) in zip(g1, g0)]
+        worst = max(ratios)
+        rel_leaf = max(float((a - c).abs().max())
+                       / max(float(c.abs().max()), 1e-30)
+                       for (_, a), (_, c) in zip(g1, g0))
+        row = {"layers": FORMS_LAYERS, "dtype": "float32",
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "loss_scan": l1, "loss_ref": l0,
+               "loss_rel": abs(l1 - l0) / abs(l0), "grad_norm_scan": n1,
+               "grad_norm_ref": n0, "grad_norm_rel": abs(n1 - n0) / n0,
+               "worst_leaf_of_bound": worst[0], "worst_leaf": worst[1],
+               "worst_leaf_rel": rel_leaf, "loss_and_grad_ms": ms}
+        log(f"  {arch} x{FORMS_LAYERS} fp32, {TRAIN_BATCH} x {TRAIN_SEQ}: "
+            f"loss scan {l1:.7f} ref {l0:.7f} (rel {row['loss_rel']:.2e}, "
+            f"bound {FORMS_LOSS_RTOL:g}); grad norm scan {n1:.6f} ref "
+            f"{n0:.6f} (rel {row['grad_norm_rel']:.2e}, bound "
+            f"{FORMS_NORM_RTOL:g}); worst leaf {worst[1]} at {worst[0]:.3f} "
+            f"of its bound ({rel_leaf:.2e} of max |g|); loss-and-grad ms "
+            f"scan {ms['scan']:.1f}, ref {ms['ref']:.1f}; no launch")
+        assert row["loss_rel"] <= FORMS_LOSS_RTOL, row
+        assert row["grad_norm_rel"] <= FORMS_NORM_RTOL, row
+        assert worst[0] <= 1.0, row
+        out[arch] = row
+        del params, res, g0, g1
+        _release()
+    return out
+
+
+def recurrence_forms_ms(dev):
+    """One layer's recurrence, forward + backward, in each form at phase
+    8's train shape: rwkv6-1.6b's WKV6 (r, k, v, w (8, 256, 32, 64) bf16,
+    as the bf16 train step gives them; u fp32; a zero fp32 state) and
+    recurrentgemma-2b's RG-LRU (a, b (8, 256, 2560) fp32, a zero h0),
+    impl "scan" against "ref": the gradients of a seeded scalar of the
+    output with respect to every input. Each form eager (CUDA events over
+    FORMS_ITERS calls after a warm one) and as a train program
+    (``engine/programs.py`` kind "train": capture ms, nodes, ms a replay
+    over FORMS_ITERS replays). Both forms' gradients finite, their
+    largest gap printed; no kernel launched. Returns {name: row}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine.programs import Program, ProgramCache
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import one_rank
+    rw, rg = get_config("rwkv6-1.6b"), get_config("recurrentgemma-2b")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, t = TRAIN_BATCH, TRAIN_SEQ
+    h, hd = rw.d_model // rw.rwkv.head_dim, rw.rwkv.head_dim
+    w_ch = rg.rglru.lru_width
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale
+                ).to(dtype)
+    bf = torch.bfloat16
+    wkv_in = {"r": randn(b, t, h, hd, dtype=bf),
+              "k": randn(b, t, h, hd, dtype=bf, scale=0.1),
+              "v": randn(b, t, h, hd, dtype=bf),
+              "w": torch.exp(-torch.exp(randn(b, t, h, hd) - 4.0)).to(bf),
+              "u": randn(h, hd, scale=0.3), "c": randn(b, t, h, hd)}
+    rg_in = {"a": torch.rand((b, t, w_ch), device=dev, generator=gen)
+             * 0.5 + 0.5, "b": randn(b, t, w_ch), "c": randn(b, t, w_ch)}
+
+    def wkv_body(form):
+        def body(r, k, v, w, u, c):
+            leaves = [x.detach().requires_grad_() for x in (r, k, v, w, u)]
+            state = torch.zeros((b, h, hd, hd), device=dev)
+            y, _ = ops.wkv6(*leaves, state, impl=form)
+            return torch.autograd.grad((y.float() * c).sum(), leaves)
+        return body
+
+    def rg_body(form):
+        def body(a, b, c):
+            leaves = [x.detach().requires_grad_() for x in (a, b)]
+            h0 = torch.zeros((a.shape[0], a.shape[2]), device=dev)
+            hs, _ = ops.rglru(*leaves, h0, impl=form)
+            return torch.autograd.grad((hs * c).sum(), leaves)
+        return body
+
+    out = {}
+    for name, make, inputs in (("wkv6", wkv_body, wkv_in),
+                               ("rglru", rg_body, rg_in)):
+        row, grads = {}, {}
+        for form in ("scan", "ref"):
+            body = make(form)
+            ops.reset_launches()
+            grads[form] = [g.float() for g in body(**inputs)]
+            torch.cuda.synchronize()
+            ev = [_event()]
+            for _ in range(FORMS_ITERS):
+                body(**inputs)
+            ev.append(_event())
+            torch.cuda.synchronize()
+            cache = ProgramCache(one_rank(dev))
+            prog = Program(("forms", name, form), body, dict(inputs), cache,
+                           kind="train")
+            prog()
+            torch.cuda.synchronize()
+            rp = [_event()]
+            for _ in range(FORMS_ITERS):
+                prog()
+            rp.append(_event())
+            torch.cuda.synchronize()
+            assert not any(ops.launch_counts().values()), \
+                f"{name} {form}: launched {ops.launch_counts()}"
+            assert all(bool(torch.isfinite(g).all()) for g in grads[form])
+            row[form] = {"eager_ms": _ev_ms(ev) / FORMS_ITERS,
+                         "program_ms": _ev_ms(rp) / FORMS_ITERS,
+                         "capture_ms": prog.capture_ms,
+                         "nodes": prog.nodes}
+            cache.release()
+            del prog, cache
+        row["grad_gap_rel"] = max(
+            float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+            for x, y in zip(grads["scan"], grads["ref"]))
+        row["shape"] = list(inputs["c"].shape)
+        out[name] = row
+        log(f"  {name} forward + backward at {row['shape']}: " + "; ".join(
+            f"{f} eager {row[f]['eager_ms']:.3f} ms, program "
+            f"{row[f]['program_ms']:.3f} ms ({row[f]['nodes']} nodes, "
+            f"capture {row[f]['capture_ms']:.1f} ms)" for f in ("scan",
+                                                               "ref"))
+            + f"; gradients scan vs ref {row['grad_gap_rel']:.2e} of max")
+        del grads
+        _release()
+    return out
 
 
 def _median(xs):
@@ -3068,11 +3257,9 @@ def train_run(name, steps, dev):
     n = cfg.param_count()
     need = 12 * n
     cut = "" if cfg.n_layers == full.n_layers else \
-        f", depth cut from {full.n_layers}: " + (
-            "the capture of the plain recurrence's graph takes the "
-            "script's time" if cfg.rwkv is not None else
-            f"12 B a param (bf16 weights and grads, fp32 m and v) x "
-            f"{n / 1e9:.2f} B = {need / 1e9:.1f} GB before activations")
+        f", depth cut from {full.n_layers}: 12 B a param (bf16 weights " \
+        f"and grads, fp32 m and v) x {n / 1e9:.2f} B = {need / 1e9:.1f} " \
+        f"GB before activations"
     log(f"phase 8: train {name} ({cfg.n_layers} layers{cut}; bf16, remat, "
         f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, eager then "
         f"program) [{time.monotonic() - T0:.1f} s]")
@@ -3429,17 +3616,23 @@ def staging_ab(dev):
 
 
 def phase8(dev):
-    """Fine-tune jobs on the card: the launchers refuse autograd; qwen3-8b
-    (depth cut), granite-moe-3b-a800m, rwkv6-1.6b and recurrentgemma-2b
-    train at full width in bf16, eagerly and through ``train()``'s train
-    program, bit for bit alike, with no kernel launched; the MoE
-    gather's two forms and the batch upload's two ways; the smoke train
-    step on the card against the CPU's; resume equivalence; a checkpoint
-    round trip. Returns {"runs": [...], "moe_gather_ms": {...},
+    """Fine-tune jobs on the card: the launchers refuse autograd; the
+    recurrences' train forms against the per-token forms (fp32 at full
+    width, and one layer's forward + backward timed in each form);
+    qwen3-8b (depth cut), granite-moe-3b-a800m, rwkv6-1.6b and
+    recurrentgemma-2b train at full width in bf16, eagerly and through
+    ``train()``'s train program, bit for bit alike, with no kernel
+    launched; the MoE gather's two forms and the batch upload's two ways;
+    the smoke train step on the card against the CPU's; resume
+    equivalence; a checkpoint round trip. Returns {"runs": [...],
+    "forms": {...}, "forms_ms": {...}, "moe_gather_ms": {...},
     "upload_step_ms": {...}, "checkpoint": {...}}."""
     log(f"phase 8: train — the launchers refuse autograd "
         f"[{time.monotonic() - T0:.1f} s]")
     train_guard(dev)
+    log(f"phase 8: the recurrences' train forms (impl 'scan') vs the "
+        f"per-token forms [{time.monotonic() - T0:.1f} s]")
+    forms, forms_ms = train_forms(dev), recurrence_forms_ms(dev)
     runs = [train_run(name, steps, dev) for name, steps in TRAIN_RUNS]
     q = runs[0]
     assert q["loss_last"] < q["loss_first"], \
@@ -3451,7 +3644,8 @@ def phase8(dev):
         f"[{time.monotonic() - T0:.1f} s]")
     train_vs_cpu(dev)
     train_resume(dev)
-    return {"runs": runs, "moe_gather_ms": gather, "upload_step_ms": staging,
+    return {"runs": runs, "forms": forms, "forms_ms": forms_ms,
+            "moe_gather_ms": gather, "upload_step_ms": staging,
             "checkpoint": train_checkpoint(dev)}
 
 

@@ -107,9 +107,10 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
     them and a backward would give no gradient to anything upstream. No
     kernel has a backward (the reference trains through jnp scans and
     masked attention, never through a Pallas kernel), so a loss asks for
-    the plain versions by name (``impl="ref"``)."""
+    the plain versions by name (``impl="scan"``, the reference's sequence
+    forms of the recurrences, or ``impl="ref"``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what}: the CUDA kernel has no backward and autograd cannot "
             f"see its outputs; under autograd call the plain version "
-            f"(impl='ref')")
+            f"(impl='scan' or 'ref')")

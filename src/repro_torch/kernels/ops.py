@@ -8,7 +8,14 @@ and the two recurrences of the slot family.
     tensors lie: a CUDA tensor launches its kernel or raises, never falls
     back.
   * "ref"  — the plain version on any device; kept so ``chip_smoke.py``
-    and the tests can hold a kernel against it on the same inputs.
+    and the tests can hold a kernel against it on the same inputs. The
+    recurrences' plain versions are the per-token loops.
+  * "scan" — the plain versions in the reference's sequence forms, on any
+    device: the recurrences through the chunked WKV6
+    (``models/rwkv6.py::wkv_chunked``) and the associative RG-LRU scan
+    (``models/rglru.py::associative_scan``), the attention entries as
+    "ref". The train step's route: the reference trains through these
+    forms, and the CUDA kernels have no backward.
 """
 from __future__ import annotations
 
@@ -25,9 +32,13 @@ from repro_torch.kernels import wkv6 as WKV
 
 
 def _route(x: torch.Tensor, impl: str) -> str:
-    if impl not in ("auto", "ref"):
-        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
-    if impl == "ref" or x.device.type == "cpu":
+    """Where ``impl`` sends a call on ``x``: "cuda", "ref" or "scan"."""
+    if impl not in ("auto", "ref", "scan"):
+        raise ValueError(
+            f"impl must be 'auto', 'ref' or 'scan', got {impl!r}")
+    if impl != "auto":
+        return impl
+    if x.device.type == "cpu":
         return "ref"
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
@@ -37,7 +48,7 @@ def _route(x: torch.Tensor, impl: str) -> str:
 def paged_attention(q, k_pages, v_pages, block_tables, lengths,
                     softcap: Optional[float] = None,
                     window: Optional[int] = None, impl: str = "auto"):
-    if _route(q, impl) == "ref":
+    if _route(q, impl) != "cuda":
         return R.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                      lengths, softcap=softcap, window=window)
     return PA.paged_attention(q, k_pages, v_pages, block_tables, lengths,
@@ -49,7 +60,7 @@ def paged_prefill(q, k_pages, v_pages, cu_tokens, entry_bt, entry_start,
                   window: Optional[int] = None, impl: str = "auto"):
     """Ragged paged prefill attention; ``tiles`` (from
     ``flash_prefill.build_tiles``) is read by the kernel only."""
-    if _route(q, impl) == "ref":
+    if _route(q, impl) != "cuda":
         return R.paged_prefill_ref(q, k_pages, v_pages, cu_tokens, entry_bt,
                                    entry_start, softcap=softcap,
                                    window=window)
@@ -60,7 +71,7 @@ def paged_prefill(q, k_pages, v_pages, cu_tokens, entry_bt, entry_start,
 
 def flash_prefill(q, k, v, softcap: Optional[float] = None,
                   window: Optional[int] = None, impl: str = "auto"):
-    if _route(q, impl) == "ref":
+    if _route(q, impl) != "cuda":
         return R.flash_prefill_ref(q, k, v, softcap=softcap, window=window)
     return FP.flash_prefill(q, k, v, softcap=softcap, window=window)
 
@@ -68,20 +79,34 @@ def flash_prefill(q, k, v, softcap: Optional[float] = None,
 def wkv6(r, k, v, w, u, state, impl: str = "auto"):
     """WKV6 with a carried state: r, k, v, w (B, T, H, hd), u (H, hd)
     fp32, state (B, H, hd, hd) fp32. The new state is written over
-    ``state`` in place on both routes. Returns (y, state)."""
-    if _route(r, impl) == "ref":
+    ``state`` in place on every route. Returns (y, state). "ref" runs the
+    per-token loop, "scan" the reference's chunked form (chunks of 64
+    tokens; differentiable, and it reads ``state`` through a copy, so
+    autograd keeps the initial state it saved)."""
+    route = _route(r, impl)
+    if route == "cuda":
+        return WKV.wkv6(r, k, v, w, u, state)
+    if route == "scan":
+        from repro_torch.models.rwkv6 import wkv_chunked   # it imports ops
+        y, s = wkv_chunked(r, k, v, w, u, state)
+    else:
         y, s = R.wkv6_ref(r, k, v, w, u, state)
-        state.copy_(s)
-        return y, state
-    return WKV.wkv6(r, k, v, w, u, state)
+    state.copy_(s)
+    return y, state
 
 
 def rglru(a, b, h0, impl: str = "auto"):
     """RG-LRU recurrence: a, b (B, T, W), h0 (B, W) fp32. Returns
-    (h (B, T, W), h_last (B, W) fp32)."""
-    if _route(a, impl) == "ref":
-        return R.rglru_ref(a, b, h0)
-    return RG.rglru(a, b, h0)
+    (h (B, T, W), h_last (B, W) fp32). "ref" runs the per-token loop,
+    "scan" the reference's associative scan with h0 folded into the first
+    step."""
+    route = _route(a, impl)
+    if route == "cuda":
+        return RG.rglru(a, b, h0)
+    if route == "scan":
+        from repro_torch.models.rglru import scan_linear   # it imports ops
+        return scan_linear(a, b, h0)
+    return R.rglru_ref(a, b, h0)
 
 
 def reset_launches() -> None:

@@ -29,7 +29,7 @@ class ModelBundle:
         """Mean next-token cross-entropy over ``mask``-ed positions (the
         forward's default route: the kernels on the card, so call it
         without autograd there; the train loop's loss asks for the plain
-        versions)."""
+        versions, the recurrences in the reference's sequence forms)."""
         logits = self.forward(self.cfg, params, tokens, **extra)
         return cross_entropy(logits, targets, mask, self.cfg.vocab_size)
 

@@ -10,7 +10,10 @@ Recurrence (per channel):
 The reference runs the sequence form as an associative scan and decode as
 one step; here both go through ``ops.rglru`` (the RG-LRU kernel on a CUDA
 tensor, the sequential plain version on a CPU tensor), decode as T = 1,
-once per rank of the TE's mesh at that rank's channels."""
+once per rank of the TE's mesh at that rank's channels. The train step
+asks for ``impl="scan"``: the reference's associative scan
+(``associative_scan``, h0 folded into the first step by ``scan_linear``),
+which autograd differentiates as the reference's ``jax.grad`` does."""
 from __future__ import annotations
 
 import math
@@ -65,6 +68,55 @@ def _rglru_coeffs(p: dict, u_all: torch.Tensor, u: torch.Tensor):
     return a, b
 
 
+def _combine(x, y):
+    """The reference's combine of an earlier step ``x`` and a later ``y``
+    of h_t = a_t h_{t-1} + b_t."""
+    a1, b1 = x
+    a2, b2 = y
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], odd[1], ... along dim 1 (``even`` as long
+    as ``odd`` or one longer)."""
+    n = odd.shape[1]
+    both = torch.stack([even[:, :n], odd], 2).flatten(1, 2)
+    return both if even.shape[1] == n else torch.cat([both, even[:, n:]], 1)
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of (a, b) (B, T, ...) along dim 1 under ``_combine``:
+    the recursion of ``jax.lax.associative_scan`` in its association
+    order (combine adjacent pairs, scan the half, combine the odd results
+    with the even inputs, interleave), so its fp32 values equal the
+    reference's unjitted scan bit for bit. Strided slices, products,
+    ``stack`` and ``cat`` only: no host read, log2(T) levels. Returns
+    (A, H), H_t = h_t from h_0 = 0."""
+    t = a.shape[1]
+    if t < 2:
+        return a, b
+    odd = associative_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                                     (a[:, 1::2], b[:, 1::2])))
+    if t % 2 == 0:
+        even = _combine((odd[0][:, :-1], odd[1][:, :-1]),
+                        (a[:, 2::2], b[:, 2::2]))
+    else:
+        even = _combine(odd, (a[:, 2::2], b[:, 2::2]))
+    return tuple(_interleave(torch.cat([x[:, :1], e], 1), o)
+                 for x, e, o in zip((a, b), even, odd))
+
+
+def scan_linear(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t h_{t-1} + b_t from h0 (B, W) as the reference's
+    ``rglru_scan`` runs it: h0 folded into the first step (b_0 + a_0 h0),
+    then ``associative_scan``. a, b: (B, T, W) fp32. Returns (h (B, T, W),
+    h_last (B, W)) fp32."""
+    a, b = a.float(), b.float()
+    b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], 1)
+    _, h = associative_scan(a, b)
+    return h, h[:, -1]
+
+
 def rglru_scan(p: dict, u_all: torch.Tensor, u: torch.Tensor,
                h0: torch.Tensor, n_valid=None,
                impl: str = "auto"):
@@ -72,8 +124,9 @@ def rglru_scan(p: dict, u_all: torch.Tensor, u: torch.Tensor,
     1). u_all: (B, T, W); u: (B, T, W_r); h0: (B, W_r). Positions >=
     n_valid (an int, or a 0-d device tensor never read on the host) are
     padding: their steps become exact identities (a -> 1,
-    b -> 0), so the returned final state equals h_{n_valid-1}. Returns
-    (h, h_last), both fp32."""
+    b -> 0), so the returned final state equals h_{n_valid-1}. ``impl``
+    routes ``ops.rglru`` ("scan": the reference's associative scan).
+    Returns (h, h_last), both fp32."""
     a, b = _rglru_coeffs(p, u_all, u)
     valid = L.valid_steps(u.shape[1], n_valid, u.device)
     if valid is not None:

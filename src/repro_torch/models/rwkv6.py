@@ -9,9 +9,9 @@ with per-channel decay w_t = exp(-exp(w_hat_t)) computed from the input.
 ``rwkv_time_mix`` runs the recurrence through ``ops.wkv6`` with the carried
 state, in prefill and in decode, once per rank of the TE's mesh at that
 rank's heads: the WKV6 kernel on a CUDA tensor, the sequential plain
-version on a CPU tensor. ``wkv_sequential`` and
-``wkv_chunked`` are the reference's two plain formulations, kept as twins
-for the CPU tests."""
+version on a CPU tensor. ``wkv_sequential`` and ``wkv_chunked`` are the
+reference's two plain formulations; the train step runs ``wkv_chunked``
+(``impl="scan"``), as the reference's train step does."""
 from __future__ import annotations
 
 import math
@@ -38,14 +38,16 @@ def wkv_sequential(r, k, v, w, u, state=None):
 
 
 def wkv_chunked(r, k, v, w, u, state=None, chunk: int = 64):
-    """Chunk-parallel WKV6 (the reference's prefill formulation): within a
-    chunk the pairwise term is a masked product in log-decay space, across
-    chunks the state carries. Same signature and result as
-    ``wkv_sequential``."""
+    """Chunk-parallel WKV6 (the reference's formulation of its train step
+    and prefill): within a chunk the pairwise term is a masked product in
+    log-decay space, across chunks the state carries. Same signature and
+    result as ``wkv_sequential``. Differentiable; ``state`` is read
+    through a copy and the final state is a new tensor, so ``ops.wkv6``
+    may write it over ``state`` while autograd (or a recomputed block)
+    still needs the initial one."""
     b, t, h, hd = r.shape
-    if state is None:
-        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                            device=r.device)
+    s = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device) \
+        if state is None else state.to(torch.float32, copy=True)
     pad = (-t) % chunk
     if pad:
         def z(x, value=0.0):
@@ -58,7 +60,6 @@ def wkv_chunked(r, k, v, w, u, state=None, chunk: int = 64):
 
     rc, kc, vc, wc = (chunks(x) for x in (r, k, v, w))
     u32 = u.float()
-    s = state.float()
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=r.device), diagonal=-1)
     ys = []

@@ -330,10 +330,10 @@ def self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     causal ``from_scratch`` attention (q and k at positions 0..S-1) on
     CUDA tensors under ``impl="auto"`` launches the dense ``flash_prefill``
     kernel, with the window and the softcap (it refuses autograd: a loss
-    passes ``impl="ref"``), and raises for other positions; ``impl="ref"``
-    and CPU tensors run the plain blockwise function. The kernel is
-    causal only, so a non-causal call past the switch is plain at every
-    route."""
+    passes ``impl="scan"``), and raises for other positions; ``impl="ref"``
+    or ``"scan"`` and CPU tensors run the plain blockwise function. The
+    kernel is causal only, so a non-causal call past the switch is plain at
+    every route."""
     if attn_impl not in ("naive", "flash", "auto"):
         raise ValueError(f"attn_impl must be 'naive', 'flash' or 'auto', "
                          f"got {attn_impl!r}")
@@ -521,7 +521,9 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     routes the two recurrences (``ops.wkv6`` / ``ops.rglru``) and the
     blockwise attention (the ``flash_prefill`` kernel on CUDA tensors
     when ``positions`` is left to its default 0..S-1): under autograd
-    pass "ref", since the CUDA kernels have no backward and refuse it.
+    pass "scan" (the train step's route: the recurrences in the
+    reference's sequence forms, attention plain) or "ref" (the per-token
+    loops), since the CUDA kernels have no backward and refuse it.
     ``remat`` recomputes each block in the backward (a decoder layer with
     the cross block that follows it, as one). Used by the train loop, the
     tests and the on-card greedy oracle."""
@@ -536,9 +538,10 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
         nh, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
 
         def rwkv_layer(x, lp):
-            # the zero states are made inside the block: the recurrence
-            # advances its state in place, and a recomputed block must
-            # start from zeros again
+            # the zero states are made inside the block: ops.wkv6 writes
+            # the final state over its input on every route (the chunked
+            # form of impl "scan" reads it through a copy), and a
+            # recomputed block must start from zeros again
             state = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
                                 device=dev)
             last = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=dev)

@@ -5,10 +5,12 @@ train_step = forward (each block recomputed in the backward) -> grads ->
 AdamW, optionally over microbatches whose gradients are summed in fp32
 and averaged. The forward takes the reference's ``attn_impl="auto"``
 (naive attention up to 2048 keys, the plain blockwise flash past them)
-and asks for the plain versions of the recurrences and of the blockwise
-attention by name (``impl="ref"``), as the reference trains through jnp:
-the CUDA kernels have no backward and refuse autograd, so a train step
-launches no hand-written kernel.
+and asks for the recurrences in the reference's sequence forms
+(``impl="scan"``: the chunked WKV6 of ``models/rwkv6.py::wkv_chunked``,
+the associative RG-LRU scan of ``models/rglru.py``) and the plain
+blockwise attention, as the reference trains through jnp: the CUDA
+kernels have no backward and refuse autograd, so a train step launches
+no hand-written kernel.
 
 ``make_train_step`` is the eager step; ``train`` runs the same body as a
 ``TrainProgram``: one device program per batch shape on a card, as the
@@ -47,7 +49,7 @@ def make_loss_fn(bundle: ModelBundle, remat: bool = True,
 
     def loss_fn(params, tokens, targets, mask, extra):
         logits = bundle.forward(cfg, params, tokens, attn_impl=attn_impl,
-                                impl="ref", remat=remat, **extra)
+                                impl="scan", remat=remat, **extra)
         return cross_entropy(logits, targets, mask, cfg.vocab_size)
 
     return loss_fn

@@ -12,7 +12,8 @@ inputs. Held here, with the tolerances stated in each test:
 
   * per arch (all ten), one loss and its gradients: the reference's
     ``make_loss_fn`` under a jitted ``jax.value_and_grad`` against the
-    port's (``impl="ref"``, remat on): loss within 1e-5 relative, grad
+    port's (``impl="scan"``: the recurrences in the reference's sequence
+    forms; remat on): loss within 1e-5 relative, grad
     norm within 1e-4 relative, each leaf within 1e-4 * max|g_leaf| +
     1e-7; and every port leaf gets a finite gradient with a non-zero
     element (no leaf is zero by construction at these inputs);
