@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only switches  # phases 1 and 10 alone
     python3 chip_smoke.py --only programs  # phases 1 and 11 alone
     python3 chip_smoke.py --only prefill-programs  # phases 1 and 12 alone
+    python3 chip_smoke.py --only dryrun    # phases 1 and 13 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build    — nvcc compiles every kernel in src/repro_torch/csrc/ (one
@@ -306,7 +307,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                 then builds qwen3-8b's whole prefill warmup grid (99
                 programs: seconds, capture ms, the pool's GiB, the memory
                 added) and serves inside it, building none.
-The last lines are the prefill program rows ({"prefill_programs":
+  13. dryrun   — the production-mesh dry run on H100 terms: (a) the 80
+                records of ``launch/dryrun.py`` (10 archs x 4 shapes x the
+                single and multi-pod mesh, counted on the meta device in a
+                pool of two host processes started before phase 1, the single
+                mesh with its probes), each cell's fits, dominant term and
+                step time printed; (b) every probe of every applicable
+                single-mesh cell built on the card with bf16 tensors at the
+                cell's one-device shapes and timed (CUDA events, median of
+                5 after a warm-up) beside its modeled max(compute, memory)
+                and the fraction, its peak allocation beside the meta
+                estimate, its argument bytes held equal to the dry run's;
+                a probe whose meta estimate exceeds the card is not run.
+                The prefill attention probes launch flash_prefill, the
+                rwkv and RG-LRU prefill and decode probes wkv6 and rglru,
+                the train probes none; one kernel probe per block kind and
+                arch is held against its plain version (impl "ref").
+The last lines are the dry-run rows ({"dryrun": {...}}), the prefill
+program rows ({"prefill_programs":
 [...]}), the program rows ({"programs": [...]}), the switch
 rows ({"switches": {...}}), the
 long-context rows ({"long": {...}}), the training
@@ -319,6 +337,7 @@ the kernel table as JSON, the card's name and power limit, and
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import os
@@ -330,8 +349,13 @@ T0 = time.monotonic()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor peak
+
+
+def _work():
+    """``kernels/work.py``: each kernel's bytes and operations, and the
+    card's peaks (``core/perf_model.py``) its bounds divide by."""
+    from repro_torch.kernels import work
+    return work
 
 
 def log(*a):
@@ -652,13 +676,11 @@ def main_path_decode(cfg, dev, window=None, softcap=None, lens=(1024, 2048),
     kernel_graph = graph_ms(kernel)
     library_graph = graph_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
-    n_keys = sum(min(n, window or n) for n in lengths)   # keys read
-    nbytes = 2 * (2 * b * h * hd) + 2 * 2 * n_keys * hkv * hd \
-        + 4 * (b * maxp + b)
-    flops = 4 * h * hd * n_keys
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
-        else "operations"
+    wk = _work().paged_attention(b, h, hkv, hd,
+                                 _work().decode_keys(lengths, window),
+                                 b * maxp)
+    nbytes, flops = wk.nbytes, wk.flops
+    bound, by = wk.bound()
     splits = PA.n_splits(b, hkv, maxp, PA.sm_count(dev))
     log(f"  {tag}: splits S={splits} (grid {b}x{hkv}x"
         f"{splits} = {b * hkv * splits} blocks on {PA.sm_count(dev)} SMs); "
@@ -760,17 +782,9 @@ def main_path_prefill(cfg, dev, window=None, softcap=None,
     kernel_graph = graph_ms(kernel)
     library_graph = graph_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
-    win = window or 2 ** 62
-    pairs = sum(sum(min(s + j + 1, win) for j in range(n))
-                for s, n in zip(starts, lens))
-    keys_read = sum(s + n - max(0, s - win + 1) for s, n in zip(starts, lens))
-    n_tok = sum(lens)
-    nbytes = 2 * (2 * n_tok * h * hd) + 2 * 2 * keys_read * hkv * hd \
-        + 4 * (ebt.numel() + 3 * sb + 1)
-    flops = 4 * h * hd * pairs
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
-        else "operations"
+    wk = _work().paged_prefill(h, hkv, hd, starts, lens, window, ebt.numel())
+    nbytes, flops = wk.nbytes, wk.flops
+    bound, by = wk.bound()
     log(f"  {tag}: kernel_ms {kernel_ms:.4f} eager / "
         f"{kernel_graph:.4f} graph-replayed; plain_ms {plain_ms:.4f}; "
         f"library_ms {library_ms:.4f} eager / {library_graph:.4f} "
@@ -825,8 +839,6 @@ def arch_rows(cfg, dev):
 # phase 2, the slot family: WKV6 and RG-LRU against their plain versions
 # --------------------------------------------------------------------------
 
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-TF32_FLOPS = 495e12            # H100 SXM TF32 on the tensor cores (dense)
 
 
 def close(name, got, want, atol, rtol=0.0) -> float:
@@ -934,11 +946,6 @@ def sweep_rglru(gen, dev):
             close(tag + " h_last", l_k, l_r, 0.0)
 
 
-def _bound(nbytes, flops, peak):
-    b, f = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(b, f) * 1e3, ("bytes" if b >= f else "operations")
-
-
 def main_path_wkv6(cfg, dev):
     """WKV6 at full rwkv6-1.6b width in bf16: a 256-token prefill chunk of
     one sequence (1, 256, 32, 64) and a decode step of 8 slots
@@ -972,18 +979,14 @@ def main_path_wkv6(cfg, dev):
         bodies = {sp: graph_ms(lambda: WKV._launch(r, k, v, w, u, s_k, sp))
                   for sp in (0, hd // WKV.V_COLS)}
         other_ms = bodies[0 if pl["chunked"] else hd // WKV.V_COLS]
-        n = b * t * h * hd
-        nbytes = 5 * 2 * n + 4 * h * hd + 2 * 4 * b * h * hd * hd
-        flops = b * t * h * (5 * hd * hd + 3 * hd)
         # the operations at the peak of the units the planned body runs
-        # them on: the chunked body's products on the tensor cores as three
-        # TF32 products each (its split precision), the per-token body on
+        # them on (``work.wkv6``): the chunked body's products on the
+        # tensor cores as three TF32 products each, the per-token body on
         # the CUDA cores in fp32
-        if pl["chunked"]:
-            ops_n, peak, unit = 3 * flops, TF32_FLOPS, "TF32 flop (3 x split)"
-        else:
-            ops_n, peak, unit = flops, FP32_FLOPS, "fp32 flop"
-        bound, by = _bound(nbytes, ops_n, peak)
+        wk = _work().wkv6(b, t, h, hd, pl["chunked"])
+        nbytes, flops, ops_n = wk.nbytes, wk.flops, wk.issued
+        unit = "TF32 flop (3 x split)" if pl["chunked"] else "fp32 flop"
+        bound, by = wk.bound()
         log(f"  {tag}: {pl}; kernel_ms {kernel_ms:.4f} (graph-replayed "
             f"{device_ms:.4f}; by body, splits=0 per token: "
             + ", ".join(f"splits={sp} {ms:.4f}" for sp, ms in bodies.items())
@@ -991,7 +994,8 @@ def main_path_wkv6(cfg, dev):
             f"plain_ms {plain_ms:.4f} library_ms none (no single PyTorch "
             f"call computes WKV6) bound_ms {bound:.4f} ({by}: {nbytes} B, "
             f"{ops_n} {unit}; at the fp32 CUDA-core peak the operations "
-            f"alone take {flops / FP32_FLOPS * 1e3:.4f}); bound / graph "
+            f"alone take {flops / _work().peaks()['fp32'] * 1e3:.4f}); "
+            f"bound / graph "
             f"time {bound / device_ms:.3f}")
         res[phase] = dict(max_abs_err=e, ms=kernel_ms, graph_ms=device_ms,
                           plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -1040,9 +1044,9 @@ def main_path_rglru(cfg, dev):
         bodies = {ch: graph_ms(lambda: RG._launch(a, bb, h0, ch))
                   for ch in (0, RG.CHANNELS)}
         other_ms = bodies[0 if pl["channels"] else RG.CHANNELS]
-        nbytes = 3 * 4 * b * t * wd + 2 * 4 * b * wd
-        flops = 2 * b * t * wd
-        bound, by = _bound(nbytes, flops, FP32_FLOPS)
+        wk = _work().rglru(b, t, wd)
+        nbytes, flops = wk.nbytes, wk.flops
+        bound, by = wk.bound()
         log(f"  {tag}: {pl}; kernel_ms {kernel_ms:.4f} (graph-replayed "
             f"{device_ms:.4f}; by body, channels=0 per thread: "
             + ", ".join(f"channels={ch} {ms:.4f}" for ch, ms in bodies.items())
@@ -2150,7 +2154,7 @@ def fleet_ladder(cfg, params, dev, weights_s):
             ms = _ev_ms(eng.transfer_timing["fork"])
             forks.append(dict(te=eng.name, device_ms=ms,
                               gb_per_s=w / ms / 1e6,
-                              bound_ms=2 * w / HBM_BYTES_PER_S * 1e3))
+                              bound_ms=_work().bound(2 * w, 0)[0]))
         out["forks"] = forks
         out["fork_bit_equal_new_storage"] = True
         del src, eng, a, b
@@ -2273,7 +2277,7 @@ def fleet_fork_tree(cfg, dev):
                            for r in plan["rounds"]],
                    fork_device_ms=forks,
                    fork_gb_per_s=[w / ms / 1e6 for ms in forks],
-                   fork_bound_ms=2 * w / HBM_BYTES_PER_S * 1e3,
+                   fork_bound_ms=_work().bound(2 * w, 0)[0],
                    launches=launches, launches_by_te=per_te)
         log("  fork tree: " + json.dumps(out))
         return out
@@ -2713,7 +2717,7 @@ def tp_fork(cfg, params, dev):
             for x, y in zip(a, b)), f"rank {r}'s forked shards differ"
     nbytes = _nbytes(fork.runner.params)
     ms = _ev_ms(fork.transfer_timing["fork"])
-    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    bound = _work().bound(2 * nbytes, 0)[0]
     out = dict(fork_ms=ms, fork_bytes=nbytes, fork_bound_ms=bound,
                fork_gb_per_s=nbytes / ms / 1e6, bound_over_fork=bound / ms,
                shards_bit_equal_new_storage=True, card=card_line())
@@ -3332,7 +3336,8 @@ def train_run(name, steps, dev):
                      "peak_gib": peak_e, "launches": launches_e},
            "step_ms": ms, "step_ms_median": med,
            "tokens_per_s": tokens / (med / 1e3),
-           "six_n_share_of_989tf": 6 * n * tokens / (med / 1e3) / BF16_FLOPS,
+           "six_n_share_of_989tf":
+               6 * n * tokens / (med / 1e3) / _work().peaks()["bf16"],
            "peak_gib": peak, "capture_ms": cap["capture_ms"],
            "instantiate_ms": cap["instantiate_ms"], "nodes": cap["nodes"],
            "pool_gib": sum(pools.values()) / 2 ** 30,
@@ -3784,11 +3789,7 @@ def long_kernel_row(dev):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=5, warmup=1)
-    nbytes = 2 * (2 * s * h * hd) + 2 * 2 * s * hkv * hd
-    flops = 4 * h * hd * s * (s + 1) // 2
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
-        else "operations"
+    bound, by = _work().flash_prefill(1, s, h, hkv, hd, None).bound()
     log(f"  flash_prefill dense at prefill_32k ({s} tokens, H {h} / Hkv "
         f"{hkv}, hd {hd}, bf16): kernel_ms {kernel_ms:.3f}; plain_ms "
         f"{plain_ms:.3f}; library_ms (SDPA) {library_ms:.3f}; bound_ms "
@@ -4411,10 +4412,7 @@ def long_tp_kernel_row(name, launches, dev):
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=True), iters=5, warmup=1)
-    w = s if win is None else win
-    pairs = sum(min(i + 1, w) for i in range(s))
-    nbytes = 2 * (2 * s * h * hd) + 2 * 2 * s * hkv * hd
-    bound, by = _bound(nbytes, 4 * h * hd * pairs, BF16_FLOPS)
+    bound, by = _work().flash_prefill(1, s, h, hkv, hd, win).bound()
     lib = "none (no call softcaps)" if library_ms is None \
         else f"{library_ms:.3f}"
     log(f"  {tag}: kernel_ms {ms:.3f}; plain_ms {plain_ms:.3f}; library_ms "
@@ -4593,7 +4591,8 @@ def train_4k(dev):
                      "program": kind == "program", "step_ms": ms,
                      "step_ms_median": med, "tokens_per_s": tok / med * 1e3,
                      "six_n_share_of_989tf":
-                         6 * n * tok / (med / 1e3) / BF16_FLOPS,
+                         6 * n * tok / (med / 1e3)
+                         / _work().peaks()["bf16"],
                      "peak_gib": peak, "losses": losses,
                      "grad_norms": gnorms, "launches": launches, **extra})
         what = "program" if kind == "program" else \
@@ -5687,12 +5686,239 @@ def phase11_12(dev):
     return decode, prefill
 
 
+# --------------------------------------------------------------------------
+# phase 13: the production-mesh dry run on H100 terms
+# --------------------------------------------------------------------------
+
+DRYRUN_WORKERS = 2           # host processes counting the 80 records
+#                              (beside the card's host-bound phases)
+DRYRUN_FIT = 70e9            # a probe whose meta estimate exceeds this is
+#                              not run on the 80 GB card
+
+
+def _dryrun_cell(job):
+    """One dry-run record, in a pool process (no card: the count runs on
+    the meta device)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch.dryrun import compile_cell
+    arch, shape, multi = job
+    try:
+        return compile_cell(arch, shape, multi, run_probes=not multi)
+    except Exception as e:  # noqa: BLE001 — reported by phase 13
+        return {"arch": arch, "shape": shape,
+                "mesh": "multi" if multi else "single", "status": "error",
+                "error": repr(e)}
+
+
+def dryrun_start():
+    """Phase 13(a) in the background: a pool of ``DRYRUN_WORKERS`` host
+    processes counting the 80 records while the card runs the other
+    phases. Returns the futures."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from repro_torch.configs.base import SHAPES, list_configs
+    # the train cells are the slowest to count: first
+    jobs = sorted(((a, s, m) for a in list_configs() for s in SHAPES
+                   for m in (False, True)),
+                  key=lambda j: (j[1] != "train_4k", j[2]))
+    pool = cf.ProcessPoolExecutor(DRYRUN_WORKERS,
+                                  mp_context=mp.get_context("spawn"))
+    # a phase that fails ends the script: no record is counted after it
+    atexit.register(pool.shutdown, wait=False, cancel_futures=True)
+    return pool, [(j, pool.submit(_dryrun_cell, j)) for j in jobs]
+
+
+def _probe_ms(rec):
+    """A probe record's modeled max(compute, memory) in ms."""
+    pk = _work().peaks()
+    compute = sum(f / pk[u] for u, f in rec["flops_by_unit"].items())
+    return max(compute, rec["bytes_per_chip"] / pk["hbm"]) * 1e3, compute
+
+
+def _time_probe(run, inputs, reps=5):
+    """Median of ``reps`` CUDA-event times after one warm-up, in ms."""
+    import torch
+    run(**inputs)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(**inputs)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def _kernel_outputs(run, inputs):
+    """``run(**inputs)``, with the output of every call of the kernels'
+    entries recorded: each self-attention (the kernel's route or the plain
+    blockwise function, ``transformer.self_attention``), each WKV6 and
+    RG-LRU call (``ops``); [(name, output)] in call order."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    got = []
+
+    def recorder(mod, name):
+        orig = getattr(mod, name)
+
+        def rec(*a, **kw):
+            out = orig(*a, **kw)
+            got.append((name, (out[0] if isinstance(out, tuple)
+                               else out).clone()))
+            return out
+        return orig, rec
+    patches = [(mod, name, *recorder(mod, name)) for mod, name in (
+        (T, "self_attention"), (ops, "wkv6"), (ops, "rglru"))]
+    for mod, name, _, rec in patches:
+        setattr(mod, name, rec)
+    try:
+        run(**inputs)
+    finally:
+        for mod, name, orig, _ in patches:
+            setattr(mod, name, orig)
+    return got
+
+
+def hold_probe(tag, probe, dev, run, inputs):
+    """Each kernel call of a probe against its plain version (impl "ref")
+    on the same inputs, at phase 2's main-path tolerances: attention at
+    4e-3 + one bf16 step of the plain output, WKV6 in bf16 at (2e-2,
+    1e-2 |plain|), RG-LRU (fp32) at 2e-4. Returns the largest error."""
+    import torch
+    prun, pin, _ = probe.build(dev, 13, "ref")
+    got = _kernel_outputs(run, inputs)
+    want = _kernel_outputs(prun, pin)
+    assert [n for n, _ in got] == [n for n, _ in want] and got, (tag, got)
+    e = 0.0
+    for (name, g), (_, w) in zip(got, want):
+        if name == "self_attention":
+            e = max(e, check_main_path(f"{tag} attention", g, w, True))
+        elif name == "wkv6":
+            e = max(e, close(f"{tag} wkv6 y", g, w, *_wkv6_tols(g.dtype)))
+        else:
+            e = max(e, close(f"{tag} rglru h", g, w, _tol(g.dtype)))
+    del prun, pin, got, want
+    torch.cuda.empty_cache()
+    return e
+
+
+def dryrun_probes(recs, dev):
+    """Phase 13(b): each single-mesh cell's probes on the card."""
+    import torch
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import probes as PR
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import default_microbatches
+    mesh = make_production_mesh(False)
+    rows, held = [], {}
+    ops.reset_launches()
+    for (arch, shape), rec in sorted(recs.items()):
+        cfg, shp = get_config(arch), SHAPES[shape]
+        cell = PR.Cell(cfg, shp, mesh, microbatches=rec.get(
+            "microbatches", default_microbatches(cfg)))
+        by_name = {p["name"]: p for p in rec["probes"]}
+        for probe in PR.build_probes(cell):
+            pr = by_name[probe.name]
+            modeled, compute = _probe_ms(pr)
+            est = pr["argument_bytes"] + pr["peak_live_bytes"]
+            row = dict(arch=arch, shape=shape, probe=probe.name,
+                       mult=probe.mult, kernel=probe.kernel,
+                       modeled_ms=modeled, compute_ms=compute,
+                       meta_peak_gb=est / 1e9)
+            if est > DRYRUN_FIT:
+                row["not_run"] = (f"meta estimate {est / 1e9:.1f} GB > "
+                                  f"{DRYRUN_FIT / 1e9:.0f} GB")
+                log(f"  {arch} {shape} {probe.name}: not run "
+                    f"({row['not_run']})")
+                rows.append(row)
+                continue
+            _release()
+            run, inputs, _ = probe.build(dev, 13, "auto")
+            nbytes = tree_bytes(inputs)
+            assert nbytes == pr["argument_bytes"], \
+                (arch, shape, probe.name, nbytes, pr["argument_bytes"])
+            key = (arch, probe.name)
+            if probe.kernel and key not in held:
+                # the kernel's route against its plain version at this
+                # probe's shapes, on its inputs as built (a decode probe
+                # advances its cache in place; the plain run launches
+                # nothing)
+                with torch.no_grad():
+                    held[key] = row["max_abs_err"] = hold_probe(
+                        f"dryrun probe {arch} {shape} {probe.name} kernel "
+                        f"vs plain", probe, dev, run, inputs)
+                run, inputs, _ = probe.build(dev, 13, "auto")
+            torch.cuda.reset_peak_memory_stats()
+            with torch.set_grad_enabled(shp.kind == "train"):
+                ms = _time_probe(run, inputs)
+            torch.cuda.synchronize()
+            row.update(measured_ms=ms, modeled_over_measured=modeled / ms,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       argument_bytes=nbytes)
+            log(f"  {arch} {shape} {probe.name} x{probe.mult}: "
+                f"measured {ms:.4f} ms, modeled {modeled:.4f} ms "
+                f"(compute {compute:.4f}), modeled/measured "
+                f"{modeled / ms:.3f}; peak {row['peak_gb']:.2f} GB vs meta "
+                f"{est / 1e9:.2f} GB; args {nbytes} B = dry run's")
+            rows.append(row)
+            del run, inputs
+    launches = ops.launch_counts()
+    return rows, held, launches
+
+
+def phase13(dev, pool_jobs):
+    """Phase 13: (a) the pool's 80 records, (b) the probes on the card."""
+    log(f"phase 13: production-mesh dry run [{time.monotonic() - T0:.1f} s]")
+    pool, jobs = pool_jobs
+    recs = [f.result() for _, f in jobs]
+    pool.shutdown()
+    bad = [r for r in recs if r["status"] == "error"]
+    assert not bad, f"dry-run records failed: {bad[:3]}"
+    ok = [r for r in recs if r["status"] == "ok"]
+    skipped = [r for r in recs if r["status"] == "skipped"]
+    assert len(recs) == 80 and len(ok) == 70 and len(skipped) == 10, \
+        (len(recs), len(ok), len(skipped))
+    for r in sorted(recs, key=lambda r: (r["arch"], r["shape"], r["mesh"])):
+        if r["status"] == "skipped":
+            log(f"  {r['arch']} {r['shape']} {r['mesh']}: skipped "
+                f"({r['reason']})")
+            continue
+        rf = r["roofline"]
+        log(f"  {r['arch']} {r['shape']} {r['mesh']}: fits "
+            f"{r['fits']} (peak {r['peak_device_bytes'] / 1e9:.2f} GB), "
+            f"dominant {rf['dominant']}, step {rf['step_s']:.4e} s "
+            f"(compute {rf['compute_s']:.3e}, memory {rf['memory_s']:.3e},"
+            f" collective {rf['collective_s']:.3e}), useful "
+            f"{rf['useful_ratio']:.3f}, count {r['compile_s']} s")
+    log(f"phase 13(b): probes on the card [{time.monotonic() - T0:.1f} s]")
+    single = {(r["arch"], r["shape"]): r for r in ok if r["mesh"] == "single"}
+    rows, held, launches = dryrun_probes(single, dev)
+    for name in ("flash_prefill", "wkv6", "rglru"):
+        assert launches[name] > 0, f"phase 13 launched no {name}"
+    log(f"  phase 13 launches {launches} [{time.monotonic() - T0:.1f} s]")
+    return {"records": [{k: r.get(k) for k in (
+                "arch", "shape", "mesh", "status", "fits",
+                "peak_device_bytes", "argument_bytes", "roofline")}
+                for r in recs],
+            "probes": rows, "held": {f"{a} {p}": e
+                                     for (a, p), e in held.items()},
+            "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["all", "kernels", "pd", "fleet",
                                        "tp", "train", "long",
                                        "long-process", "switches",
-                                       "programs", "prefill-programs"],
+                                       "programs", "prefill-programs",
+                                       "dryrun"],
                     default="all",
                     help="'kernels' stops after phase 2 (a first check of a "
                          "new kernel); 'pd' runs phases 1 and 5 alone, "
@@ -5701,7 +5927,8 @@ def main() -> int:
                          "('long-process': phase 9 alone, the process "
                          "phase9_process starts), 'switches' phases 1 and "
                          "10, 'programs' phases 1 and 11, "
-                         "'prefill-programs' phases 1 and 12")
+                         "'prefill-programs' phases 1 and 12, 'dryrun' "
+                         "phases 1 and 13")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5715,6 +5942,8 @@ def main() -> int:
         return 0
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
+    dryrun_jobs = dryrun_start() if args.only in ("all", "dryrun") \
+        else None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -5754,6 +5983,10 @@ def main() -> int:
         return 0
     if args.only in ("pd", "fleet", "tp"):
         {"pd": phase5, "fleet": phase6, "tp": phase7}[args.only](dev)
+        log(card)
+        return 0
+    if args.only == "dryrun":
+        log(json.dumps({"dryrun": phase13(dev, dryrun_jobs)}))
         log(card)
         return 0
 
@@ -5817,14 +6050,17 @@ def main() -> int:
     longctx = phase9_process()
     switches = phase10(dev)
     programs, prefill_programs = phase11_12(dev)
+    dryrun = phase13(dev, dryrun_jobs)
     for r in rows:
         r["launches_pd"] = pd[r["arch"], r["name"]]
         r["launches_fleet"] = fleet[r["arch"], r["name"]]
         r["launches_tp"] = tp_launches.get((r["arch"], r["name"]))
         r["launches_long"] = longctx["launches"].get(r["name"], 0)
         r["launches_switches"] = switches["launches"][r["name"]]
+        r["launches_dryrun"] = dryrun["launches"][r["name"]]
     log(f"done [{time.monotonic() - T0:.1f} s]")
 
+    log(json.dumps({"dryrun": dryrun}))
     log(json.dumps({"prefill_programs": prefill_programs}))
     log(json.dumps({"programs": programs}))
     log(json.dumps({"switches": switches}))

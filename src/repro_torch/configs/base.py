@@ -91,6 +91,10 @@ class ModelConfig:
     source: str = ""
 
     @property
+    def attn_free(self) -> bool:
+        return self.attn_kind == "rwkv"
+
+    @property
     def subquadratic(self) -> bool:
         """True when a 500k-token decode context has bounded (or
         mesh-shardable-bounded) attention state: SSM / hybrid / SWA /
@@ -187,6 +191,12 @@ class ModelConfig:
         """The query heads split evenly over ``tp`` ranks (the reference's
         ``tp_heads_ok``, ``configs/base.py:205``)."""
         return self.n_heads % tp == 0
+
+    def tp_ff_ok(self, tp: int = 16) -> bool:
+        """The FFN width (each expert's under MoE) splits evenly over
+        ``tp`` ranks (``configs/base.py:208``)."""
+        f = self.moe.d_expert if self.moe is not None else self.d_ff
+        return f % tp == 0
 
 
 # ---------------------------------------------------------------------------

@@ -83,6 +83,12 @@ class HeatmapStudy:
         """Element-wise sum across all RPS values (§5.3.2 step 1)."""
         return np.sum([self.compute(r) for r in self.rps_grid], axis=0)
 
+    def stability(self) -> float:
+        """Fraction of cells whose sign is the same at every RPS value (the
+        paper reports more than 80%; ``repro/core/heatmap.py:87``)."""
+        signs = np.sign(np.stack([self.compute(r) for r in self.rps_grid]))
+        return float(np.mean(np.all(signs == signs[0], axis=0)))
+
 
 def lookup(combined: np.ndarray, prefill_lens, decode_ratios,
            p_len: int, d_len: int) -> float:

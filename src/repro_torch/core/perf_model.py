@@ -22,6 +22,11 @@ PEAK_FLOPS = 989e12        # bf16 dense FLOP/s, H100 SXM (data sheet)
 HBM_BW = 3.35e12           # bytes/s of HBM3, H100 SXM (data sheet)
 LINK_BW = 450e9            # bytes/s per direction of NVLink 4 (data sheet:
 #                            900 GB/s total, both directions)
+TF32_FLOPS = 495e12        # TF32 FLOP/s on the tensor cores, dense (data
+#                            sheet)
+FP32_FLOPS = 67e12         # fp32 FLOP/s outside the tensor cores (data
+#                            sheet)
+HBM_BYTES = 80e9           # device memory of one card (data sheet)
 MFU_PREFILL = 0.55         # modelling assumption: fraction of peak reached
 #                            in prefill (the reference's)
 MBU_DECODE = 0.70          # modelling assumption: fraction of HBM bandwidth

@@ -127,6 +127,12 @@ class Completion:
         n = max(len(self.tokens) - 1, 1)
         return (self.finish - self.arrival - self.ttft) / n
 
+    @property
+    def jct(self) -> float:
+        """Job completion time: arrival to the last token
+        (``repro/engine/flowserve.py:69``)."""
+        return self.finish - self.arrival
+
 
 @dataclass
 class EngineConfig:

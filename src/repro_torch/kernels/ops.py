@@ -16,6 +16,15 @@ and the two recurrences of the slot family.
     (``models/rglru.py::associative_scan``), the attention entries as
     "ref". The train step's route: the reference trains through these
     forms, and the CUDA kernels have no backward.
+
+A meta tensor (the dry run, ``launch/dryrun.py``) computes no values: on
+it every entry returns empty outputs of the right shapes and dtypes and
+records its kernel's work (``work.record``, the formulas of
+``kernels/work.py``) under any ``impl``, launching nothing and running
+no plain arithmetic; it adds no launch. The one exception is "scan" for
+the recurrences, the train step's differentiable forms, which run op by
+op on meta as on any device. Where the work depends on values (the paged
+entries' lengths), the meta route counts what the block tables can hold.
 """
 from __future__ import annotations
 
@@ -29,13 +38,17 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import rglru as RG
 from repro_torch.kernels import wkv6 as WKV
+from repro_torch.kernels import work as W
 
 
 def _route(x: torch.Tensor, impl: str) -> str:
-    """Where ``impl`` sends a call on ``x``: "cuda", "ref" or "scan"."""
+    """Where ``impl`` sends a call on ``x``: "cuda", "ref", "scan" or
+    "meta" (a meta tensor under "auto" or "ref")."""
     if impl not in ("auto", "ref", "scan"):
         raise ValueError(
             f"impl must be 'auto', 'ref' or 'scan', got {impl!r}")
+    if x.device.type == "meta" and impl != "scan":
+        return "meta"
     if impl != "auto":
         return impl
     if x.device.type == "cpu":
@@ -48,6 +61,13 @@ def _route(x: torch.Tensor, impl: str) -> str:
 def paged_attention(q, k_pages, v_pages, block_tables, lengths,
                     softcap: Optional[float] = None,
                     window: Optional[int] = None, impl: str = "auto"):
+    if q.is_meta:
+        b, h, hd = q.shape
+        _, p, hkv, _ = k_pages.shape
+        keys = min(block_tables.shape[1] * p, window or 2 ** 62)
+        W.record("paged_attention", W.paged_attention(
+            b, h, hkv, hd, b * keys, block_tables.numel(), q.element_size()))
+        return torch.empty_like(q)
     if _route(q, impl) != "cuda":
         return R.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                      lengths, softcap=softcap, window=window)
@@ -60,6 +80,14 @@ def paged_prefill(q, k_pages, v_pages, cu_tokens, entry_bt, entry_start,
                   window: Optional[int] = None, impl: str = "auto"):
     """Ragged paged prefill attention; ``tiles`` (from
     ``flash_prefill.build_tiles``) is read by the kernel only."""
+    if q.is_meta:
+        sb, pb = entry_bt.shape
+        n = max(1, q.shape[0] // sb)
+        cap = pb * k_pages.shape[1]
+        W.record("flash_prefill", W.paged_prefill(
+            q.shape[1], k_pages.shape[2], q.shape[2], [max(0, cap - n)] * sb,
+            [n] * sb, window, entry_bt.numel(), q.element_size()))
+        return torch.empty_like(q)
     if _route(q, impl) != "cuda":
         return R.paged_prefill_ref(q, k_pages, v_pages, cu_tokens, entry_bt,
                                    entry_start, softcap=softcap,
@@ -71,6 +99,11 @@ def paged_prefill(q, k_pages, v_pages, cu_tokens, entry_bt, entry_start,
 
 def flash_prefill(q, k, v, softcap: Optional[float] = None,
                   window: Optional[int] = None, impl: str = "auto"):
+    if q.is_meta:
+        b, s, h, hd = q.shape
+        W.record("flash_prefill", W.flash_prefill(
+            b, s, h, k.shape[2], hd, window, q.element_size()))
+        return torch.empty_like(q)
     if _route(q, impl) != "cuda":
         return R.flash_prefill_ref(q, k, v, softcap=softcap, window=window)
     return FP.flash_prefill(q, k, v, softcap=softcap, window=window)
@@ -84,6 +117,11 @@ def wkv6(r, k, v, w, u, state, impl: str = "auto"):
     tokens; differentiable, and it reads ``state`` through a copy, so
     autograd keeps the initial state it saved)."""
     route = _route(r, impl)
+    if route == "meta":
+        b, t, h, hd = r.shape
+        W.record("wkv6", W.wkv6(b, t, h, hd, WKV.plan(t, hd)["chunked"],
+                                r.element_size()))
+        return torch.empty_like(r), state
     if route == "cuda":
         return WKV.wkv6(r, k, v, w, u, state)
     if route == "scan":
@@ -101,6 +139,9 @@ def rglru(a, b, h0, impl: str = "auto"):
     "scan" the reference's associative scan with h0 folded into the first
     step."""
     route = _route(a, impl)
+    if route == "meta":
+        W.record("rglru", W.rglru(*a.shape))
+        return torch.empty_like(a), torch.empty_like(h0, dtype=torch.float32)
     if route == "cuda":
         return RG.rglru(a, b, h0)
     if route == "scan":

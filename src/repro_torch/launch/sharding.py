@@ -1,11 +1,20 @@
-"""Sharding rules of a TE's tensor parallelism (the port's own copy of the
-``mode="serve"`` half of ``repro/launch/sharding.py``).
+"""Sharding rules (the port's copy of ``repro/launch/sharding.py``): one
+set of rules for the production mesh of the dry run and for a TE's tensor
+parallelism.
 
-A spec here gives, for each leaf of a weights tree, the dimension that
-splits over the mesh's ranks, or ``None`` for a replicated leaf: where the
-reference writes ``P(None, "model")`` the port writes ``1``. The rules are
-the reference's, matched on the same path strings (``['blocks']['attn']
-['wq']``), so a test can hold the two leaf by leaf:
+A spec (``PSpec``) gives, for each dim of a leaf, the mesh axes that
+split it: None, an axis name or a tuple of names, as a JAX
+``PartitionSpec`` lists them. ``param_specs`` (train adds FSDP over
+``data``), ``cache_specs``, ``batch_spec``, ``block_param_specs`` and
+``prune_unsplittable`` are the reference's, matched on the same path
+strings (``['blocks']['attn']['wq']``), so a test holds the two leaf by
+leaf; ``shard_shape`` is one device's block under a spec.
+
+A TE is the one-axis case: its ranks form the model axis of a 1 x tp
+mesh, and its spec of a leaf is the dim that splits over them (``Spec``,
+None for a replicated leaf): ``engine_param_specs`` and
+``engine_cache_specs`` are ``model_dim`` of the pruned production rules
+at that width, where
 
   * attention projections split their heads only when ``attn_shardable``
     (query AND KV heads divide tp: the pool splits by whole KV heads);
@@ -28,14 +37,17 @@ onto a sharded TE both use it."""
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import EngineMesh
 
+TP = 16   # the production mesh's model-axis width
 Spec = Optional[int]
+Axis = Union[None, str, Tuple[str, ...]]
+PSpec = Tuple[Axis, ...]
 
 
 def attn_shardable(cfg: ModelConfig, tp: int) -> bool:
@@ -66,56 +78,161 @@ def _zip_map(fn, specs, trees: List[Any]):
     return fn(specs, trees)
 
 
-def param_specs(cfg: ModelConfig, params_like, tp: int,
-                heads_ok: bool) -> Any:
-    """The split dimension of every leaf of ``params_like`` at width
-    ``tp``: ``param_specs(..., mode="serve")`` of ``sharding.py:43-127``
-    (no FSDP). ``heads_ok`` says whether attention splits its heads (the
-    engine passes ``attn_shardable``)."""
-    def spec_for(name: str, leaf) -> Spec:
-        last, second_last = leaf.dim() - 1, leaf.dim() - 2
+def param_specs(cfg: ModelConfig, params_like, mode: str,
+                dp: Tuple[str, ...], tp: int = TP,
+                heads_ok: Optional[bool] = None) -> Any:
+    """The spec of every leaf of ``params_like`` (``sharding.py:43-127``):
+    the ``model`` axis is tensor parallelism of width ``tp``; in
+    ``mode="train"`` the weights are also FSDP-split over ``data`` on
+    their ``d_model`` dim. ``dp``: the mesh's data-parallel axes (FSDP
+    uses ``data`` alone). ``heads_ok`` overrides whether attention splits
+    its heads (default ``cfg.tp_heads_ok(tp)``; the engine passes
+    ``attn_shardable``)."""
+    if heads_ok is None:
+        heads_ok = cfg.tp_heads_ok(tp)
+    fsdp = "data" if mode == "train" else None
+
+    def spec_for(name: str, leaf) -> PSpec:
+        dims: list = [None] * leaf.dim()
+
+        def split(out_ax, in_ax):
+            # the output dim (last) and the input dim (second last)
+            dims[-1], dims[-2] = out_ax, in_ax
+            return tuple(dims)
+
         if "embed" in name:
-            return 0 if cfg.padded_vocab % tp == 0 else 1
+            if cfg.padded_vocab % tp == 0:
+                dims[0] = "model"
+                if fsdp and cfg.d_model % tp == 0:
+                    dims[1] = fsdp
+            else:
+                dims[1] = "model"
+            return tuple(dims)
         if "lm_head" in name:
-            return last
+            return split("model", fsdp)
         if any(k in name for k in ("['wq']", "['wk']", "['wv']")):
-            return last if heads_ok else None
+            return split("model" if heads_ok else None, fsdp)
         if "['wo']" in name:
-            return second_last if heads_ok else None
-        if any(k in name for k in ("['w_gate']", "['w_up']", "['cm_k']")):
-            return last
-        if any(k in name for k in ("['w_down']", "['cm_v']")):
-            return second_last
-        if any(k in name for k in ("['wr']", "['wg']", "['cm_r']")):
-            return last
-        if any(k in name for k in ("['w_in']", "['w_gate_in']")):
-            return last
-        if "['w_out']" in name and "rec" in name:
-            return second_last
-        if any(k in name for k in ("['wa']", "['wx']")):
-            return last
-        if any(k in name for k in ("['conv_w']", "['conv_b']",
-                                   "['lambda_p']")):
-            return last
-        return None     # norms, routers, loras, gates, bonus
+            return split(fsdp, "model" if heads_ok else None)
+        if any(k in name for k in ("['w_gate']", "['w_up']", "['cm_k']",
+                                   "['wr']", "['wg']", "['cm_r']",
+                                   "['w_in']", "['w_gate_in']")):
+            return split("model", fsdp)  # ffn, rwkv projections, rglru width
+        if any(k in name for k in ("['w_down']", "['cm_v']")) or \
+                ("['w_out']" in name and "rec" in name):
+            return split(fsdp, "model")
+        if any(k in name for k in ("['wa']", "['wx']", "['conv_w']",
+                                   "['conv_b']", "['lambda_p']")):
+            dims[-1] = "model"
+            return tuple(dims)
+        return tuple(dims)  # norms, routers, loras, gates, bonus
 
     return walk(params_like, spec_for)
 
 
-def prune_unsplittable(specs, params_like, tp: int) -> Any:
-    """Replicate every split whose dimension ``tp`` does not divide
-    (``sharding.py:194``)."""
-    def prune(spec: Spec, leaf) -> Spec:
-        return None if spec is None or leaf[0].shape[spec] % tp else spec
-    return _zip_map(prune, specs, [params_like])
+def cache_specs(cfg: ModelConfig, cache_like, shape: ShapeConfig,
+                dp: Tuple[str, ...], tp: int = TP) -> Any:
+    """The spec of every leaf of a dense cache (``sharding.py:130-158``):
+    batches of 16 or more split over ``dp``; the attention layers' K/V
+    sequence over ``model`` (over data x model at a smaller batch:
+    context parallelism), the rwkv state's heads when they split, the
+    RG-LRU width."""
+    rows = dp if shape.global_batch >= 16 else None
+
+    def spec_for(name: str, leaf) -> PSpec:
+        if "length" in name:
+            return (dp,) if rows else ()
+        if "['k']" in name or "['v']" in name:
+            return (None, dp, "model", None, None) if rows \
+                else (None, None, ("data", "model"), None, None)
+        if "cross_k" in name or "cross_v" in name:
+            return (None, rows, None, None, None)
+        if "['state']" in name:
+            return (None, rows, "model" if cfg.tp_heads_ok(tp) else None,
+                    None, None)
+        if "last_tm" in name or "last_cm" in name:
+            return (None, rows, None)
+        if "['h']" in name:
+            return (None, rows, "model")
+        if "['conv']" in name:
+            return (None, rows, None, "model")
+        return ()
+
+    return walk(cache_like, spec_for)
+
+
+def batch_spec(shape: ShapeConfig, dp: Tuple[str, ...],
+               ndim: int = 2) -> PSpec:
+    """Token batches: the batch over the DP axes (``sharding.py:161``)."""
+    if shape.global_batch < 16:
+        return (None,) * ndim
+    return (dp,) + (None,) * (ndim - 1)
+
+
+def block_param_specs(cfg: ModelConfig, params_like, mode: str,
+                      dp: Tuple[str, ...]) -> Dict[str, Any]:
+    """Per-layer specs of the stacked towers, the layer dim stripped
+    (``sharding.py:168``)."""
+    full = param_specs(cfg, params_like, mode, dp)
+    return {tower: walk(full[tower], lambda _, sp: sp[1:])
+            for tower in ("blocks", "enc_blocks", "cross_blocks")
+            if tower in full}
+
+
+def _axes(entry: Axis) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _ways(entry: Axis, axis_sizes: Dict[str, int]) -> int:
+    n = 1
+    for a in _axes(entry):
+        n *= axis_sizes[a]
+    return n
+
+
+def prune_unsplittable(spec_tree, arrays_like,
+                       axis_sizes: Dict[str, int]) -> Any:
+    """Replicate every entry whose axes do not divide their dim
+    (``sharding.py:194``). ``axis_sizes``: the mesh's {axis: size}."""
+    def prune(spec: PSpec, leaf) -> PSpec:
+        dims = list(spec) + [None] * (leaf[0].dim() - len(spec))
+        return tuple(None if ax is not None and
+                     leaf[0].shape[i] % _ways(ax, axis_sizes) else ax
+                     for i, ax in enumerate(dims))
+    return _zip_map(prune, spec_tree, [arrays_like])
+
+
+def shard_shape(shape, spec: PSpec, axis_sizes: Dict[str, int]) -> tuple:
+    """One device's block of a leaf of ``shape`` under ``spec``: each dim
+    cut by the product of its axes, rounded up (an uneven split is padded,
+    as GSPMD pads it)."""
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    return tuple(-(-n // _ways(ax, axis_sizes))
+                 for n, ax in zip(shape, dims))
+
+
+def model_dim(spec: PSpec) -> Spec:
+    """The dim a spec splits over ``model`` (None: no such dim)."""
+    return next((i for i, ax in enumerate(spec) if "model" in _axes(ax)),
+                None)
+
+
+def _engine(specs, like, tp: int) -> Any:
+    """The one-axis case: the ``model`` dims of ``specs`` pruned on a TE's
+    1 x tp mesh."""
+    pruned = prune_unsplittable(specs, like, {"data": 1, "model": tp})
+    return _zip_map(lambda sp, _: model_dim(sp), pruned, [like])
 
 
 def engine_param_specs(cfg: ModelConfig, params_like, tp: int) -> Any:
     """A TE's weight specs at width ``tp`` (``engine_param_shardings``,
-    ``sharding.py:214``)."""
-    specs = param_specs(cfg, params_like, tp,
-                        heads_ok=attn_shardable(cfg, tp))
-    return prune_unsplittable(specs, params_like, tp)
+    ``sharding.py:214``): ``param_specs`` in serve mode with
+    ``attn_shardable``, pruned, as split dims."""
+    return _engine(param_specs(cfg, params_like, "serve", ("data",), tp,
+                               heads_ok=attn_shardable(cfg, tp)),
+                   params_like, tp)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,18 +268,21 @@ def engine_cache_specs(cfg: ModelConfig, cache_like, tp: int) -> Any:
     cache replicate. ``prune_unsplittable`` applies. The reference splits
     16 or more slots over its data axis, of size 1 in a TE, so the model
     axis stands on these dims at any slot count."""
-    def spec_for(name: str, leaf) -> Spec:
-        if name in ("['k']", "['v']"):
-            return 2
-        if name == "['state']":
-            return 2 if cfg.tp_heads_ok(tp) else None
-        if name == "['h']":
-            return 2
-        if name == "['conv']":
-            return 3
-        return None     # length, last_tm, last_cm, cross_k, cross_v
+    rows = cache_like["length"].shape[0]
+    shape = ShapeConfig("engine_slots", "decode", 0, rows)
+    return _engine(cache_specs(cfg, cache_like, shape, ("data",), tp),
+                   cache_like, tp)
 
-    return prune_unsplittable(walk(cache_like, spec_for), cache_like, tp)
+
+def mesh_cache_specs(cfg: ModelConfig, cache_like, mesh: EngineMesh) -> Any:
+    """``engine_cache_specs`` over ``mesh``'s ranks. A ``DeviceMesh`` (rank
+    0 of a model axis, run alone) holds rank 0's part of the recurrent
+    states (heads, width) at the axis's width and the attention K/V whole:
+    the one-rank prefill builders place every position into it."""
+    if mesh.ways == mesh.tp:
+        return engine_cache_specs(cfg, cache_like, mesh.tp)
+    specs = engine_cache_specs(cfg, cache_like, mesh.ways)
+    return {k: None if k in ("k", "v") else d for k, d in specs.items()}
 
 
 def engine_decode_state_device(mesh: EngineMesh) -> torch.device:
@@ -212,7 +332,7 @@ def rank_zeros(shape, dtype: torch.dtype, dim: Spec,
     if dim is None:
         return [torch.zeros(shape, dtype=dtype, device=mesh.device)] * mesh.tp
     part = list(shape)
-    part[dim] //= mesh.tp
+    part[dim] //= mesh.ways
     return [torch.zeros(part, dtype=dtype, device=d) for d in mesh.devices]
 
 

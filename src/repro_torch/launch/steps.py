@@ -7,7 +7,10 @@
     (``repro/launch/dryrun.py:158-161``, params and optimizer state
     donated); the port's compiled form of that body is
     ``training.TrainProgram``, which updates both in place, as donation
-    lets XLA do, and which ``training.train`` runs.
+    lets XLA do, and which ``training.train`` runs. The port's dry run
+    (``launch/dryrun.py``) counts this body on the meta device, its
+    bundle's forward reading one device's storage blocks
+    (``launch/probes.py::step_program``).
   * ``build_prefill_step`` — prompt -> (last-position logits, cache) from
     scratch, every family (dense and MoE, VLM, enc-dec, rwkv, hybrid)
     through one body: ``serving.tower``'s layers from zeroed caches, each
@@ -130,15 +133,8 @@ def build_prefill_step(cfg: ModelConfig, attn_impl: str = "flash",
               for key in ("k", "v") if key in c0}
 
         def attend(lps, x, ai, win):
-            # a pre-norm attention block that places its fresh K/V
-            # (``steps.py:150-166``)
-            qkv = T.block_qkv(cfg, lps, x, pos, mesh)
-            outs = S.fresh_heads(cfg, qkv, pos, win, mode, impl)
-            for i, key in ((1, "k"), (2, "v")):
-                _place_kv([part[ai] for part in kv[key]],
-                          mesh.all_gather([t[i] for t in qkv], 2), ring)
-            del qkv
-            return T.block_out(cfg, lps, x, outs, mesh, groups=groups)
+            return prefill_attn_layer(cfg, lps, x, pos, kv, ai, win, mode,
+                                      impl, ring, mesh, groups)
         x = S.tower(cfg, ps, x, caches, mesh, attend, None, impl)
         c0["length"].fill_(s)
         return T.unembed(cfg, ps, x[:, -1:], mesh)[:, 0], caches
@@ -151,6 +147,25 @@ def build_prefill_step(cfg: ModelConfig, attn_impl: str = "flash",
                                    one_rank(tokens.device))
         return logits, cache
     return one_tree
+
+
+def prefill_attn_layer(cfg: ModelConfig, lps: list, x: torch.Tensor,
+                       pos: list, kv: dict, ai: int, win: int, mode: str,
+                       impl: str, ring: bool, mesh: EngineMesh,
+                       groups: int) -> torch.Tensor:
+    """One pre-norm attention block of the prefill builder, which places
+    its fresh K/V (``steps.py:150-166``): queries over the prompt's own
+    K/V (``serving.fresh_heads``), the K/V heads gathered and placed into
+    attention layer ``ai`` of the cache's sequence parts ``kv`` ({"k",
+    "v"}: each rank's part of the stacked cache)."""
+    qkv = T.block_qkv(cfg, lps, x, pos, mesh)
+    outs = S.fresh_heads(cfg, qkv, pos, win, mode, impl)
+    for i, key in ((1, "k"), (2, "v")):
+        _place_kv([part[ai] for part in kv[key]],
+                  mesh.all_gather([t[i] for t in qkv], 2, cfg.n_kv_heads),
+                  ring)
+    del qkv
+    return T.block_out(cfg, lps, x, outs, mesh, groups=groups)
 
 
 def _place_kv(parts: List[torch.Tensor], new: torch.Tensor,

@@ -96,9 +96,9 @@ def moe_apply(ps: list, x: torch.Tensor, cfg: MoEConfig, act: str, mesh,
     # gradient by up to 1.8e-4 from run to run on the card
     xg = x.reshape(t, d)[flat].view(groups, e, cap, d)
     xg = xg * keep[..., None].to(xg.dtype)
-    width = ps[0]["w_up"].shape[-1]
+    ranks = cfg.d_expert // ps[0]["w_up"].shape[-1]
     y = mesh.all_reduce([_experts(p, xr, act) for p, xr in
-                         zip(ps[:cfg.d_expert // width], mesh.broadcast(xg))])
+                         zip(ps[:ranks], mesh.broadcast(xg))], ranks)
     y = y * (sel_scores * keep)[..., None].to(y.dtype)
     # an accumulating index_put_ sums each token's rows in flat order (a
     # sort, then one pass per token, in fp32 on the card), the same every

@@ -182,10 +182,13 @@ def rglru_block_apply(ps: list, x: torch.Tensor, h0s: list, convs: list,
         us.append(u)
         new_convs.append(c)
     hs, ys = [], []
-    for p, ua, u, h0, g in zip(ranks, mesh.broadcast(mesh.all_gather(us, -1)),
+    full = ps[0]["wa"].shape[0]
+    for p, ua, u, h0, g in zip(ranks,
+                               mesh.broadcast(mesh.all_gather(us, -1, full)),
                                us, h0s, gates):
         hseq, h = rglru_scan(p, ua, u, h0, n_valid=n_valid, impl=impl)
         hs.append(h)
         ys.append(hseq.to(x.dtype) * g)
-    return mesh.all_reduce([y @ p["w_out"] for p, y in zip(ranks, ys)]), \
+    return mesh.all_reduce([y @ p["w_out"] for p, y in zip(ranks, ys)],
+                           full // ps[0]["w_in"].shape[-1]), \
         hs, new_convs

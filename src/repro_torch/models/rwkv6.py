@@ -182,7 +182,7 @@ def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
         out = [ar @ p[wname] for p, ar in zip(
             split_ranks(ps, d, p0[wname].shape[-1]),
             mesh.broadcast(a.to(x.dtype)))]
-        return mesh.regroup(out, len(parts), -1)
+        return mesh.regroup(out, d // cols, -1, d)
 
     rs, ks, vs = (proj(mixed(i), n) for i, n in ((0, "wr"), (1, "wk"),
                                                  (2, "wv")))
@@ -216,7 +216,8 @@ def rwkv_time_mix(ps: list, x: torch.Tensor, head_dim: int, states: list,
         ys.append((y32.reshape(b, t, cols) * p["ln_x"][c]).to(x.dtype) * g)
     wo = split_ranks(ps, d, p0["wo"].shape[-2])
     out = mesh.all_reduce([y @ p["wo"] for p, y in zip(
-        wo, mesh.regroup(ys, len(wo), -1))])
+        wo, mesh.regroup(ys, d // p0["wo"].shape[-2], -1, d))],
+        d // p0["wo"].shape[-2])
     return out, states, _last_valid(x, n_valid)
 
 
@@ -236,9 +237,9 @@ def rwkv_channel_mix(ps: list, x: torch.Tensor, last_x: torch.Tensor,
     kv = mesh.all_reduce([
         torch.relu(a @ p["cm_k"]).square() @ p["cm_v"] for p, a in zip(
             split_ranks(ps, d_ff, p0["cm_k"].shape[-1]),
-            mesh.broadcast(xk))])
+            mesh.broadcast(xk))], d_ff // p0["cm_k"].shape[-1])
     rr = mesh.all_gather([
         torch.sigmoid((a @ p["cm_r"]).float()).to(x.dtype) for p, a in zip(
             split_ranks(ps, d, p0["cm_r"].shape[-1]), mesh.broadcast(xr))],
-        -1)
+        -1, d)
     return rr * kv, _last_valid(x, n_valid)

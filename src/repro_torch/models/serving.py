@@ -64,6 +64,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import sharding as SH
@@ -122,7 +123,16 @@ def cache_like(cfg: ModelConfig, batch: int, max_len: int,
     shapes and dtypes alone). With ``ring`` (``swa`` and
     ``hybrid_rglru`` only) the attention cache is a rotating buffer of
     ``min(max_len, ring_len(cfg))`` slots, sized by the window and not by
-    the context (``serving.py:45-57``)."""
+    the context (``serving.py:45-57``). Meta leaves are made outside any
+    dispatch mode: they are shapes, not work (``launch/meta_count.py``
+    counts the step that calls this)."""
+    if torch.device(device).type == "meta":
+        with _disable_current_modes():
+            return _cache_like(cfg, batch, max_len, dtype, device, ring)
+    return _cache_like(cfg, batch, max_len, dtype, device, ring)
+
+
+def _cache_like(cfg, batch, max_len, dtype, device, ring):
     if cfg.attn_kind not in ("rwkv", "hybrid_rglru", "global", "swa",
                              "local_global"):
         raise NotImplementedError(f"attn_kind {cfg.attn_kind!r}")
@@ -174,7 +184,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     storage of its own on its device (the kernels take a rank's state as
     a whole tensor), a replicated leaf once on rank 0's."""
     like = cache_like(cfg, batch, max_len, dtype, ring=ring)
-    specs = SH.engine_cache_specs(cfg, like, mesh.tp)
+    specs = SH.mesh_cache_specs(cfg, like, mesh)
     parts = {k: SH.rank_zeros(v.shape, v.dtype, specs[k], mesh)
              for k, v in like.items()}
     return [{k: parts[k][r] for k in like} for r in range(mesh.tp)]
@@ -415,14 +425,15 @@ def _seq_attention(cfg, lps, x, positions, plan, ai, win, mesh,
     hold it, before the output projection."""
     pos = mesh.broadcast(positions)
     qkv = T.block_qkv(cfg, lps, x, pos, mesh)
-    k_new, v_new = (mesh.all_gather([t[i] for t in qkv], 2) for i in (1, 2))
+    k_new, v_new = (mesh.all_gather([t[i] for t in qkv], 2, cfg.n_kv_heads)
+                    for i in (1, 2))
     for part, kr, vr in zip(plan, mesh.broadcast(k_new),
                             mesh.broadcast(v_new)):
         _write(part["k"][ai], kr, part)
         _write(part["v"][ai], vr, part)
     if fresh is not None:
         return fresh_heads(cfg, qkv, pos, win, *fresh)
-    q = mesh.all_gather([t[0] for t in qkv], 2)
+    q = mesh.all_gather([t[0] for t in qkv], 2, cfg.n_heads)
     items = []
     for part, qr in zip(plan, mesh.broadcast(q)):
         ck, cv = part["k"][ai], part["v"][ai]
@@ -431,7 +442,7 @@ def _seq_attention(cfg, lps, x, positions, plan, ai, win, mesh,
             ck, cv = ck[at], cv[at]
         items.append((qr, ck.to(q.dtype), cv.to(q.dtype), _mask(part, win)))
     o = _attend(items, cfg.attn_logit_softcap, mesh)
-    return mesh.scatter(o, len(qkv), 2)
+    return mesh.scatter(o, cfg.n_heads // qkv[0][0].shape[2], 2)
 
 
 def fresh_heads(cfg: ModelConfig, qkv: list, positions: list, win: int,
@@ -507,12 +518,20 @@ def decode_step(cfg: ModelConfig, ps: list, token: torch.Tensor,
         if "k" in caches[0] else None
 
     def attend(lps, x, ai, win):
-        return T.block_out(cfg, lps, x, _seq_attention(
-            cfg, lps, x, positions, plan, ai, win, mesh), mesh)
+        return decode_attn_layer(cfg, lps, x, positions, plan, ai, win, mesh)
     x = tower(cfg, ps, x, caches, mesh, attend, None, impl)
     lengths.add_(1)
     logits = T.unembed(cfg, ps, x, mesh)
     return logits[:, 0, :], caches
+
+
+def decode_attn_layer(cfg: ModelConfig, lps: list, x: torch.Tensor,
+                      positions: torch.Tensor, plan: List[dict], ai: int,
+                      win: int, mesh: EngineMesh) -> torch.Tensor:
+    """One attention block of a decode step over attention layer ``ai``
+    of the cache (``plan``: the step's ``_decode_plan``)."""
+    return T.block_out(cfg, lps, x, _seq_attention(
+        cfg, lps, x, positions, plan, ai, win, mesh), mesh)
 
 
 def _decode_plan(cfg, caches, positions, mesh) -> List[dict]:

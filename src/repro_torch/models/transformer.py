@@ -198,6 +198,20 @@ def layer(params, li: int, key: str = "blocks") -> dict:
     return pick(params[key])
 
 
+def layers(params, key: str = "blocks") -> list:
+    """Every layer's view of the stacked ``params[key]`` tree, by one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where taking the layers one by one (``layer``) would give each its own
+    zeroed stack to add (the forward's and the train step's form)."""
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return list(torch.unbind(t, 0))
+    return split(params[key])
+
+
 def window_schedule(cfg: ModelConfig) -> List[int]:
     return [(cfg.window or GLOBAL_WINDOW) if kind == "attn_local"
             else GLOBAL_WINDOW for kind in cfg.layer_kinds()]
@@ -230,8 +244,8 @@ def embed(cfg: ModelConfig, ps: list, tokens: torch.Tensor,
         t = toks[r] - (r * rows) % cfg.padded_vocab
         ok = ((t >= 0) & (t < rows))[..., None]
         parts.append(p["embed"][t.clamp(0, rows - 1)].masked_fill(~ok, 0))
-    x = mesh.all_gather(parts, -1) if cols < cfg.d_model \
-        else mesh.all_reduce(parts)
+    x = mesh.all_gather(parts, -1, cfg.d_model) if cols < cfg.d_model \
+        else mesh.all_reduce(parts, cfg.padded_vocab // rows)
     if cfg.embed_scale:
         # the scale is rounded to the embedding's dtype first, as in the
         # reference (a bf16 model multiplies by bf16(sqrt(d)))
@@ -255,8 +269,8 @@ def unembed(cfg: ModelConfig, ps: list, x: torch.Tensor,
              for r, (hr, w) in enumerate(zip(
                  hs, split_ranks(heads, cfg.padded_vocab * cfg.d_model,
                                   d * v)))]
-    logits = mesh.all_reduce(parts) if d < cfg.d_model \
-        else mesh.all_gather(parts, -1)
+    logits = mesh.all_reduce(parts, cfg.d_model // d) if d < cfg.d_model \
+        else mesh.all_gather(parts, -1, cfg.padded_vocab)
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
@@ -288,7 +302,9 @@ def block_out(cfg: ModelConfig, ps: list, x: torch.Tensor, os: list,
     partials are all-reduced; the split MLP's are too. gemma2's post-norms
     apply to the reduced sums. The engine's passes take one group, as the
     reference's paged runner does."""
-    a = mesh.all_reduce([L.attn_out(p["attn"], o) for p, o in zip(ps, os)])
+    a = mesh.all_reduce([L.attn_out(p["attn"], o) for p, o in zip(ps, os)],
+                        cfg.n_heads * cfg.head_dim
+                        // ps[0]["attn"]["wo"].shape[-2])
     if cfg.post_norms:
         a = L.apply_norm(a, ps[0]["ln1_post"], cfg.norm)
     x = x + a
@@ -310,7 +326,8 @@ def _ffn(cfg: ModelConfig, ps: list, h: torch.Tensor, mesh,
     w = ps[0]["mlp"]["w_up"].shape[-1]
     return mesh.all_reduce([L.mlp_apply(p["mlp"], hr, cfg.mlp_act)
                             for p, hr in zip(split_ranks(ps, cfg.d_ff, w),
-                                             mesh.broadcast(h))])
+                                             mesh.broadcast(h))],
+                           cfg.d_ff // w)
 
 
 def self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -331,9 +348,11 @@ def self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     CUDA tensors under ``impl="auto"`` launches the dense ``flash_prefill``
     kernel, with the window and the softcap (it refuses autograd: a loss
     passes ``impl="scan"``), and raises for other positions; ``impl="ref"``
-    or ``"scan"`` and CPU tensors run the plain blockwise function. The
-    kernel is causal only, so a non-causal call past the switch is plain at
-    every route."""
+    or ``"scan"`` and CPU tensors run the plain blockwise function. On
+    meta tensors (the dry run) a causal from-scratch call takes the
+    kernel's meta route (``ops``) under "auto" or "ref". The kernel is
+    causal only, so a non-causal call past the switch is plain at every
+    route."""
     if attn_impl not in ("naive", "flash", "auto"):
         raise ValueError(f"attn_impl must be 'naive', 'flash' or 'auto', "
                          f"got {attn_impl!r}")
@@ -342,7 +361,8 @@ def self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     if attn_impl == "naive" or (attn_impl == "auto" and sk <= FLASH_SWITCH):
         mask = L.causal_mask(q_pos, k_pos, window) if causal else None
         return L.attention(q, k, v, mask, cap)
-    if causal and ops._route(q, impl) == "cuda":
+    route = ops._route(q, impl)
+    if causal and (route == "cuda" or (route == "meta" and from_scratch)):
         if not from_scratch:
             raise NotImplementedError(
                 "the flash_prefill kernel attends positions 0..S-1 of a "
@@ -362,10 +382,11 @@ def self_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 def attn_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      positions: torch.Tensor, window: int,
                      attn_impl: str = "auto", impl: str = "auto",
-                     from_scratch: bool = False) -> torch.Tensor:
+                     from_scratch: bool = False, mesh=None) -> torch.Tensor:
     """A whole attention block over the block's own tokens (the
-    teacher-forced path), its attention by ``self_attention``."""
-    mesh = one_rank(x.device)
+    teacher-forced path), its attention by ``self_attention``. ``mesh``:
+    one rank's (``one_rank`` of x's device, or a ``DeviceMesh``)."""
+    mesh = mesh or one_rank(x.device)
     (q, k, v), = block_qkv(cfg, [p], x, [positions], mesh)
     o = self_attention(cfg, q, k, v, positions, positions, window,
                        attn_impl, impl=impl, from_scratch=from_scratch)
@@ -445,7 +466,7 @@ def cross_block_apply(cfg: ModelConfig, ps: list, x: torch.Tensor,
         parts.append(L.attn_out(p["attn"], L.attention(
             q, mk[:, :, g].to(q.dtype), mv[:, :, g].to(q.dtype), None,
             cfg.attn_logit_softcap)))
-    o = mesh.all_reduce(parts)
+    o = mesh.all_reduce(parts, cfg.n_heads * hd // width)
     if not gated:
         return x + o
     x = x + torch.tanh(p0["gate_attn"]).to(o.dtype) * o
@@ -465,7 +486,8 @@ def memory_kv(cfg: ModelConfig, ps_attn: list, mem: torch.Tensor, mesh):
 
     def proj(name):
         return mesh.all_gather([(m @ p[name]).reshape(b, s, width // hd, hd)
-                                for p, m in zip(ranks, mems)], 2)
+                                for p, m in zip(ranks, mems)], 2,
+                               cfg.n_kv_heads)
     return proj("wk"), proj("wv")
 
 
@@ -481,19 +503,24 @@ def encode(cfg: ModelConfig, ps: list, frames: torch.Tensor,
     (``_maybe_remat``)."""
     b, f, _ = frames.shape
     pos = mesh.broadcast(torch.arange(f, device=frames.device).expand(b, f))
-
-    def enc_layer(x, lps):
-        return block_out(cfg, lps, x, [
-            self_attention(cfg, q, k, v, p, p, None, attn_impl,
-                           causal=False)
-            for (q, k, v), p in zip(block_qkv(cfg, lps, x, pos, mesh), pos)],
-            mesh)
-
-    blk = _maybe_remat(enc_layer, remat)
+    blk = _maybe_remat(functools.partial(encoder_layer, cfg, pos, mesh,
+                                         attn_impl), remat)
+    encs = [layers(p, "enc_blocks") for p in ps] \
+        if cfg.encoder.n_layers else []
     x = frames
     for li in range(cfg.encoder.n_layers):
-        x = blk(x, [layer(p, li, "enc_blocks") for p in ps])
+        x = blk(x, [e[li] for e in encs])
     return L.apply_norm(x, ps[0]["enc_final_norm"], cfg.norm)
+
+
+def encoder_layer(cfg: ModelConfig, pos: list, mesh, attn_impl: str,
+                  x: torch.Tensor, lps: list) -> torch.Tensor:
+    """One encoder layer of ``encode`` over the ranks' layer trees
+    ``lps`` (``pos``: the frame positions as each rank reads them)."""
+    return block_out(cfg, lps, x, [
+        self_attention(cfg, q, k, v, p, p, None, attn_impl, causal=False)
+        for (q, k, v), p in zip(block_qkv(cfg, lps, x, pos, mesh), pos)],
+        mesh)
 
 
 def _maybe_remat(fn, remat: bool):
@@ -511,7 +538,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             vision_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, attn_impl: str = "auto",
-            impl: str = "auto", remat: bool = False) -> torch.Tensor:
+            impl: str = "auto", remat: bool = False,
+            mesh=None) -> torch.Tensor:
     """Teacher-forced logits (B, S, padded_vocab) with zero initial
     recurrent states — the counterpart of ``T.forward``, its
     self-attention by ``attn_impl`` ("naive", "flash" or "auto": naive up
@@ -525,49 +553,25 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     reference's sequence forms, attention plain) or "ref" (the per-token
     loops), since the CUDA kernels have no backward and refuse it.
     ``remat`` recomputes each block in the backward (a decoder layer with
-    the cross block that follows it, as one). Used by the train loop, the
+    the cross block that follows it, as one). ``mesh``: one rank's, the
+    default ``one_rank`` of the tokens' device, or the dry run's
+    ``DeviceMesh`` with ``params`` rank 0's tree (each recurrent state is
+    sized to the tree's heads or width). Used by the train loop, the
     tests and the on-card greedy oracle."""
     b, s = tokens.shape
     from_scratch = positions is None
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    mesh = one_rank(tokens.device)
+    mesh = mesh or one_rank(tokens.device)
     x = embed(cfg, [params], tokens, mesh)
-    dev = x.device
+    body = layer_bodies(cfg, mesh, positions, attn_impl, impl, from_scratch)
     if cfg.attn_kind == "rwkv":
-        nh, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
-
-        def rwkv_layer(x, lp):
-            # the zero states are made inside the block: ops.wkv6 writes
-            # the final state over its input on every route (the chunked
-            # form of impl "scan" reads it through a copy), and a
-            # recomputed block must start from zeros again
-            state = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
-                                device=dev)
-            last = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=dev)
-            return rwkv_block_apply(cfg, [lp], x, [state], last, last, mesh,
-                                    impl=impl)[0]
-
-        blk = _maybe_remat(rwkv_layer, remat)
-        for li in range(cfg.n_layers):
-            x = blk(x, layer(params, li))
+        blk = _maybe_remat(body["rwkv"], remat)
+        for lp in layers(params) if cfg.n_layers else []:
+            x = blk(x, lp)
     elif cfg.attn_kind == "hybrid_rglru":
-        w, cw = cfg.rglru.lru_width, cfg.rglru.conv1d_width
-
-        def rglru_layer(x, lp):
-            return rglru_block_apply(
-                cfg, [lp], x,
-                [torch.zeros((b, w), dtype=torch.float32, device=dev)],
-                [torch.zeros((b, cw - 1, w), dtype=x.dtype, device=dev)],
-                mesh, impl=impl)[0]
-
-        def attn_layer(x, lp):
-            return attn_block_apply(cfg, lp, x, positions,
-                                    cfg.window or GLOBAL_WINDOW, attn_impl,
-                                    impl, from_scratch)
-
-        rec_blk = _maybe_remat(rglru_layer, remat)
-        att_blk = _maybe_remat(attn_layer, remat)
+        rec_blk = _maybe_remat(body["rglru"], remat)
+        att_blk = _maybe_remat(body["attn"], remat)
         ri = ai = 0
         for kind in cfg.layer_kinds():
             if kind == "rglru":
@@ -583,23 +587,60 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
                 raise ValueError(f"{cfg.name}: an enc-dec model needs frames")
             mem = encode(cfg, [params], frames, mesh, remat=remat,
                          attn_impl=attn_impl)
-
-        def dec_layer(x, lp, win, pc, gated):
-            x = attn_block_apply(cfg, lp, x, positions, win, attn_impl, impl,
-                                 from_scratch)
-            if pc is None:
-                return x
-            return cross_block_apply(cfg, [pc], x,
-                                     *memory_kv(cfg, [pc["attn"]], mem, mesh),
-                                     gated, mesh)
-
-        blk = _maybe_remat(dec_layer, remat)
+        blk = _maybe_remat(body["dec"], remat)
+        decs = layers(params) if cfg.n_layers else []
+        crosses = layers(params, "cross_blocks") \
+            if cross and mem is not None else []
         for li, win in enumerate(window_schedule(cfg)):
             ci, gated = cross.get(li, (None, False))
-            pc = None if ci is None or mem is None \
-                else layer(params, ci, "cross_blocks")
-            x = blk(x, layer(params, li), win, pc, gated)
+            pc = None if ci is None or mem is None else crosses[ci]
+            x = blk(x, decs[li], win, pc, gated, mem)
     return unembed(cfg, [params], x, mesh)
+
+
+def layer_bodies(cfg: ModelConfig, mesh, positions: torch.Tensor,
+                 attn_impl: str, impl: str, from_scratch: bool) -> dict:
+    """``forward``'s layer bodies, each ``(x, layer tree, ...) -> x``:
+    "rwkv" and "rglru" (from zero recurrent states sized to the tree's
+    heads or width: ``ops.wkv6`` writes the final state over its input on
+    every route, and a recomputed block must start from zeros again),
+    "attn" (the hybrid tower's attention block) and "dec" (a decoder
+    layer, then the cross block ``pc`` that follows it over the memory
+    ``mem``, when there is one: one remat unit)."""
+    b = positions.shape[0]
+    dev = positions.device
+
+    def rwkv(x, lp):
+        hd = cfg.rwkv.head_dim
+        state = torch.zeros((b, lp["tm"]["wk"].shape[-1] // hd, hd, hd),
+                            dtype=torch.float32, device=dev)
+        last = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=dev)
+        return rwkv_block_apply(cfg, [lp], x, [state], last, last, mesh,
+                                impl=impl)[0]
+
+    def rglru(x, lp):
+        w, cw = lp["rec"]["w_in"].shape[-1], cfg.rglru.conv1d_width
+        return rglru_block_apply(
+            cfg, [lp], x,
+            [torch.zeros((b, w), dtype=torch.float32, device=dev)],
+            [torch.zeros((b, cw - 1, w), dtype=x.dtype, device=dev)],
+            mesh, impl=impl)[0]
+
+    def attn(x, lp):
+        return attn_block_apply(cfg, lp, x, positions,
+                                cfg.window or GLOBAL_WINDOW, attn_impl,
+                                impl, from_scratch, mesh)
+
+    def dec(x, lp, win, pc=None, gated=False, mem=None):
+        x = attn_block_apply(cfg, lp, x, positions, win, attn_impl, impl,
+                             from_scratch, mesh)
+        if pc is None:
+            return x
+        return cross_block_apply(cfg, [pc], x,
+                                 *memory_kv(cfg, [pc["attn"]], mem, mesh),
+                                 gated, mesh)
+
+    return {"rwkv": rwkv, "rglru": rglru, "attn": attn, "dec": dec}
 
 
 def cross_schedule(cfg: ModelConfig) -> Dict[int, tuple]:
